@@ -12,7 +12,14 @@ Phases, in order; any failure exits non-zero:
    counts show it went through the kernels, its output must equal a run
    with the plain DP, and it must recover the planted 1-1 pairs;
 4. time each kernel against its plain version and its bound at the main
-   path's shapes, and the stage-5.4 run by phase.
+   path's shapes, and the stage-5.4 run by phase;
+5. run the stage-5.3 CLI (``svecalign_tpu_torch.seg_align.embed``) with the
+   full-width 24-layer SONAR encoder (bf16, random weights from a seed) on
+   a synthetic 10-minute document written from a seed: the rel-key kernel
+   must run 24 times per chunk and the plain attention never, the rows
+   must be finite and agree (per-row cosine >= 0.99) with a run on the
+   plain attention path; then the stage's phases, and the kernel timed at
+   the modal bucket against its plain version, SDPA and its bound.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -33,6 +40,9 @@ N_SRC, N_TGT = 1200, 1100  # segments of an hour-scale plenary pair
 STEM = "20180313-0900-PLENARY-SYN"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores
+DOC_SECONDS = 600  # the stage-5.3 document: 10 minutes of 16 kHz audio
+MIN_COSINE = 0.99  # kernel run vs plain-attention run, per .embed row
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +256,92 @@ KERNEL_CASES = [
 ]
 
 
+def _ragged(rng, n, lo, hi, zeros=0):
+    lens = rng.integers(lo, hi + 1, n)
+    lens[:zeros] = 0
+    return tuple(int(x) for x in lens)
+
+
+_ARNG = np.random.default_rng(77)
+# (name, B, H, T, lengths (None: all T valid), left, right): the four
+# geometries of the tests, the asymmetric clip, a ragged chunk with
+# padding-only rows, and chunks of the main path's 700- and 1400-frame
+# buckets (T = 350 and 700 after stacking)
+ATTN_CASES = [
+    ("test geometry B=2 H=4 T=200", 2, 4, 200, (200, 150), 64, 8),
+    ("test geometry B=1 H=2 T=128", 1, 2, 128, (128,), 64, 8),
+    ("test geometry B=1 H=2 T=300", 1, 2, 300, (300,), 64, 8),
+    ("test geometry B=2 H=2 T=384", 2, 2, 384, (384, 40), 64, 8),
+    ("asymmetric clip (16, 4), no lengths", 1, 2, 260, None, 16, 4),
+    ("ragged chunk B=16 with length-0 rows", 16, 16, 350, _ragged(_ARNG, 16, 1, 350, 3), 64, 8),
+    ("main-path chunk B=16 H=16 T=350", 16, 16, 350, _ragged(_ARNG, 16, 250, 350), 64, 8),
+    ("main-path chunk B=16 H=16 T=700", 16, 16, 700, _ragged(_ARNG, 16, 500, 700), 64, 8),
+]
+# |kernel - plain| <= atol + rtol |plain| on valid rows. fp32: the tests'
+# tolerance (summation order and FMA only). bf16: about one bf16 step of
+# the output, which both round to, after probabilities rounded to bf16 at
+# different points (the kernel before normalising, as the TPU kernel does)
+ATTN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+def attention_inputs(rng, B, H, T, lens, left, right, dtype, device):
+    """Seeded (q, k, v, table, lengths) for rel-key attention."""
+    import torch
+
+    def t(*shape, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+    q, k, v = (t(B, T, H, 64) for _ in range(3))
+    table = t(left + right + 1, 64, scale=0.02)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, k, v, table, lengths
+
+
+def compare_attention(got, want, lengths, dtype_name):
+    """Max abs error on valid rows; raises when a row is not finite or the
+    error passes ATTN_TOL."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output has non-finite values")
+    B, T = got.shape[:2]
+    valid = torch.ones((B, T), dtype=torch.bool, device=got.device)
+    if lengths is not None:
+        valid = torch.arange(T, device=got.device)[None, :] < lengths[:, None].long()
+    g, w = got.float()[valid], want.float()[valid]
+    if g.numel() == 0:
+        return 0.0
+    atol, rtol = ATTN_TOL[dtype_name]
+    err = (g - w).abs()
+    if not bool((err <= atol + rtol * w.abs()).all()):
+        raise AssertionError(f"max abs err {float(err.max())} over atol {atol} + rtol {rtol}")
+    return float(err.max())
+
+
+def phase_attention_checks(device):
+    """relkey_attention kernel against its plain version on the card, in
+    fp32 and bf16, in every geometry of ATTN_CASES. Returns the max abs
+    error on valid rows."""
+    import torch
+
+    from svecalign_tpu_torch.ops import attention, attention_cuda
+
+    rng = np.random.default_rng(4321)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for name, B, H, T, lens, left, right in ATTN_CASES:
+            args = attention_inputs(rng, B, H, T, lens, left, right, dtype, device)
+            got = attention_cuda.relkey_attention_cuda(*args, left=left, right=right)
+            torch.cuda.synchronize()
+            want = attention.relkey_attention(*args, left=left, right=right)
+            err = compare_attention(got, want, args[4], dname)
+            max_err = max(max_err, err)
+            _log(f"[check] relkey_attention {dname} {name}: ok (max abs err {err:.3e})")
+    return max_err
+
+
 def phase_build():
     from svecalign_tpu_torch.ops import _build
 
@@ -329,13 +425,12 @@ def phase_main_path(workdir, n_src, n_tgt):
     _log(f"[main] wrote a {n_src} x {n_tgt} segment pair (1024-d fp16 stopes rows, "
          f"{len(planted)} planted blocks) in {time.perf_counter() - t0:.1f}s")
 
-    for name in dp_cuda.LAUNCHES:
-        dp_cuda.LAUNCHES[name] = 0
+    _reset_launches()
     t0 = time.perf_counter()
     runtimes = stage.main(cli_argv(paths, workdir / "out", "cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(dp_cuda.LAUNCHES)
+    launches = _launches()
     n_levels = max(_pyramid_depth(n_src, n_tgt), 1)
     _log(f"[main] stage-5.4 CLI on the card: {wall:.3f}s wall (first run), launches {launches}, "
          f"{n_levels} banded level(s)")
@@ -432,9 +527,329 @@ def phase_times(stack, device):
     return totals
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Stage 5.3: the SONAR embed stage
+# ---------------------------------------------------------------------------
+
+
+def vad_segments(rng, seconds, sr=16000):
+    """VAD-like (start, end) sample spans: 0.5-3 s of speech, 0.1-0.8 s
+    gaps, over ``seconds`` of audio."""
+    segs, t = [], int(rng.uniform(0.1, 0.8) * sr)
+    while True:
+        dur = int(rng.uniform(0.5, 3.0) * sr)
+        if t + dur > seconds * sr:
+            return segs
+        segs.append((t, t + dur))
+        t += dur + int(rng.uniform(0.1, 0.8) * sr)
+
+
+def concat_windows(segs, max_run=5, max_dur_s=20.0, sr=16000):
+    """The concat stage's rule (seg_align/concat_segs.py): every run of up
+    to ``max_run`` consecutive segments from each anchor, stopping at the
+    first whose extent passes ``max_dur_s``; lines sorted as strings."""
+    cap = int(max_dur_s * sr)
+    lines = []
+    for k in range(len(segs)):
+        anchor = segs[k][0]
+        for _, stop in segs[k:k + max_run]:
+            if stop - anchor > cap:
+                break
+            lines.append(f"{anchor} {stop}")
+    return sorted(lines)
+
+
+def write_synthetic_document(root, seconds, seed=0):
+    """One stage-5.3 input tree: ``root/metadata.tsv``, a 16 kHz PCM16 WAV
+    (speech-like tones in noise over VAD-like segments, near silence
+    between them) written by the port's writer, and its concat windows
+    ``cat_segs/en/{stem}.txt``. Returns (paths dict, window lines)."""
+    from svecalign_tpu_torch.utils import audio_io
+
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    segs = vad_segments(rng, seconds, sr)
+    wave = (0.003 * rng.standard_normal(seconds * sr)).astype(np.float32)
+    for s, e in segs:
+        t = np.arange(e - s, dtype=np.float32) / sr
+        f0 = rng.uniform(90, 250)
+        voiced = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3)) / h for h in (1, 2, 3))
+        amp = rng.uniform(0.05, 0.3) * np.hanning(e - s).astype(np.float32) ** 0.2
+        wave[s:e] += amp * (0.6 * voiced + 0.4 * rng.standard_normal(e - s)).astype(np.float32)
+    name = f"{STEM}_{SRC_LANG}"
+    wav = root / "raw_audios" / SRC_LANG / f"{name}.wav"
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    audio_io.write(str(wav), np.clip(wave, -1.0, 1.0), sr)
+    lines = concat_windows(segs)
+    cat = root / "cat_segs" / SRC_LANG
+    cat.mkdir(parents=True, exist_ok=True)
+    (cat / f"{name}.txt").write_text("".join(x + "\n" for x in lines), encoding="utf-8")
+    tgt = root / "raw_audios" / TGT_LANG / f"{STEM}_{TGT_LANG}.wav"
+    (root / "metadata.tsv").write_text(f"{wav}\t{tgt}\n", encoding="utf-8")
+    return {"root": root, "metadata": root / "metadata.tsv", "wav": wav,
+            "n_segments": len(segs)}, lines
+
+
+def embed_argv(paths, out_dir, device="cuda", extra=()):
+    """argv of the stage-5.3 CLI (SONAR, defaults otherwise) for a document
+    written by write_synthetic_document."""
+    return [str(paths["metadata"]), str(out_dir), "--concat_dir", str(paths["root"] / "cat_segs"),
+            "--lang", SRC_LANG, "--embed_model_type", "sonar", "--device", device, *extra]
+
+
+def embed_output(out_dir):
+    return Path(out_dir) / SRC_LANG / f"{STEM}_{SRC_LANG}.embed"
+
+
+def _reset_launches():
+    from svecalign_tpu_torch.models import w2v_bert
+    from svecalign_tpu_torch.ops import attention_cuda, dp_cuda
+
+    for counts in (dp_cuda.LAUNCHES, attention_cuda.LAUNCHES, w2v_bert.ATTENTION_CALLS):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launches():
+    from svecalign_tpu_torch.ops import attention_cuda, dp_cuda
+
+    return {**dp_cuda.LAUNCHES, **attention_cuda.LAUNCHES}
+
+
+def _bucket_plan(model, lines, n_samples):
+    """{bucket: [n_frames of each window]} as the encoder buckets them."""
+    plan = {}
+    for line in lines:
+        s, e = map(int, line.split())
+        bucket, (_, _, n_frames), _ = model._span_plan(s, max(min(e, n_samples) - s, 0))
+        plan.setdefault(bucket, []).append(n_frames)
+    return plan
+
+
+def _run_embed(stage, paths, out_dir):
     import torch
 
+    t0 = time.perf_counter()
+    stage.main(embed_argv(paths, out_dir))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_embed_path(workdir, device):
+    """Stage 5.3 through the CLI on the card at full width; returns what
+    the timings need (the modal bucket's frame counts) and the launches."""
+    import torch
+
+    from svecalign_tpu_torch.models import encode_common, w2v_bert
+    from svecalign_tpu_torch.seg_align import embed as stage
+    from svecalign_tpu_torch.utils import embed_model_utils
+
+    t0 = time.perf_counter()
+    paths, lines = write_synthetic_document(workdir / "doc", DOC_SECONDS)
+    n_samples = DOC_SECONDS * 16000
+    _log(f"[embed] wrote a {DOC_SECONDS} s 16 kHz document: {paths['n_segments']} VAD-like "
+         f"segments, {len(lines)} concat windows, in {time.perf_counter() - t0:.1f}s")
+
+    # the CLI's own loader and memo: the CLI runs below reuse this model
+    t0 = time.perf_counter()
+    model = embed_model_utils.load_embed_model("sonar", max_tokens=150 * 16000, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.model.parameters())
+    _log(f"[embed] weight init (numpy seed 0, {n_params} parameters, config {model.config}): "
+         f"{init_s:.3f}s")
+
+    plan = _bucket_plan(model, lines, n_samples)
+    n_chunks = sum(-(-len(v) // model.batch_size) for v in plan.values())
+    for bucket in sorted(plan):
+        frames = plan[bucket]
+        _log(f"[embed] bucket {bucket} frames (T = {bucket // 2} after stacking): "
+             f"{len(frames)} windows, {-(-len(frames) // model.batch_size)} chunks, "
+             f"mean {np.mean(frames) / 100:.2f} s")
+    mean_s = np.mean([np.mean(v) for v in plan.values() for _ in v]) / 100
+    _log(f"[embed] {len(lines)} windows in {n_chunks} chunks of {model.batch_size}, "
+         f"mean window {mean_s:.2f} s")
+
+    _reset_launches()
+    wall = _run_embed(stage, paths, workdir / "out")
+    launches = _launches()
+    calls = dict(w2v_bert.ATTENTION_CALLS)
+    n_layers = model.config.n_layers
+    _log(f"[embed] stage-5.3 CLI on the card: {wall:.3f}s wall (first run), launches "
+         f"{launches}, attention calls by route {calls}")
+    if launches["relkey_attention"] != n_layers * n_chunks:
+        raise AssertionError(f"relkey_attention launched {launches['relkey_attention']} "
+                             f"times, want {n_layers} x {n_chunks}")
+    if calls["torch"] != 0:
+        raise AssertionError(f"the plain attention ran {calls['torch']} times")
+
+    rows = np.fromfile(embed_output(workdir / "out"), dtype=np.float16)
+    if rows.size != len(lines) * model.config.pool_dim:
+        raise AssertionError(f".embed holds {rows.size} values, want {len(lines)} x "
+                             f"{model.config.pool_dim}")
+    rows = rows.reshape(len(lines), model.config.pool_dim).astype(np.float32)
+    if not np.isfinite(rows).all():
+        raise AssertionError(".embed has non-finite values")
+    _log(f"[embed] .embed: {rows.shape[0]} x {rows.shape[1]} fp16 rows, all finite, "
+         f"row norms {np.linalg.norm(rows, axis=1).min():.3f}-{np.linalg.norm(rows, axis=1).max():.3f}")
+
+    wall_warm = _run_embed(stage, paths, workdir / "out_warm")
+    prof = encode_common.start_encode_profile()
+    wall_prof = _run_embed(stage, paths, workdir / "out_prof")
+    encode_common.stop_encode_profile()
+    audio_min = DOC_SECONDS / 60
+    _log(f"[time] stage-5.3 CLI, warm: {wall_warm:.3f}s wall (first run {wall:.3f}s), "
+         f"{wall_warm / audio_min:.3f}s per minute of audio")
+    host_io = prof["file_s"] - sum(prof[k] for k in encode_common.PROFILE_KEYS)
+    _log(f"[time] stage-5.3 phases (a run with a device sync per phase, {wall_prof:.3f}s wall): "
+         f"weight init {init_s:.3f}s (once per process) | "
+         + " | ".join(f"{k[:-2]} {prof[k]:.3f}s" for k in encode_common.PROFILE_KEYS)
+         + f" | wav read {prof['read_s']:.3f}s | other host work and .embed write "
+         f"{host_io - prof['read_s']:.3f}s | {prof['chunks']} chunks")
+
+    model.model.trunk.set_attention_backend("torch")
+    try:
+        _reset_launches()
+        wall_plain = _run_embed(stage, paths, workdir / "out_plain")
+        if _launches()["relkey_attention"] != 0:
+            raise AssertionError("the plain-attention run launched the kernel")
+    finally:
+        model.model.trunk.set_attention_backend("auto")
+    plain = np.fromfile(embed_output(workdir / "out_plain"), dtype=np.float16)
+    plain = plain.reshape(rows.shape).astype(np.float32)
+    cos = (rows * plain).sum(1) / np.maximum(
+        np.linalg.norm(rows, axis=1) * np.linalg.norm(plain, axis=1), 1e-30)
+    _log(f"[embed] against the plain-attention run ({wall_plain:.3f}s wall): per-row cosine "
+         f"min {cos.min():.6f}, mean {cos.mean():.6f}; max abs row difference "
+         f"{np.abs(rows - plain).max():.4e}")
+    if cos.min() < MIN_COSINE:
+        raise AssertionError(f"min per-row cosine {cos.min()} < {MIN_COSINE}")
+    modal = max(plan, key=lambda b: len(plan[b]))
+    return {"modal_bucket": modal, "frames": plan[modal][:model.batch_size],
+            "batch_size": model.batch_size, "n_heads": model.config.n_heads}, launches
+
+
+def _attention_bound_ms(B, T, H, lengths, C=73, elem_bytes=2):
+    """Least time for rel-key attention on these inputs: q, k, v, p read
+    and the output written once, against 4 x 64 operations per (valid
+    query, valid key, head) pair at the bf16 tensor-core peak."""
+    ops = 4 * H * 64 * float(np.sum(np.square(np.asarray(lengths, np.float64))))
+    nbytes = (4 * B * T * H * 64 + B * T * H * C) * elem_bytes + 4 * B
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = ops / H100_BF16_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_attention_times(info, device):
+    """The kernel, its plain version and SDPA (the bias and key mask
+    materialised as a (B, H, T, T) attn_mask) at the main path's modal
+    bucket: B = batch rows, T = frames / 2, bf16, the lengths of that
+    bucket's first chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from svecalign_tpu_torch.ops import attention, attention_cuda
+
+    B, H, T = info["batch_size"], info["n_heads"], info["modal_bucket"] // 2
+    frames = list(info["frames"]) + [0] * (B - len(info["frames"]))
+    lens = tuple(min(f, info["modal_bucket"]) // 2 for f in frames)
+    rng = np.random.default_rng(99)
+    q, k, v, table, lengths = attention_inputs(rng, B, H, T, lens, 64, 8, torch.bfloat16, device)
+    got = attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
+    want = attention.relkey_attention(q, k, v, table, lengths)
+    err = compare_attention(got, want, lengths, "bfloat16")
+
+    ms = _cuda_time_ms(lambda: attention_cuda.relkey_attention_cuda(q, k, v, table, lengths),
+                       reps=20)
+    plain_ms = _cuda_time_ms(lambda: attention.relkey_attention(q, k, v, table, lengths),
+                             reps=5, warmup=1)
+    # the library call: SDPA on (B, H, T, dh) with the rel-key bias and the
+    # key mask as one materialised additive mask (built outside the timing)
+    pos = torch.arange(T, device=device)
+    dist = torch.clamp(pos[None, :] - pos[:, None], -64, 8) + 64
+    p = attention.relkey_projection(q, table).permute(0, 2, 1, 3)  # (B, H, T, C)
+    mask = p[:, :, pos[:, None], dist].float()
+    keep = pos[None, :] < lengths[:, None]
+    mask = torch.where(keep[:, None, None, :], mask, attention.NEG).to(torch.bfloat16)
+    qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib_err = float((lib.permute(0, 2, 1, 3).float() - want.float())[
+        (pos[None, :] < lengths[:, None])].abs().max())
+    library_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                               reps=20)
+    bound, by = _attention_bound_ms(B, T, H, lens)
+    _log(f"[time] relkey_attention at the modal bucket (B={B} H={H} T={T} bf16, lengths "
+         f"{min(lens)}-{max(lens)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with a "
+         f"materialised bias {library_ms:.4f} ms (its max abs diff to plain {lib_err:.3e}), "
+         f"bound {bound:.6f} ms ({by}), err {err:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": by, "err": err}
+
+
+KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
+    ("relkey_attention kernel", ("relkey_attention",)),
+    ("matmul (cuBLAS/CUTLASS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
+    ("depthwise conv", ("conv",)),
+    ("fft", ("fft", "radix")),
+    ("reductions and softmax", ("reduce", "softmax", "norm")),
+    # dtype casts are copy kernels; "nocast" in a name is not one
+    ("copies and casts", ("copy", "memcpy", "memset", "fill")),
+)
+
+
+def profile_embed(device):
+    """``--profile``: one warm stage-5.3 run of the 10-minute document under
+    torch.profiler. Prints the device time by kernel class and the top
+    kernels, and the device's busy share of the run's wall time (the
+    profiler's own overhead included in that wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from svecalign_tpu_torch.seg_align import embed as stage
+    from svecalign_tpu_torch.utils import embed_model_utils
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as td:
+        paths, lines = write_synthetic_document(Path(td) / "doc", DOC_SECONDS)
+        embed_model_utils.load_embed_model("sonar", max_tokens=150 * 16000, device=device)
+        _run_embed(stage, paths, Path(td) / "warm")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = _run_embed(stage, paths, Path(td) / "prof")
+    kernels = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + us, evt.count)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    total_s = sum(us for us, _ in kernels.values()) / 1e6
+    classes = {}
+    for name, (us, _) in kernels.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)),
+                   "other elementwise")
+        classes[cls] = classes.get(cls, 0.0) + us / 1e6
+    _log(f"[profile] stage-5.3 warm run under torch.profiler: {wall:.3f}s wall, {len(lines)} "
+         f"windows; device busy {total_s:.3f}s ({100 * total_s / wall:.1f}% of the wall)")
+    for cls, sec in sorted(classes.items(), key=lambda kv: -kv[1]):
+        _log(f"[profile]   {cls}: {sec:.3f}s ({100 * sec / total_s:.1f}% of device time)")
+    for name, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
+        _log(f"[profile]     {us / 1e3:10.3f} ms  x{count:<6d} {name[:110]}")
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only build and profile one warm stage-5.3 run (device time "
+                             "by kernel) instead of the phases above")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -445,11 +860,18 @@ def main():
     device = resolve_device("cuda")
     phase_build()
     card = _card_line()
-    _log(f"[card] {card}")
+    _log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.profile:
+        profile_embed(device)
+        return 0
     check_err = phase_kernel_checks(device)
+    attn_err = phase_attention_checks(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         stack, launches = phase_main_path(Path(td), N_SRC, N_TGT)
     t = phase_times(stack, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
+        info, embed_launches = phase_embed_path(Path(td), device)
+    a = phase_attention_times(info, device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",
@@ -458,10 +880,19 @@ def main():
         "max_abs_err": max(check_err, t["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+    }, {
+        "name": "relkey_attention", "route": "cuda",
+        "source": "svecalign_tpu_torch/csrc/relkey_attention.cu",
+        "replaces": "svecalign_tpu/ops/attention_pallas.py:200",
+        "launches": embed_launches["relkey_attention"],
+        "max_abs_err": max(attn_err, a["err"]),
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
     }]
-    _log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; times are "
-         "per main-path run (sum over its banded levels); no single PyTorch call "
-         "computes this function, so library_ms is null")
+    _log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s. banded_dp: "
+         "times per stage-5.4 run (sum over its banded levels); no single PyTorch call "
+         "computes it, so library_ms is null. relkey_attention: times per launch at the "
+         "stage-5.3 modal bucket; launches per stage-5.3 run")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

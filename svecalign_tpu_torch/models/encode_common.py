@@ -1,0 +1,167 @@
+"""The span-encode loop shared by the speech encoders, and the phase
+timers of an encode.
+
+Port of the JAX package's ``models/encode_common.py``.
+``SpanEncoderMixin.encode_spans`` embeds overlap windows of ONE waveform:
+the waveform goes to the device once (int16 per 1 s block, or fp32), is
+dequantised there once, and each chunk of windows is gathered out of it
+(``ops/assemble.py``) and encoded. The model supplies its shape policy
+through the same hooks as in JAX:
+
+    _span_plan(start, ln)     -> (bucket, (start, n_samples, out_len), truncated?)
+    _span_buckets()           -> the bucket list (model units)
+    _bucket_width(bucket)     -> window width in SAMPLES
+    _rows_per_chunk(bucket)   -> batch rows for that bucket
+    _span_forward(rows, scales, lengths, bucket) -> (rows, dim) embeddings
+
+plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``.
+
+Left out, as TPU workarounds whose flags keep their meaning: the compile
+prewarm threads, the ``SVECALIGN_FUSED_CHUNK`` one-program chunk, the
+2048-row accumulator pulls, the staging thread pool and buffer donation,
+and ``keep_device`` (the fused-pipeline row cache, ROADMAP Queue 1 item
+11a). Outputs stay on the device until one pull at the end of the call.
+
+Phase timers: :func:`start_encode_profile` makes ``encode_profile`` a dict
+that the encode loops add wall seconds to, each phase ending in a device
+synchronise (so the timers cost a sync per phase while on, and nothing
+while ``encode_profile`` is None).
+"""
+
+import time
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from svecalign_tpu_torch.utils.log_utils import logging
+
+logger = logging.getLogger(__name__)
+
+# phase timers of encode() / encode_spans(); None = off
+encode_profile = None
+
+PROFILE_KEYS = ("assemble_s", "frontend_s", "trunk_s", "pooler_s", "pull_s")
+
+
+def start_encode_profile() -> dict:
+    """Turn the phase timers on (and zero them); returns the dict that the
+    encode loops add to."""
+    global encode_profile
+    encode_profile = {key: 0.0 for key in PROFILE_KEYS}
+    encode_profile.update(chunks=0, rows=0)
+    return encode_profile
+
+
+def stop_encode_profile() -> None:
+    global encode_profile
+    encode_profile = None
+
+
+def phase_clock(device: torch.device) -> Callable[[str], None]:
+    """A ``tick(key)`` that adds the wall time since the previous tick (or
+    since this call) to ``encode_profile[key]``, after synchronising the
+    device; a no-op while the timers are off."""
+    prof = encode_profile
+    if prof is None:
+        return lambda key: None
+    last = [time.perf_counter()]
+
+    def tick(key):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        prof[key] += now - last[0]
+        last[0] = now
+
+    return tick
+
+
+def pull_rows(pending: Sequence[Tuple[List[int], torch.Tensor]], n: int, dim: int,
+              fp16: bool, device: torch.device) -> np.ndarray:
+    """Scatter each chunk's device rows into one (n, dim) host array
+    (float16 when ``fp16``: the rows were cast on the device); padding
+    rows of a chunk (past its index list) are dropped."""
+    tick = phase_clock(device)
+    out = np.zeros((n, dim), dtype=np.float16 if fp16 else np.float32)
+    if pending:
+        ids = np.concatenate([np.asarray(i, np.int64) for i, _ in pending])
+        rows = torch.cat([emb[: len(i)] for i, emb in pending]).cpu().numpy()
+        out[ids] = rows
+    tick("pull_s")
+    prof = encode_profile
+    if prof is not None:
+        prof["chunks"] += len(pending)
+        prof["rows"] += n
+    return out
+
+
+class SpanEncoderMixin:
+    """encode_spans() for models exposing the hook set described above."""
+
+    def encode_spans(self, waveform, spans, fp16_pull: bool = False) -> np.ndarray:
+        """Encode (start, end) sample spans of ONE waveform -> (N, dim).
+
+        Equivalent to ``encode([waveform[s:e] for s, e in spans])``: bit-equal
+        in fp32 upload mode, within about one quantization step in int16
+        mode (per 1 s block, then per row on the device). Waveforms longer
+        than the largest wave bucket fall back to host-sliced encode().
+        ``fp16_pull`` casts the rows to fp16 on the device.
+        """
+        from svecalign_tpu_torch.ops import assemble
+
+        waveform = np.asarray(waveform, dtype=np.float32)
+        if waveform.ndim == 2:
+            waveform = waveform[:, 0]
+        buckets_s = sorted(self.WAVE_BUCKETS_S or assemble.WAVE_BUCKETS_S)
+        wave_len = next((b * 16000 for b in buckets_s if len(waveform) <= b * 16000), None)
+        if wave_len is None:
+            logger.warning(
+                f"encode_spans: waveform of {len(waveform) / 16000:.0f} s "
+                f"exceeds the largest wave bucket ({buckets_s[-1]} s); "
+                "falling back to host-sliced encode()"
+            )
+            return self.encode([waveform[s:e] for s, e in spans], fp16_pull=fp16_pull)
+
+        fp32 = self.upload_dtype == "fp32"
+        dev = self.device
+        tick = phase_clock(dev)
+        wave_host, block_scales = assemble.quantize_wave(waveform, wave_len, fp32)
+        slack = max(self._bucket_width(b) for b in self._span_buckets())
+        wave_dev = assemble.dequant(
+            torch.from_numpy(wave_host).to(dev), torch.from_numpy(block_scales).to(dev), slack)
+        tick("assemble_s")
+
+        by_bucket: dict = {}
+        n_truncated = 0
+        for i, (s, e) in enumerate(spans):
+            # clamp to the waveform like host slicing (waveform[s:e] is
+            # short when e overruns the file)
+            ln = max(min(e, len(waveform)) - s, 0)
+            bucket, idx_row, truncated = self._span_plan(s, ln)
+            n_truncated += truncated
+            by_bucket.setdefault(bucket, []).append((i, idx_row))
+        if n_truncated:
+            logger.warning(
+                f"{n_truncated}/{len(spans)} spans exceed the largest "
+                f"length bucket ({self._trunc_unit}) and are TRUNCATED "
+                "to it -- their embeddings cover only the prefix"
+            )
+
+        pending = []
+        for bucket, items in sorted(by_bucket.items()):
+            rows = self._rows_per_chunk(bucket)
+            width = self._bucket_width(bucket)
+            for c0 in range(0, len(items), rows):
+                chunk = items[c0:c0 + rows]
+                # [start, n_samples, out_len] per row; padding rows read
+                # nothing (n_samples 0) and have length 0
+                idx = np.zeros((rows, 3), np.int64)
+                idx[: len(chunk)] = [idx_row for _, idx_row in chunk]
+                tick = phase_clock(dev)
+                rows_q, row_scales, lengths = assemble.assemble(
+                    wave_dev, torch.from_numpy(idx).to(dev), width, fp32)
+                tick("assemble_s")
+                emb = self._span_forward(rows_q, row_scales, lengths, bucket)
+                pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
+        return pull_rows(pending, len(spans), self._embed_dim, fp16_pull, dev)

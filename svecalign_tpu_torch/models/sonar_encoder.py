@@ -1,0 +1,289 @@
+"""SONAR speech encoder in PyTorch: the stage-5.3 embedder.
+
+Port of the JAX package's ``models/sonar_encoder.py``: a w2v-BERT 2.0
+conformer trunk (:mod:`svecalign_tpu_torch.models.w2v_bert`) plus an
+attention pooler, one ``pool_dim`` vector per waveform, written by the
+embed stage as headerless raw fp16/fp32 rows. The frontend reproduces
+SeamlessM4TFeatureExtractor semantics as the JAX one does: kaldi 80-mel
+log-fbank on the 16-bit-scaled waveform (``ops/fbank.py``), per-utterance
+per-bin normalisation over valid frames (ddof = 1), stride-2 stacking to
+160 dims.
+
+``SonarSpeechModel`` is the host wrapper. Weights come from a JAX ``.npz``
+(``save_params_npz``) or, without one, from the JAX package's numpy init
+for ``seed`` (``models/param_utils.py``), so both packages hold the same
+random weights. Inputs are bucketed into fixed (batch_size, samples)
+chunks as in JAX, uploaded as per-row int16 (or fp32) and dequantised,
+featurised and encoded on the device.
+
+Left out, as TPU workarounds: the mesh/data-parallel branch (multi-GPU is
+ROADMAP Queue 1 item 20), the staging thread pool and buffer donation,
+and ``keep_device`` (the fused-pipeline row cache, Queue 1 item 11a).
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from svecalign_tpu_torch.models import encode_common
+from svecalign_tpu_torch.models.encode_common import SpanEncoderMixin
+from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
+from svecalign_tpu_torch.models.w2v_bert import (
+    W2vBertConfig,
+    W2vBertModel,
+    compute_dtype,
+    dense,
+)
+from svecalign_tpu_torch.ops.fbank import fbank_device
+from svecalign_tpu_torch.utils.log_utils import logging
+from svecalign_tpu_torch.utils.torch_setup import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class SonarEncoderConfig:
+    n_mels: int = 80
+    model_dim: int = 1024
+    n_layers: int = 24  # w2v-BERT 2.0 / SONAR speech trunk depth
+    n_heads: int = 16
+    ffn_dim: int = 4096
+    conv_kernel: int = 31
+    pool_dim: int = 1024
+    position_embeddings_type: str = "relative_key"
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    dtype: str = "bfloat16"
+    attention_backend: str = "auto"  # the CUDA rel-key kernel on the card
+
+    def trunk_config(self) -> W2vBertConfig:
+        return W2vBertConfig(
+            feature_projection_input_dim=2 * self.n_mels,
+            hidden_size=self.model_dim,
+            num_hidden_layers=self.n_layers,
+            num_attention_heads=self.n_heads,
+            intermediate_size=self.ffn_dim,
+            conv_depthwise_kernel_size=self.conv_kernel,
+            position_embeddings_type=self.position_embeddings_type,
+            left_max_position_embeddings=self.left_max_position_embeddings,
+            right_max_position_embeddings=self.right_max_position_embeddings,
+            dtype=self.dtype,
+            attention_backend=self.attention_backend,
+        )
+
+
+class AttentionPooler(nn.Module):
+    """Learned-query multi-head attention pooling: one query attends over
+    the encoder states, output projected to ``pool_dim`` in fp32."""
+
+    def __init__(self, cfg: SonarEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.model_dim
+        self.query = nn.Parameter(torch.zeros(1, 1, d))
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, cfg.pool_dim)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        b, t, d = x.shape
+        nh = cfg.n_heads
+        dh = d // nh
+        q = dense(self.q_proj, self.query.expand(b, 1, d), dt)
+        k = dense(self.k_proj, x, dt)
+        v = dense(self.v_proj, x, dt)
+        q = q.view(b, 1, nh, dh).transpose(1, 2)
+        k = k.view(b, t, nh, dh).transpose(1, 2)
+        v = v.view(b, t, nh, dh).transpose(1, 2)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / float(np.sqrt(dh))
+        neg = torch.finfo(torch.float32).min
+        scores = torch.where(mask[:, None, None, :], scores.float(), neg)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, d)
+        return dense(self.out_proj, out, torch.float32)
+
+
+class SonarSpeechEncoder(nn.Module):
+    """w2v-BERT trunk + attention pooler: stacked mels -> (B, pool_dim)."""
+
+    def __init__(self, cfg: SonarEncoderConfig = SonarEncoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.trunk = W2vBertModel(cfg.trunk_config())
+        self.pooler = AttentionPooler(cfg)
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return self.pooler(self.trunk(feats, mask), mask).float()
+
+
+def sonar_frontend(wav: torch.Tensor, lengths: torch.Tensor, n_frames: int, n_mels: int):
+    """SeamlessM4TFeatureExtractor-equivalent frontend on (B, n_samples)
+    fp32 waveforms: kaldi fbank on the 16-bit-scaled waveform, per-row
+    per-bin normalisation over valid frames (ddof = 1), stride-2 stacking.
+    Returns (feats (B, n_frames // 2, 2 n_mels) fp32, mask (B, n_frames // 2)
+    bool)."""
+    feats = fbank_device(wav * 32768.0, 16000, n_mels, 400, 160, n_frames)  # (B, T, n_mels)
+    t = feats.shape[1]
+    lengths = lengths.to(feats.device)
+    n_valid = torch.clamp(lengths, min=1)
+    m = (torch.arange(t, device=feats.device)[None, :] < n_valid[:, None])[:, :, None]
+    n = n_valid.float()[:, None, None]
+    mean = torch.where(m, feats, 0.0).sum(dim=1, keepdim=True) / n
+    var = torch.where(m, torch.square(feats - mean), 0.0).sum(dim=1, keepdim=True) / torch.clamp(
+        n - 1.0, min=1.0)
+    feats = torch.where(m, (feats - mean) / torch.sqrt(var + 1e-7), 0.0)
+    # stride-2 stacking; HF keeps attention rows where frame % 2 == 1, so
+    # the stacked valid count is lengths // 2
+    t2 = t - t % 2
+    feats = feats[:, :t2].reshape(feats.shape[0], t2 // 2, 2 * n_mels)
+    mask2 = torch.arange(t2 // 2, device=feats.device)[None, :] < (lengths // 2)[:, None]
+    return feats, mask2
+
+
+class SonarSpeechModel(SpanEncoderMixin):
+    """Host wrapper: bucketed batched forward on the device."""
+
+    supports_spans = True
+    WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
+
+    # 10 ms frames (pre-stack), the JAX package's buckets: 700/1400 fill
+    # the 500 -> 1000 -> 2000 gaps where overlap windows fall; 4500/6000
+    # exist for embed_align spans. Longer inputs truncate, loudly.
+    BUCKET_FRAMES = (200, 500, 700, 1000, 1400, 2000, 3000, 4500, 6000)
+
+    def __init__(
+        self,
+        config: SonarEncoderConfig = SonarEncoderConfig(),
+        ckpt_path: Optional[str] = None,
+        batch_size: int = 16,
+        seed: int = 0,
+        upload_dtype: str = "int16",
+        device="cuda",
+    ):
+        if upload_dtype not in ("int16", "fp32"):
+            raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
+        self.config = config
+        self.batch_size = batch_size
+        self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
+        self.device = resolve_device(device)
+
+        with torch.device("meta"):
+            model = SonarSpeechEncoder(config)
+        flat = load_params_npz(ckpt_path) if ckpt_path else {}
+        state = params_from_jax(flat, model, seed=seed, source=ckpt_path or "random init")
+        model.load_state_dict(state, assign=True)
+        if ckpt_path:
+            logger.info(f"Loaded SONAR params from {ckpt_path}")
+        else:
+            logger.warning("SONAR encoder initialized with RANDOM weights; "
+                           "embeddings are not meaningful for mining.")
+        # the weights of every compute-dtype layer are stored in that
+        # dtype once, not cast per call (the same rounding as flax's
+        # per-call cast); LayerNorms and the fp32 out_proj stay fp32
+        dt = compute_dtype(config)
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)) and name != "pooler.out_proj":
+                mod.to(dt)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.BUCKET_FRAMES:
+            if n <= b:
+                return b
+        return self.BUCKET_FRAMES[-1]
+
+    # --- SpanEncoderMixin hooks (buckets in 10 ms frames) ---
+
+    def _span_buckets(self):
+        return self.BUCKET_FRAMES
+
+    def _bucket_width(self, bucket: int) -> int:
+        return 400 + (bucket - 1) * 160  # frames -> samples
+
+    def _rows_per_chunk(self, bucket: int) -> int:
+        return self.batch_size
+
+    def _span_plan(self, start: int, ln: int):
+        n_frames = 0 if ln < 400 else 1 + (ln - 400) // 160
+        bucket = self._bucket(n_frames)
+        width = self._bucket_width(bucket)
+        return (bucket, (start, min(ln, width), min(n_frames, bucket)),
+                n_frames > self.BUCKET_FRAMES[-1])
+
+    @torch.inference_mode()
+    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+        """(rows, samples) int16 or fp32 waveforms, (rows,) scales and
+        frame lengths on the device -> (rows, pool_dim) fp32."""
+        tick = encode_common.phase_clock(self.device)
+        wav = rows_q.float() * row_scales[:, None]
+        feats, mask2 = sonar_frontend(wav, lengths, bucket, self.config.n_mels)
+        tick("frontend_s")
+        x = self.model.trunk(feats, mask2)
+        tick("trunk_s")
+        out = self.model.pooler(x, mask2).float()
+        tick("pooler_s")
+        return out
+
+    @property
+    def _embed_dim(self) -> int:
+        return self.config.pool_dim
+
+    @property
+    def _trunc_unit(self) -> str:
+        return f"{self.BUCKET_FRAMES[-1]} x 10 ms"
+
+    def encode(self, waveforms, fp16_pull: bool = False) -> np.ndarray:
+        """Encode waveforms -> (N, pool_dim) float32 (float16 under
+        ``fp16_pull``: cast on the device, bit-equal to the writer's host
+        fp32 -> fp16 cast)."""
+        by_bucket: dict = {}
+        n_truncated = 0
+        for i, w in enumerate(waveforms):
+            w = np.asarray(w, dtype=np.float32)
+            if w.ndim == 2:
+                w = w[:, 0]  # channel 0, as slice_segments/encode_spans
+            n_frames = 0 if len(w) < 400 else 1 + (len(w) - 400) // 160
+            n_truncated += n_frames > self.BUCKET_FRAMES[-1]
+            by_bucket.setdefault(self._bucket(n_frames), []).append((i, w, n_frames))
+        if n_truncated:
+            logger.warning(
+                f"{n_truncated}/{len(waveforms)} inputs exceed the largest "
+                f"frame bucket ({self.BUCKET_FRAMES[-1]} x 10 ms) and are "
+                "TRUNCATED to it -- their embeddings cover only the prefix"
+            )
+
+        fp32 = self.upload_dtype == "fp32"
+        pending = []
+        for bucket, items in sorted(by_bucket.items()):
+            samples = self._bucket_width(bucket)
+            for c0 in range(0, len(items), self.batch_size):
+                chunk = items[c0:c0 + self.batch_size]
+                # fixed (batch_size, samples) chunks; padding rows have
+                # length 0. int16: per-row peak scaling, rounded half to
+                # even (np.rint), exactly the JAX package's host staging
+                padded = np.zeros((self.batch_size, samples), dtype=np.float32 if fp32 else np.int16)
+                scales = np.ones((self.batch_size,), dtype=np.float32)
+                lengths = np.zeros((self.batch_size,), dtype=np.int32)
+                for row, (_, w, n_frames) in enumerate(chunk):
+                    w = w[:samples]
+                    if fp32:
+                        padded[row, : len(w)] = w
+                    else:
+                        peak = float(np.max(np.abs(w))) if len(w) else 0.0
+                        s = peak / 32767.0 if peak > 0 else 1.0
+                        padded[row, : len(w)] = np.rint(w / s).astype(np.int16)
+                        scales[row] = s
+                    lengths[row] = min(n_frames, bucket)
+                emb = self._span_forward(
+                    torch.from_numpy(padded).to(self.device),
+                    torch.from_numpy(scales).to(self.device),
+                    torch.from_numpy(lengths).to(self.device), bucket)
+                pending.append(([i for i, *_ in chunk], emb.half() if fp16_pull else emb))
+        return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
+                                       self.device)

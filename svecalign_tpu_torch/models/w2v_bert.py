@@ -1,0 +1,286 @@
+"""The w2v-BERT 2.0 conformer encoder (SONAR's speech trunk) in PyTorch.
+
+Port of the JAX package's ``models/w2v_bert.py``. Module and attribute
+names are the flax module names, so a flax parameter path maps to a
+``state_dict`` key by ``/`` -> ``.`` (``models/param_utils.py``):
+
+  fp_layer_norm + fp_projection on stacked 160-dim mels
+  -> layers_0 .. layers_{N-1}, each:
+       ffn1 (LN -> Linear -> swish -> Linear), half-step residual
+       self_attn (LN -> MHSA with the relative_key distance term)
+       conv_module (LN -> pointwise 2H + GLU -> CAUSAL depthwise conv k=31
+                    -> LN -> swish -> pointwise), residual
+       ffn2 half-step residual, final_layer_norm
+
+Numerics follow the flax modules, so that fp32 agrees tightly and bf16
+loosely:
+
+- parameters are fp32; a Linear or the depthwise conv casts its input and
+  weights to the compute dtype, as flax ``Dense(dtype=...)`` does;
+- LayerNorms compute in fp32 with flax's fast variance, E[x^2] - E[x]^2
+  clipped at 0, and the caller casts back to the compute dtype;
+- the residual stream is in the compute dtype; softmax runs in fp32 and is
+  cast back.
+
+Rel-key attention (``position_embeddings_type="relative_key"``) has two
+routes, chosen by ``attention_backend``:
+
+- ``"cuda"``: the hand-written kernel (``ops/attention_cuda.py``), under the
+  JAX kernel's condition (head size 64, even head count); it raises on a
+  CPU tensor or a shape the kernel does not take;
+- ``"torch"``: the plain path, the HF formulation of the JAX "xla" backend
+  (materialised (B, H, T, T) scores with an additive finfo.min key bias);
+- ``"auto"``: the kernel for CUDA tensors under that condition, else plain.
+
+``ATTENTION_CALLS`` counts the self-attention calls per route.
+
+The Transformer-XL ``relative`` flavor is not ported yet and raises.
+"""
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+RELATIVE_TODO = "ROADMAP.md Queue 1 item 16a (the Transformer-XL 'relative' position flavor)"
+BACKENDS = ("auto", "cuda", "torch")
+
+ATTENTION_CALLS = {"cuda": 0, "torch": 0}
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class W2vBertConfig:
+    feature_projection_input_dim: int = 160
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    conv_depthwise_kernel_size: int = 31
+    layer_norm_eps: float = 1e-5
+    position_embeddings_type: str = "relative_key"  # relative_key|none
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    dtype: str = "float32"
+    # "auto": the CUDA kernel for CUDA tensors, the plain path elsewhere;
+    # "cuda" forces the kernel, "torch" the plain path. Like the JAX fused
+    # kernel, the kernel rebuilds key masking from lengths = sum(pad_mask),
+    # which equals the mask only for contiguous padding (the SONAR
+    # frontend builds exactly that mask)
+    attention_backend: str = "auto"
+
+    @property
+    def head_size(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {cfg.dtype!r}")
+    return DTYPES[cfg.dtype]
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax ``LayerNorm(dtype=float32)``: fp32 statistics with the fast
+    variance E[x^2] - E[x]^2 (clipped at 0), fp32 output. ``weight`` is
+    flax's ``scale``."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mu = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias in ``dtype``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, cfg: W2vBertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        dt = compute_dtype(self.cfg)
+        x = F.silu(dense(self.intermediate_dense, x, dt))  # hidden_act = swish
+        return dense(self.output_dense, x, dt)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, cfg: W2vBertConfig):
+        super().__init__()
+        if cfg.position_embeddings_type == "relative":
+            raise NotImplementedError(
+                f"position_embeddings_type='relative' is not ported yet: {RELATIVE_TODO}")
+        if cfg.position_embeddings_type not in ("relative_key", "none"):
+            raise ValueError(f"unknown position_embeddings_type {cfg.position_embeddings_type!r}")
+        self.cfg = cfg
+        self.attention_backend = cfg.attention_backend
+        h = cfg.hidden_size
+        self.linear_q = nn.Linear(h, h)
+        self.linear_k = nn.Linear(h, h)
+        self.linear_v = nn.Linear(h, h)
+        self.linear_out = nn.Linear(h, h)
+        if cfg.position_embeddings_type == "relative_key":
+            n_pos = cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1
+            self.distance_embedding = nn.Parameter(torch.zeros(n_pos, cfg.head_size))
+
+    def _use_kernel(self, x: torch.Tensor) -> bool:
+        cfg, backend = self.cfg, self.attention_backend
+        if backend not in BACKENDS:
+            raise ValueError(f"attention_backend must be one of {BACKENDS}, got {backend!r}")
+        fits = (cfg.position_embeddings_type == "relative_key"
+                and cfg.head_size == 64 and cfg.num_attention_heads % 2 == 0)
+        if backend == "cuda":
+            if not x.is_cuda:
+                raise RuntimeError("attention_backend='cuda' needs CUDA tensors")
+            if not fits:
+                raise ValueError("attention_backend='cuda' needs relative_key attention, "
+                                 "head size 64 and an even head count")
+            return True
+        return backend == "auto" and fits and x.is_cuda
+
+    def forward(self, x, attn_bias, lengths=None):
+        """x: (B, T, H); attn_bias: (B, 1, 1, T) additive fp32 or None;
+        lengths: (B,) int32 valid-frame counts (the kernel's form of
+        attn_bias)."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        b, t, _ = x.shape
+        nh, dh = cfg.num_attention_heads, cfg.head_size
+        q = dense(self.linear_q, x, dt).view(b, t, nh, dh)
+        k = dense(self.linear_k, x, dt).view(b, t, nh, dh)
+        v = dense(self.linear_v, x, dt).view(b, t, nh, dh)
+        if self._use_kernel(x):
+            from svecalign_tpu_torch.ops.attention_cuda import relkey_attention_cuda
+
+            ATTENTION_CALLS["cuda"] += 1
+            out = relkey_attention_cuda(
+                q, k, v, self.distance_embedding.to(dt), lengths,
+                left=cfg.left_max_position_embeddings,
+                right=cfg.right_max_position_embeddings,
+            )
+            return dense(self.linear_out, out.reshape(b, t, nh * dh), dt)
+
+        ATTENTION_CALLS["torch"] += 1
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, dh)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+        if cfg.position_embeddings_type == "relative_key":
+            left = cfg.left_max_position_embeddings
+            pos = torch.arange(t, device=x.device)
+            distance = torch.clamp(pos[None, :] - pos[:, None], -left,
+                                   cfg.right_max_position_embeddings)
+            rel = self.distance_embedding[distance + left].to(dt)  # (T, T, dh)
+            scores = scores + torch.einsum("bhld,lrd->bhlr", q, rel) / math.sqrt(dh)
+        if attn_bias is not None:
+            scores = scores + attn_bias
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, nh * dh)
+        return dense(self.linear_out, out, dt)
+
+
+class _ConvModule(nn.Module):
+    def __init__(self, cfg: W2vBertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, ks = cfg.hidden_size, cfg.conv_depthwise_kernel_size
+        self.layer_norm = FlaxLayerNorm(h, cfg.layer_norm_eps)
+        self.pointwise_conv1 = nn.Linear(h, 2 * h, bias=False)
+        self.depthwise_conv = nn.Conv1d(h, h, ks, groups=h, bias=False)
+        self.depthwise_layer_norm = FlaxLayerNorm(h, cfg.layer_norm_eps)
+        self.pointwise_conv2 = nn.Linear(h, h, bias=False)
+
+    def forward(self, x, pad_mask):
+        """pad_mask: (B, T) bool, True = valid. The depthwise conv is CAUSAL
+        (left pad k - 1)."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        h = cfg.hidden_size
+        x = self.layer_norm(x).to(dt)
+        if pad_mask is not None:
+            x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=dt, device=x.device))
+        x = dense(self.pointwise_conv1, x, dt)
+        x = x[..., :h] * torch.sigmoid(x[..., h:])  # GLU over channels
+        x = F.pad(x.transpose(1, 2), (cfg.conv_depthwise_kernel_size - 1, 0))
+        x = F.conv1d(x, self.depthwise_conv.weight.to(dt), groups=h).transpose(1, 2)
+        x = F.silu(self.depthwise_layer_norm(x).to(dt))
+        return dense(self.pointwise_conv2, x, dt)
+
+
+class W2vBertEncoderLayer(nn.Module):
+    def __init__(self, cfg: W2vBertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.ffn1_layer_norm = FlaxLayerNorm(h, eps)
+        self.ffn1 = _FeedForward(cfg)
+        self.self_attn_layer_norm = FlaxLayerNorm(h, eps)
+        self.self_attn = _SelfAttention(cfg)
+        self.conv_module = _ConvModule(cfg)
+        self.ffn2_layer_norm = FlaxLayerNorm(h, eps)
+        self.ffn2 = _FeedForward(cfg)
+        self.final_layer_norm = FlaxLayerNorm(h, eps)
+
+    def forward(self, x, attn_bias, pad_mask, lengths=None):
+        dt = compute_dtype(self.cfg)
+        x = x + 0.5 * self.ffn1(self.ffn1_layer_norm(x).to(dt))
+        x = x + self.self_attn(self.self_attn_layer_norm(x).to(dt), attn_bias, lengths)
+        x = x + self.conv_module(x, pad_mask)
+        x = x + 0.5 * self.ffn2(self.ffn2_layer_norm(x).to(dt))
+        return self.final_layer_norm(x).to(dt)
+
+
+class W2vBertModel(nn.Module):
+    """fp_layer_norm + fp_projection + conformer layers ==
+    Wav2Vec2BertModel with add_adapter=False."""
+
+    def __init__(self, cfg: W2vBertConfig = W2vBertConfig()):
+        super().__init__()
+        self.cfg = cfg
+        compute_dtype(cfg)
+        self.fp_layer_norm = FlaxLayerNorm(cfg.feature_projection_input_dim, cfg.layer_norm_eps)
+        self.fp_projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
+        for i in range(cfg.num_hidden_layers):  # flax names: layers_0, layers_1, ...
+            self.add_module(f"layers_{i}", W2vBertEncoderLayer(cfg))
+
+    def layers(self):
+        return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_hidden_layers)]
+
+    def set_attention_backend(self, backend: str) -> None:
+        if backend not in BACKENDS:
+            raise ValueError(f"attention_backend must be one of {BACKENDS}, got {backend!r}")
+        for layer in self.layers():
+            layer.self_attn.attention_backend = backend
+
+    def forward(self, feats: torch.Tensor, pad_mask: Optional[torch.Tensor] = None):
+        """feats: (B, T, feature_projection_input_dim) stacked log-mels;
+        pad_mask: (B, T) bool, True = valid frame. Returns (B, T, H) in the
+        compute dtype."""
+        dt = compute_dtype(self.cfg)
+        x = dense(self.fp_projection, self.fp_layer_norm(feats.float()).to(dt), dt)
+        attn_bias = lengths = None
+        if pad_mask is not None:
+            x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=dt, device=x.device))
+            neg = torch.finfo(torch.float32).min
+            attn_bias = torch.where(pad_mask[:, None, None, :], 0.0, neg).float()
+            # contiguous-padding form for the kernel (the frontend builds
+            # pad_mask as arange < lengths)
+            lengths = pad_mask.sum(dim=1, dtype=torch.int32)
+        for layer in self.layers():
+            x = layer(x, attn_bias, pad_mask, lengths)
+        return x

@@ -23,11 +23,13 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # no FMA contraction anywhere: the DPs must match their plain
-    # versions bit for bit
-    "--fmad=false",
-    "-Xptxas", "-v",
 )
+
+# per-source flags, after NVCC_FLAGS
+SOURCE_FLAGS = {
+    # no FMA contraction: the DP must match its plain version bit for bit
+    "banded_dp": ("--fmad=false",),
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -45,9 +47,15 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """Every nvcc flag of kernel ``name``; ptxas reports registers,
+    shared memory and spills."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + ("-Xptxas", "-v")
+
+
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -66,7 +74,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             logs[name] = ""
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [find_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)

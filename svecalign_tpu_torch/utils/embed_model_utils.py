@@ -1,0 +1,156 @@
+"""Embedding-model plumbing of the embed stage.
+
+Port of the JAX package's ``utils/embed_model_utils.py``: the same CLI
+flags (``add_embed_args``), the memoised model loader and the per-file
+embed-and-write. Segments are sliced in memory, or gathered on the device
+from one upload of the waveform (``--window_assembly device``).
+
+Ported: the SONAR model (``--embed_model_type sonar``), whose ``.embed``
+files are headerless raw fp16 (default) or fp32 rows of ``pool_dim``
+values, one row per segment line. The SpeechLASER model is not ported yet
+and exits naming its ROADMAP item.
+"""
+
+import argparse
+from pathlib import Path
+from typing import List, Tuple
+
+import numpy as np
+
+from svecalign_tpu_torch.utils.audio_utils import SAMPLE_RATE, load_waveform
+from svecalign_tpu_torch.utils.embedding_utils import write_np_embeddings
+from svecalign_tpu_torch.utils.log_utils import logging
+
+EMBED_MODEL_TYPES = ["speech_laser", "sonar"]
+LASER_TODO = "ROADMAP.md Queue 1 item 15 (the LASER wav2vec2 encoder)"
+
+logger = logging.getLogger(__name__)
+
+
+def add_embed_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    parser.add_argument("--embed_model_type", choices=EMBED_MODEL_TYPES,
+                        default="speech_laser",
+                        help=f"speech_laser is not ported yet: {LASER_TODO}.")
+    parser.add_argument("--embed_fp32", action="store_true", default=False,
+                        help="whether to save the embeddings in fp32. default is fp16.")
+    # SpeechLASER setups
+    parser.add_argument("--sl_ckpt_dir", type=str, default=None,
+                        help="the dir to all speech laser models (.npz converted weights).")
+    parser.add_argument("--sl_ckpt_name", type=str, default=None,
+                        help="which SpeechLASER weights to use, e.g. `english.npz`.")
+    parser.add_argument("--max_tokens", type=int, default=150 * SAMPLE_RATE,
+                        help="in number of SAMPLES")
+    # SONAR setups
+    parser.add_argument("--sonar_name", type=str, default=None,
+                        help="path to SONAR-style .npz weights (or a name tag).")
+    parser.add_argument("--batch_size", type=int, default=16,
+                        help="number of audios per batch.")
+    parser.add_argument("--n_proc", type=int, default=1)
+    parser.add_argument("--compile_sonar", action="store_true", default=False,
+                        help="accepted for CLI parity; the port runs eagerly.")
+    parser.add_argument("--upload_precision", type=str, default="int16",
+                        choices=["int16", "fp32"],
+                        help="waveform host->device upload precision: int16 "
+                             "halves the bytes (~3e-5 input noise); fp32 is "
+                             "the exact path for parity runs.")
+    parser.add_argument("--window_assembly", type=str, default="device",
+                        choices=["device", "host"],
+                        help="how overlap-window batches are built: 'device' "
+                             "uploads each waveform once and gathers the "
+                             "(heavily overlapping) windows on the device; "
+                             "'host' slices and stages every padded window "
+                             "batch on the host. With --upload_precision fp32 "
+                             "both modes are bit-identical; with int16 they "
+                             "differ by ~one quantization step.")
+    return parser
+
+
+# one model per argument tuple: in-process runs of the stage reuse it
+_model_memo = {}
+
+
+def load_embed_model(
+    embed_model_type: str,
+    sl_ckpt_dir=None,
+    sl_ckpt_name=None,
+    max_tokens=None,
+    sonar_name=None,
+    sonar_fp16: bool = False,
+    compile_sonar: bool = False,
+    batch_size: int = 16,
+    upload_precision: str = "int16",
+    device="cuda",
+):
+    if embed_model_type == "speech_laser":
+        raise SystemExit(f"--embed_model_type speech_laser is not ported yet: {LASER_TODO}")
+    key = (embed_model_type, sl_ckpt_dir, sl_ckpt_name, max_tokens,
+           sonar_name, sonar_fp16, compile_sonar, batch_size,
+           upload_precision, str(device))
+    if key in _model_memo:
+        logger.info(f"Reusing the loaded {embed_model_type} model")
+        return _model_memo[key]
+    model = _build_embed_model(
+        embed_model_type, sl_ckpt_dir, sl_ckpt_name, max_tokens, sonar_name,
+        sonar_fp16, compile_sonar, batch_size, upload_precision, device,
+    )
+    _model_memo[key] = model
+    return model
+
+
+def _build_embed_model(
+    embed_model_type: str,
+    sl_ckpt_dir=None,
+    sl_ckpt_name=None,
+    max_tokens=None,
+    sonar_name=None,
+    sonar_fp16: bool = False,
+    compile_sonar: bool = False,
+    batch_size: int = 16,
+    upload_precision: str = "int16",
+    device="cuda",
+):
+    if embed_model_type == "sonar":
+        from svecalign_tpu_torch.models.sonar_encoder import SonarSpeechModel
+
+        ckpt = sonar_name if sonar_name and Path(sonar_name).exists() else None
+        return SonarSpeechModel(
+            ckpt_path=ckpt, batch_size=batch_size,
+            upload_dtype=upload_precision, device=device,
+        )
+    raise NotImplementedError(f"Unsupported model {embed_model_type}")
+
+
+def slice_segments(wave_path: str, segments: List[Tuple[int, int]]) -> List[np.ndarray]:
+    """Read the audio once and slice each (start, end) frame span."""
+    waveform = load_waveform(wave_path, sr=SAMPLE_RATE)
+    if waveform.ndim == 2:
+        waveform = waveform[:, 0]
+    return [waveform[s:e] for s, e in segments]
+
+
+def embed_segments_to_file(
+    embed_model,
+    embed_model_type: str,
+    wave_path: str,
+    segments: List[Tuple[int, int]],
+    out_path: str,
+    fp16: bool = True,
+    window_assembly: str = "device",
+    waveform: np.ndarray = None,
+) -> np.ndarray:
+    """Embed all segments of one audio and write the .embed file: headerless
+    raw fp16 (``fp16``) or fp32 rows, one per segment.
+
+    ``window_assembly="device"``: upload the waveform once and gather the
+    overlap windows on the device (``encode_spans``); "host" slices and
+    stages the windows on the host (``encode``). ``waveform``: the audio,
+    when the caller has read it already.
+    """
+    if window_assembly == "device" and getattr(embed_model, "supports_spans", False):
+        if waveform is None:
+            waveform = load_waveform(wave_path, sr=SAMPLE_RATE)
+        emb = embed_model.encode_spans(waveform, segments, fp16_pull=fp16)
+    else:
+        emb = embed_model.encode(slice_segments(wave_path, segments), fp16_pull=fp16)
+    write_np_embeddings(emb, out_path, fp16=fp16)
+    return emb

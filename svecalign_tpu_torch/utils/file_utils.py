@@ -1,10 +1,11 @@
-"""The alignment stage's slice of the L0 file contract.
+"""The ported stages' slice of the L0 file contract.
 
 Copied from the JAX package's ``utils/file_utils.py`` (the readers the
-aligner needs). Formats (bit-compatible with the reference, reference
-svecalign/utils/file_utils.py):
+aligner and the embed stage need). Formats (bit-compatible with the
+reference, reference svecalign/utils/file_utils.py):
 
 - metadata.tsv    : ``src_audio \t tgt_audio`` per line
+- segment files   : ``start end`` integer sample offsets per line
 - alignment files : ``[src ids]:[tgt ids]`` or ``[src ids]:[tgt ids]:cost``
                     (Python-list repr, ast.literal_eval parseable)
 """
@@ -28,6 +29,18 @@ def read_lines(path: PathLike) -> List[str]:
 def read_metadata(path: PathLike) -> List[Tuple[str, str]]:
     """Parse a metadata tsv of ``src_audio \t tgt_audio`` document pairs."""
     return [tuple(line.split("\t")) for line in read_lines(path)]
+
+
+def read_segments(path: PathLike) -> List[Tuple[int, int]]:
+    """Read a segment file: one ``start end`` integer-frame pair per line."""
+    res = []
+    with open(path) as fp:
+        for line in fp:
+            parts = line.strip().split(" ")
+            if len(parts) != 2:
+                raise ValueError(f"{path}: want 'start end', got {line.strip()!r}")
+            res.append((int(parts[0]), int(parts[1])))
+    return res
 
 
 def check_exist(path: PathLike) -> bool:
