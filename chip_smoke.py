@@ -19,7 +19,11 @@ Phases, in order; any failure exits non-zero:
    must run 24 times per chunk and the plain attention never, the rows
    must be finite and agree (per-row cosine >= 0.99) with a run on the
    plain attention path; then the stage's phases, and the kernel timed at
-   the modal bucket against its plain version, SDPA and its bound.
+   each of the run's buckets against SDPA and its bound (and against its
+   plain version at the modal bucket).
+
+``--checks`` runs phases 1-2 only; ``--profile`` profiles one warm
+stage-5.3 run instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -177,6 +181,35 @@ def _cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
+def _graph_time_ms(fn, reps=20, replays=5):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    per-call work (argument checks, allocation, launch) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
 def _random_band_problem(rng, sizes, types, w2, device):
     """Batched banded-DP inputs for pairs of (n, m) sizes on random
     monotone search paths, padded to one A as the batched driver pads
@@ -265,8 +298,11 @@ def _ragged(rng, n, lo, hi, zeros=0):
 _ARNG = np.random.default_rng(77)
 # (name, B, H, T, lengths (None: all T valid), left, right): the four
 # geometries of the tests, the asymmetric clip, a ragged chunk with
-# padding-only rows, and chunks of the main path's 700- and 1400-frame
-# buckets (T = 350 and 700 after stacking)
+# padding-only rows, chunks of the main path's 700-, 1400- and 2000-frame
+# buckets (T = 350, 700 and 1000 after stacking), the 200-frame bucket with
+# short rows, a T that is no multiple of a tile with the last batch row
+# ragged, lengths that are whole key tiles, and the asymmetric clip with
+# lengths
 ATTN_CASES = [
     ("test geometry B=2 H=4 T=200", 2, 4, 200, (200, 150), 64, 8),
     ("test geometry B=1 H=2 T=128", 1, 2, 128, (128,), 64, 8),
@@ -276,6 +312,11 @@ ATTN_CASES = [
     ("ragged chunk B=16 with length-0 rows", 16, 16, 350, _ragged(_ARNG, 16, 1, 350, 3), 64, 8),
     ("main-path chunk B=16 H=16 T=350", 16, 16, 350, _ragged(_ARNG, 16, 250, 350), 64, 8),
     ("main-path chunk B=16 H=16 T=700", 16, 16, 700, _ragged(_ARNG, 16, 500, 700), 64, 8),
+    ("main-path chunk B=16 H=16 T=1000", 16, 16, 1000, _ragged(_ARNG, 16, 700, 1000), 64, 8),
+    ("main-path chunk B=16 H=16 T=100, lengths 20-100", 16, 16, 100, _ragged(_ARNG, 16, 20, 100), 64, 8),
+    ("T=130, last batch row ragged", 3, 4, 130, (130, 130, 77), 64, 8),
+    ("lengths of whole key tiles (128, 256)", 2, 4, 300, (128, 256), 64, 8),
+    ("clip (16, 4), C=21, with lengths", 2, 4, 200, (200, 133), 16, 4),
 ]
 # |kernel - plain| <= atol + rtol |plain| on valid rows. fp32: the tests'
 # tolerance (summation order and FMA only). bf16: about one bf16 step of
@@ -314,8 +355,15 @@ def compare_attention(got, want, lengths, dtype_name):
         return 0.0
     atol, rtol = ATTN_TOL[dtype_name]
     err = (g - w).abs()
-    if not bool((err <= atol + rtol * w.abs()).all()):
-        raise AssertionError(f"max abs err {float(err.max())} over atol {atol} + rtol {rtol}")
+    bad = err > atol + rtol * w.abs()
+    if bool(bad.any()):
+        # where the misses are: (batch row, time step) of the valid rows, head, column
+        idx = valid.nonzero()[bad.any(-1).any(-1).nonzero()[:, 0]]
+        raise AssertionError(
+            f"max abs err {float(err.max())} over atol {atol} + rtol {rtol}: "
+            f"{int(bad.sum())} of {bad.numel()} values, in {idx.shape[0]} rows, first "
+            f"(b, t) {idx[:4].tolist()}; heads {bad.any(-1).any(0).nonzero()[:, 0].tolist()[:8]}, "
+            f"columns {bad.any(1).any(0).nonzero()[:, 0].tolist()[:16]}")
     return float(err.max())
 
 
@@ -327,6 +375,10 @@ def phase_attention_checks(device):
 
     from svecalign_tpu_torch.ops import attention, attention_cuda
 
+    for C in (21, 73, 128):
+        smem, ctas = attention_cuda.bf16_occupancy(C)
+        _log(f"[check] relkey_attention bf16 kernel with a {C}-row table: {smem} bytes of dynamic "
+             f"shared memory, {ctas} CTAs per SM")
     rng = np.random.default_rng(4321)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -348,9 +400,9 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all()
     _log(f"[build] {len(logs)} kernel(s) in {time.perf_counter() - t0:.1f}s")
-    for name, out in logs.items():
+    for name, out in logs.items():  # registers, stack and spills per kernel function
         for line in out.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if any(key in line for key in ("ptxas", "spill", "stack frame")) or "error" in line.lower():
                 _log(f"    {name}: {line.strip()}")
 
 
@@ -638,7 +690,8 @@ def _run_embed(stage, paths, out_dir):
 
 def phase_embed_path(workdir, device):
     """Stage 5.3 through the CLI on the card at full width; returns what
-    the timings need (the modal bucket's frame counts) and the launches."""
+    the timings need (each bucket's window frame counts and chunks, the
+    modal bucket) and the launches."""
     import torch
 
     from svecalign_tpu_torch.models import encode_common, w2v_bert
@@ -725,66 +778,107 @@ def phase_embed_path(workdir, device):
          f"{np.abs(rows - plain).max():.4e}")
     if cos.min() < MIN_COSINE:
         raise AssertionError(f"min per-row cosine {cos.min()} < {MIN_COSINE}")
-    modal = max(plan, key=lambda b: len(plan[b]))
-    return {"modal_bucket": modal, "frames": plan[modal][:model.batch_size],
-            "batch_size": model.batch_size, "n_heads": model.config.n_heads}, launches
+    return {"plan": plan, "modal_bucket": max(plan, key=lambda b: len(plan[b])),
+            "chunks": {b: -(-len(v) // model.batch_size) for b, v in plan.items()},
+            "batch_size": model.batch_size, "n_heads": model.config.n_heads,
+            "n_layers": n_layers}, launches
 
 
 def _attention_bound_ms(B, T, H, lengths, C=73, elem_bytes=2):
-    """Least time for rel-key attention on these inputs: q, k, v, p read
-    and the output written once, against 4 x 64 operations per (valid
-    query, valid key, head) pair at the bf16 tensor-core peak."""
+    """Least time for rel-key attention on these inputs: what the function
+    reads and writes once (q, k, v, the (C, 64) table and the (B,) int32
+    lengths in, the output out), against 4 x 64 operations per (valid
+    query, valid key, head) pair at the bf16 tensor-core peak. Returns
+    (ms, "bytes" or "operations")."""
     ops = 4 * H * 64 * float(np.sum(np.square(np.asarray(lengths, np.float64))))
-    nbytes = (4 * B * T * H * 64 + B * T * H * C) * elem_bytes + 4 * B
+    nbytes = (4 * B * T * H * 64 + C * 64) * elem_bytes + 4 * B
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
     by_ops = ops / H100_BF16_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_attention_times(info, device):
-    """The kernel, its plain version and SDPA (the bias and key mask
-    materialised as a (B, H, T, T) attn_mask) at the main path's modal
-    bucket: B = batch rows, T = frames / 2, bf16, the lengths of that
-    bucket's first chunk."""
+def _sdpa_args(q, k, v, table, lengths):
+    """SDPA's inputs for the same function: (B, H, T, dh) views and the
+    rel-key bias with the key mask as one materialised (B, H, T, T) bf16
+    attn_mask (built here, outside any timing)."""
     import torch
-    import torch.nn.functional as F
 
-    from svecalign_tpu_torch.ops import attention, attention_cuda
+    from svecalign_tpu_torch.ops import attention
 
-    B, H, T = info["batch_size"], info["n_heads"], info["modal_bucket"] // 2
-    frames = list(info["frames"]) + [0] * (B - len(info["frames"]))
-    lens = tuple(min(f, info["modal_bucket"]) // 2 for f in frames)
-    rng = np.random.default_rng(99)
-    q, k, v, table, lengths = attention_inputs(rng, B, H, T, lens, 64, 8, torch.bfloat16, device)
-    got = attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
-    want = attention.relkey_attention(q, k, v, table, lengths)
-    err = compare_attention(got, want, lengths, "bfloat16")
-
-    ms = _cuda_time_ms(lambda: attention_cuda.relkey_attention_cuda(q, k, v, table, lengths),
-                       reps=20)
-    plain_ms = _cuda_time_ms(lambda: attention.relkey_attention(q, k, v, table, lengths),
-                             reps=5, warmup=1)
-    # the library call: SDPA on (B, H, T, dh) with the rel-key bias and the
-    # key mask as one materialised additive mask (built outside the timing)
-    pos = torch.arange(T, device=device)
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device)
     dist = torch.clamp(pos[None, :] - pos[:, None], -64, 8) + 64
     p = attention.relkey_projection(q, table).permute(0, 2, 1, 3)  # (B, H, T, C)
     mask = p[:, :, pos[:, None], dist].float()
     keep = pos[None, :] < lengths[:, None]
     mask = torch.where(keep[:, None, None, :], mask, attention.NEG).to(torch.bfloat16)
-    qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))
-    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    lib_err = float((lib.permute(0, 2, 1, 3).float() - want.float())[
-        (pos[None, :] < lengths[:, None])].abs().max())
-    library_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                               reps=20)
-    bound, by = _attention_bound_ms(B, T, H, lens)
-    _log(f"[time] relkey_attention at the modal bucket (B={B} H={H} T={T} bf16, lengths "
-         f"{min(lens)}-{max(lens)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with a "
-         f"materialised bias {library_ms:.4f} ms (its max abs diff to plain {lib_err:.3e}), "
-         f"bound {bound:.6f} ms ({by}), err {err:.3e}")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-            "bound_by": by, "err": err}
+    return tuple(a.permute(0, 2, 1, 3) for a in (q, k, v)) + (mask,)
+
+
+def phase_attention_times(info, device):
+    """The kernel against SDPA (the bias and key mask materialised as a
+    (B, H, T, T) attn_mask) and the bound at each bucket of the stage-5.3
+    run: B = batch rows, T = frames / 2, bf16, the lengths of the bucket's
+    first chunk. Each is timed two ways, in turns (kernel, SDPA, SDPA,
+    kernel): replayed from a CUDA graph (device time per call: ``ms`` and
+    ``library_ms``) and called eagerly back to back (host work included:
+    ``eager_ms`` and ``library_eager_ms``). The plain version is timed
+    eagerly at the modal bucket only. Returns the modal bucket's numbers
+    and the per-bucket rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from svecalign_tpu_torch.ops import attention, attention_cuda
+
+    B, H = info["batch_size"], info["n_heads"]
+    rows, modal = [], None
+    for bucket in sorted(info["plan"]):
+        T = bucket // 2
+        frames = list(info["plan"][bucket][:B]) + [0] * max(0, B - len(info["plan"][bucket]))
+        lens = tuple(min(f, bucket) // 2 for f in frames)
+        rng = np.random.default_rng(99 + bucket)
+        q, k, v, table, lengths = attention_inputs(rng, B, H, T, lens, 64, 8, torch.bfloat16, device)
+        got = attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
+        want = attention.relkey_attention(q, k, v, table, lengths)
+        err = compare_attention(got, want, lengths, "bfloat16")
+        sdpa = _sdpa_args(q, k, v, table, lengths)
+        lib = F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3]).permute(0, 2, 1, 3)
+        lib_err = float((lib.float() - want.float())[
+            (torch.arange(T, device=device)[None, :] < lengths[:, None])].abs().max())
+
+        def kernel():
+            return attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
+
+        def library():
+            return F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3])
+
+        g = [_graph_time_ms(f) for f in (kernel, library, library, kernel)]
+        e = [_cuda_time_ms(f, reps=20) for f in (kernel, library, library, kernel)]
+        ms, library_ms = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
+        bound, by = _attention_bound_ms(B, T, H, lens)
+        row = {"T": T, "launches": info["n_layers"] * info["chunks"][bucket], "ms": ms,
+               "library_ms": library_ms, "eager_ms": (e[0] + e[3]) / 2,
+               "library_eager_ms": (e[1] + e[2]) / 2, "bound_ms": bound, "bound_by": by,
+               "err": err, "lengths": (min(lens), max(lens))}
+        if bucket == info["modal_bucket"]:
+            row["plain_ms"] = _cuda_time_ms(
+                lambda: attention.relkey_attention(q, k, v, table, lengths), reps=5, warmup=1)
+            modal = row
+        rows.append(row)
+        del q, k, v, table, lengths, got, want, sdpa, lib
+        _log(f"[time] relkey_attention bucket {bucket} frames (B={B} H={H} T={T} bf16, lengths "
+             f"{min(lens)}-{max(lens)}, {row['launches']} launches per run): kernel {ms:.4f} ms "
+             f"({g[0]:.4f}, {g[3]:.4f}; eager {row['eager_ms']:.4f}), SDPA with a materialised "
+             f"bias {library_ms:.4f} ms ({g[1]:.4f}, {g[2]:.4f}; eager "
+             f"{row['library_eager_ms']:.4f}; its max abs diff to plain {lib_err:.3e}), bound "
+             f"{bound:.6f} ms ({by}), kernel / SDPA {ms / library_ms:.3f}, kernel / bound "
+             f"{ms / bound:.2f}, err {err:.3e}"
+             + (f", plain {row['plain_ms']:.4f} ms (modal bucket)" if "plain_ms" in row else ""))
+    per_run = sum(r["launches"] * r["ms"] for r in rows)
+    _log(f"[time] relkey_attention per stage-5.3 run, sum of launches x kernel ms (graph) over "
+         f"the buckets: {per_run:.3f} ms")
+    modal["err"] = max(r["err"] for r in rows)
+    return modal, rows
 
 
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
@@ -846,9 +940,13 @@ def main(argv=None):
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="only build and profile one warm stage-5.3 run (device time "
-                             "by kernel) instead of the phases above")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="only build and profile one warm stage-5.3 run (device time "
+                           "by kernel) instead of the phases above")
+    mode.add_argument("--checks", action="store_true",
+                      help="only build and hold each kernel against its plain version "
+                           "(phases 1-2); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -866,12 +964,15 @@ def main(argv=None):
         return 0
     check_err = phase_kernel_checks(device)
     attn_err = phase_attention_checks(device)
+    if args.checks:
+        _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         stack, launches = phase_main_path(Path(td), N_SRC, N_TGT)
     t = phase_times(stack, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
         info, embed_launches = phase_embed_path(Path(td), device)
-    a = phase_attention_times(info, device)
+    a, _ = phase_attention_times(info, device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",
@@ -891,8 +992,9 @@ def main(argv=None):
     }]
     _log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s. banded_dp: "
          "times per stage-5.4 run (sum over its banded levels); no single PyTorch call "
-         "computes it, so library_ms is null. relkey_attention: times per launch at the "
-         "stage-5.3 modal bucket; launches per stage-5.3 run")
+         "computes it, so library_ms is null. relkey_attention: device times per launch "
+         "(CUDA-graph replay) at the stage-5.3 modal bucket (every bucket, and eager times, "
+         "above); launches per stage-5.3 run")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -120,3 +120,44 @@ def test_wrapper_raises_on_unsupported_device():
     q = torch.zeros(1, 4, 2, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         attention_cuda.relkey_attention_cuda(q, q, q, torch.zeros(73, 64, device="meta"))
+
+
+@pytest.mark.parametrize(
+    "q_shape,dtype,table_rows,left,right,match",
+    [
+        ((1, 4, 2, 32), torch.float32, 73, 64, 8, "q must be"),          # head size 32
+        ((1, 4, 64), torch.float32, 73, 64, 8, "q must be"),             # not 4-D
+        ((1, 4, 2, 64), torch.float16, 73, 64, 8, "q must be one of"),   # fp16
+        ((1, 4, 2, 64), torch.bfloat16, 129, 120, 8, "at most 128"),     # C = 129
+        ((1, 4, 2, 64), torch.float32, 72, 64, 8, "table must be"),      # C = 73, 72 rows
+        ((1, 4, 2, 64), torch.float32, 21, -1, 21, "non-negative"),      # negative clip
+    ],
+)
+def test_wrapper_rejects_what_the_kernels_do_not_take(q_shape, dtype, table_rows, left, right,
+                                                      match):
+    """The wrapper checks its inputs before it picks a route, so CPU
+    tensors get the errors a card caller would."""
+    q = torch.zeros(q_shape, dtype=dtype)
+    table = torch.zeros(table_rows, q_shape[-1], dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        attention_cuda.relkey_attention_cuda(q, q, q, table, left=left, right=right)
+
+
+def test_attention_bound_counts_inputs_and_output_only():
+    """chip_smoke's bound: q, k, v and the output (B T H 64 bf16 each), the
+    (C, 64) table and the int32 lengths move once; 4 x 64 operations per
+    valid (query, key, head) pair; the larger time bounds."""
+    from chip_smoke import H100_BF16_OPS_PER_S, H100_BYTES_PER_S, _attention_bound_ms
+
+    B, T, H = 16, 250, 16
+    lens = [250] * 8 + [100] * 8
+    ms, by = _attention_bound_ms(B, T, H, lens)
+    nbytes = 4 * B * T * H * 64 * 2 + 73 * 64 * 2 + 4 * B
+    ops = 4 * H * 64 * (8 * 250**2 + 8 * 100**2)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / H100_BYTES_PER_S * 1e3, rel=1e-12)
+    assert ms > ops / H100_BF16_OPS_PER_S * 1e3
+
+    ms, by = _attention_bound_ms(B, 700, H, [700] * B)  # the 1400-frame bucket, full
+    assert by == "operations"
+    assert ms == pytest.approx(4 * H * 64 * B * 700**2 / H100_BF16_OPS_PER_S * 1e3, rel=1e-12)
