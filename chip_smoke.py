@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero:
    each of the run's buckets against SDPA and its bound (and against its
    plain version at the modal bucket).
 
-``--checks`` runs phases 1-2 only; ``--profile`` profiles one warm
-stage-5.3 run instead.
+``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 for the banded
+DP alone (no SONAR model is built) and prints its ``[time]`` lines;
+``--profile`` profiles one warm stage-5.3 run instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -45,6 +46,10 @@ STEM = "20180313-0900-PLENARY-SYN"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores
+H100_SM_CLOCK_HZ = 1.98e9  # H100 SXM maximum SM clock, where the device's cannot be read
+# Cycles of the banded DP's dependent chain (see _bound_ms)
+SMEM_ACCESS_CYCLES = 30  # one shared-memory access, store or dependent load
+ALU_CYCLES = 4  # one dependent fp32 add, compare or select
 DOC_SECONDS = 600  # the stage-5.3 document: 10 minutes of 16 kHz audio
 MIN_COSINE = 0.99  # kernel run vs plain-attention run, per .embed row
 
@@ -277,15 +282,31 @@ def _compare_planes(got, want):
 
 DEFAULT_TYPES = [(x, y) for x in range(1, 6) for y in range(1, 6) if x + y <= 6]
 
-# (name, pair sizes, types, width_over2): every geometry the TPU kernel
-# admits, at the main path's shapes where the main path has them
+MANY_TO_ONE_TYPES = [(k, 1) for k in range(1, 51)]
+P8_SIZES = [(300 + 7 * k, 290 - 5 * k) for k in range(8)]
+# 64 pairs of mixed sizes, padded to the longest as a bucket is
+P64_SIZES = [(120 + (37 * k) % 200, 110 + (53 * k) % 190) for k in range(64)]
+
+# (name, pair sizes, types, width_over2, route it must take): every
+# geometry the TPU kernel admits, at the main path's shapes where the main
+# path has them, and the edges of the warp route (B <= 32): 4-byte copies
+# (B = 6, and a misaligned cost tensor), fewer steps than cost stages,
+# padding rows, the first B past a warp, and T = 50 with its large stages
 KERNEL_CASES = [
-    ("default P=1 (T=15, B=16, K=6)", [(1200, 1100)], DEFAULT_TYPES, 8),
-    ("default P=8", [(300 + 7 * k, 290 - 5 * k) for k in range(8)], DEFAULT_TYPES, 8),
-    ("coarse (T=1, K=2)", [(600, 550)], [(1, 1)], 8),
-    ("wide band (B=140, K=3)", [(500, 450), (420, 470)], [(1, 1), (1, 2), (2, 1)], 70),
-    ("many-to-one (T=50, K=51)", [(300, 120)], [(k, 1) for k in range(1, 51)], 30),
-    ("many-to-one wide (ring in global memory)", [(150, 60)], [(k, 1) for k in range(1, 51)], 600),
+    ("default P=1 (T=15, B=16, K=6)", [(1200, 1100)], DEFAULT_TYPES, 8, "warp"),
+    ("default P=8", P8_SIZES, DEFAULT_TYPES, 8, "warp"),
+    ("default P=64, mixed sizes", P64_SIZES, DEFAULT_TYPES, 8, "warp"),
+    ("coarse (T=1, K=2)", [(600, 550)], [(1, 1)], 8, "warp"),
+    ("a full warp (B=32)", [(400, 380), (90, 130)], DEFAULT_TYPES, 16, "warp"),
+    ("narrowest band (B=6, 4-byte copies)", [(200, 190), (50, 61)], DEFAULT_TYPES, 3, "warp"),
+    ("misaligned costs (B=16, 4-byte copies)", [(210, 205)], DEFAULT_TYPES, 8, "warp"),
+    ("tiny pairs (3, 2) and (1, 1)", [(3, 2), (1, 1)], DEFAULT_TYPES, 8, "warp"),
+    ("one tiny pair (1, 1)", [(1, 1)], [(1, 1)], 3, "warp"),
+    ("first band past a warp (B=34)", [(300, 280)], DEFAULT_TYPES, 17, "block"),
+    ("wide band (B=140, K=3)", [(500, 450), (420, 470)], [(1, 1), (1, 2), (2, 1)], 70, "block"),
+    ("many-to-one narrow (T=50, K=51, B=32)", [(300, 120), (100, 40)], MANY_TO_ONE_TYPES, 16, "warp"),
+    ("many-to-one (T=50, K=51)", [(300, 120)], MANY_TO_ONE_TYPES, 30, "block"),
+    ("many-to-one wide (ring in global memory)", [(150, 60)], MANY_TO_ONE_TYPES, 600, "block"),
 ]
 
 
@@ -406,24 +427,62 @@ def phase_build():
                 _log(f"    {name}: {line.strip()}")
 
 
+def _misalign(t):
+    """The same values in storage that starts 4 bytes past a 16-byte
+    boundary (contiguous, as the wrapper requires)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+def _route_taken(dp_cuda, before):
+    """The route of the one launch since ``before`` (a copy of LAUNCHES)."""
+    took = [r for r in dp_cuda.ROUTES
+            if dp_cuda.LAUNCHES[f"banded_dp_{r}"] != before[f"banded_dp_{r}"]]
+    if len(took) != 1 or dp_cuda.LAUNCHES["banded_dp"] != before["banded_dp"] + 1:
+        raise AssertionError(f"one launch expected, counts went {before} -> {dp_cuda.LAUNCHES}")
+    return took[0]
+
+
 def phase_kernel_checks(device):
     import torch
 
     from svecalign_tpu_torch.ops import dp as dp_ops
     from svecalign_tpu_torch.ops import dp_cuda
 
+    lib = dp_cuda._lib()
+    if lib.banded_dp_warp_stages() != dp_cuda.WARP_STAGES:
+        raise AssertionError("the wrapper's WARP_STAGES is not the source's DP_STAGES")
     rng = np.random.default_rng(1234)
     max_err = 0.0
-    for name, sizes, types, w2 in KERNEL_CASES:
+    for name, sizes, types, w2, want_route in KERNEL_CASES:
         args = _random_band_problem(rng, sizes, types, w2, device)
-        got = dp_cuda.banded_dp_cuda_batched(*args)
-        torch.cuda.synchronize()
-        want = dp_ops.banded_dp_batched(*args)
-        torch.cuda.synchronize()
-        err = _compare_planes(got, want)
-        max_err = max(max_err, err)
+        if "misaligned" in name:
+            args = (_misalign(args[0]),) + args[1:]
         P, T, A, B = args[0].shape
-        _log(f"[check] banded_dp {name}: P={P} T={T} A={A} B={B} ok (max abs err {err})")
+        K = dp_ops.dp_types(args[3], args[4])[2]
+        smem = dp_cuda.warp_smem_bytes(B, K, T, A, T + 2)
+        if lib.banded_dp_warp_smem_bytes(B, K, T, A, T + 2) != smem:
+            raise AssertionError("the wrapper's and the source's warp shared-memory sizes differ")
+        want = dp_ops.banded_dp_batched(*args)
+        # the route the shape gives, then (where that is the warp route)
+        # the block kernel forced on the same inputs
+        for forced in (None, "block") if want_route == "warp" else (None,):
+            before = dict(dp_cuda.LAUNCHES)
+            got = dp_cuda.banded_dp_cuda_batched(*args, route=forced)
+            torch.cuda.synchronize()
+            route = _route_taken(dp_cuda, before)
+            if route != (forced or want_route):
+                raise AssertionError(f"{name}: took the {route} route, want {forced or want_route}")
+            err = _compare_planes(got, want)
+            max_err = max(max_err, err)
+            _log(f"[check] banded_dp {name}: P={P} T={T} A={A} B={B} K={K} {route} route"
+                 + (f" ({smem} bytes of shared memory)" if route == "warp" else "")
+                 + (" (forced)" if forced else "") + f" ok (max abs err {err})")
     return max_err
 
 
@@ -488,6 +547,8 @@ def phase_main_path(workdir, n_src, n_tgt):
          f"{n_levels} banded level(s)")
     if launches["banded_dp"] != n_levels:
         raise AssertionError(f"banded_dp launched {launches['banded_dp']} times, want {n_levels}")
+    if launches["banded_dp_warp"] != n_levels or launches["banded_dp_block"] != 0:
+        raise AssertionError(f"every banded level must take the warp route: {launches}")
 
     spans, costs = read_output(output_path(workdir / "out"))
     stack = per_pair.align(**_align_kwargs(paths, "torch"))
@@ -517,57 +578,110 @@ def phase_main_path(workdir, n_src, n_tgt):
     return stack, launches
 
 
-def _bound_ms(P, T, A, B, n_types, bp_bytes):
-    """Least time for the banded DP on these shapes: every needed input
-    read once (costs, node offsets, penalties, sizes), every output written
-    once (csum + two backpointer planes), against one add and one compare
-    per cell and type at the fp32 rate."""
+def _chain_cycles_per_step(n_types):
+    """Cycles one anti-diagonal must take however the kernel is written: a
+    row is a function of rows that other lanes computed, so each step
+    passes its row through shared memory (one store and one dependent
+    load, SMEM_ACCESS_CYCLES each; the barrier between them counted as
+    free), adds the cost (one ALU_CYCLES add) and takes a first minimum over
+    n_types candidates (a tree of ceil(log2 n_types) levels, a compare and
+    a select each). The two constants are round figures for Hopper from
+    published microbenchmarks of the H100 (shared-memory load latency about
+    30 cycles, dependent fp32 ALU issue about 4), not measured here."""
+    depth = int(np.ceil(np.log2(n_types)))
+    return 2 * SMEM_ACCESS_CYCLES + ALU_CYCLES + depth * 2 * ALU_CYCLES
+
+
+def _bound_ms(P, T, A, B, n_types, bp_bytes, sm_clock_hz=H100_SM_CLOCK_HZ):
+    """Least time for the banded DP on these shapes, the largest of three:
+    bytes (every needed input read once: costs, node offsets, penalties,
+    sizes; every output written once: csum + two backpointer planes) at the
+    memory rate; operations (one add and one compare per cell and type) at
+    the fp32 rate; and latency, the A + 2 anti-diagonals one after the
+    other at _chain_cycles_per_step cycles each at ``sm_clock_hz`` (pairs
+    run side by side, so P does not enter). Returns (ms, "bytes",
+    "operations" or "latency")."""
     read = P * (T * A * B * 4 + (A + 2) * 4 + 12) + 2 * n_types * 4
     write = P * (A + 2) * B * (4 + 2 * bp_bytes)
     ops = 2 * P * (A + 2) * B * n_types
-    by_bytes = (read + write) / H100_BYTES_PER_S * 1e3
-    by_ops = ops / H100_FP32_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    bounds = {
+        "bytes": (read + write) / H100_BYTES_PER_S * 1e3,
+        "operations": ops / H100_FP32_OPS_PER_S * 1e3,
+        "latency": (A + 2) * _chain_cycles_per_step(n_types) / sm_clock_hz * 1e3,
+    }
+    by = max(bounds, key=bounds.get)
+    return bounds[by], by
+
+
+def _sm_clock_hz():
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def _level_args(lvl, device):
+    """The wrapper's arguments for one banded level of a pyramid stack."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dp as dp_ops
+
+    types = lvl["alignment_types"]
+    b_in = np.asarray(lvl["b_offset"], np.int32)
+    return (
+        lvl["a_b_costs"][None].contiguous(),
+        torch.from_numpy(b_in)[None].to(device),
+        torch.from_numpy(dp_ops.extend_band_offsets(b_in))[None].to(device),
+        tuple(x for x, _ in types), tuple(y for _, y in types),
+        torch.tensor([lvl["del_penalty"]], dtype=torch.float32).to(device),
+        torch.tensor([lvl["size0"]], dtype=torch.int32).to(device),
+        torch.tensor([lvl["size1"]], dtype=torch.int32).to(device),
+    )
 
 
 def phase_times(stack, device):
     """Kernel vs plain version on each banded level's real inputs from the
-    main path, and the dense DP's plain loop on its real inputs."""
-    import torch
-
+    main path (the warp route the level takes and, in turns with it, the
+    block kernel forced on the same inputs), and the dense DP's plain loop
+    on its real inputs."""
     from svecalign_tpu_torch.ops import dp as dp_ops
     from svecalign_tpu_torch.ops import dp_cuda
 
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    clock = _sm_clock_hz()
+    totals = {"ms": 0.0, "block_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "bytes_bound_ms": 0.0, "err": 0.0}
     bound_by = set()
     for depth in sorted(d for d in stack if "a_b_costs" in stack[d]):
-        lvl = stack[depth]
-        types = lvl["alignment_types"]
-        b_in = np.asarray(lvl["b_offset"], np.int32)
-        args = (
-            lvl["a_b_costs"][None].contiguous(),
-            torch.from_numpy(b_in)[None].to(device),
-            torch.from_numpy(dp_ops.extend_band_offsets(b_in))[None].to(device),
-            tuple(x for x, _ in types), tuple(y for _, y in types),
-            torch.tensor([lvl["del_penalty"]], dtype=torch.float32).to(device),
-            torch.tensor([lvl["size0"]], dtype=torch.int32).to(device),
-            torch.tensor([lvl["size1"]], dtype=torch.int32).to(device),
-        )
+        args = _level_args(stack[depth], device)
         err = _compare_planes(dp_cuda.banded_dp_cuda_batched(*args),
                               dp_ops.banded_dp_batched(*args))
-        ms = _cuda_time_ms(lambda: dp_cuda.banded_dp_cuda_batched(*args), reps=50)
+        runs = [_cuda_time_ms(lambda: dp_cuda.banded_dp_cuda_batched(*args, route=r), reps=50)
+                for r in ("block", None, None, "block")]
+        ms, block_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
         plain = _cuda_time_ms(lambda: dp_ops.banded_dp_batched(*args), reps=3, warmup=1)
         P, T, A, B = args[0].shape
         n_types = T + 2
-        bound, by = _bound_ms(P, T, A, B, n_types, 1)
-        _log(f"[time] banded_dp depth {depth} (P={P} T={T} A={A} B={B}): kernel {ms:.4f} ms, "
-             f"plain {plain:.3f} ms, bound {bound:.6f} ms ({by}; {A + 2} dependent "
-             f"steps set the real floor), err {err}")
+        bound, by = _bound_ms(P, T, A, B, n_types, 1, clock)
+        bytes_bound = (_bound_ms(P, T, A, B, n_types, 1, float("inf")))[0]
+        _log(f"[time] banded_dp depth {depth} (P={P} T={T} A={A} B={B}): warp kernel {ms:.4f} ms "
+             f"({runs[1]:.4f}, {runs[2]:.4f}; {ms / (A + 2) * 1e3:.4f} us per anti-diagonal), "
+             f"block kernel {block_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}; "
+             f"{block_ms / (A + 2) * 1e3:.4f} us per anti-diagonal), plain {plain:.3f} ms, "
+             f"bound {bound:.6f} ms ({by}: {A + 2} dependent steps of "
+             f"{_chain_cycles_per_step(n_types)} cycles at {clock / 1e6:.0f} MHz; by bytes or "
+             f"operations {bytes_bound:.6f} ms), kernel / bound {ms / bound:.2f}, err {err}")
         totals["ms"] += ms
+        totals["block_ms"] += block_ms
         totals["plain_ms"] += plain
         totals["bound_ms"] += bound
+        totals["bytes_bound_ms"] += bytes_bound
         totals["err"] = max(totals["err"], err)
         bound_by.add(by)
+    _log(f"[time] banded_dp per stage-5.4 run (sum of its levels): warp kernel "
+         f"{totals['ms']:.4f} ms, block kernel {totals['block_ms']:.4f} ms, bound "
+         f"{totals['bound_ms']:.6f} ms, kernel / bound {totals['ms'] / totals['bound_ms']:.2f}")
 
     top = stack[max(stack)]
     pen = np.float32(top["del_penalty"])
@@ -575,8 +689,27 @@ def phase_times(stack, device):
     n, m = top["costs_1to1"].shape
     _log(f"[time] dense_dp plain loop on the card ({n} x {m}, {n + m + 1} anti-diagonals): "
          f"{dense:.3f} ms")
-    totals["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
+    totals["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "latency"
     return totals
+
+
+def phase_bucket_times(device):
+    """The warp kernel on buckets of P = 1, 8 and 64 pairs at the stage
+    defaults (T = 15, B = 16), each padded to its longest pair, beside the
+    block kernel forced on the same inputs: pairs run side by side, so a
+    launch should take about what its longest pair takes alone."""
+    from svecalign_tpu_torch.ops import dp_cuda
+
+    rng = np.random.default_rng(4242)
+    for sizes in (P8_SIZES[-1:], P8_SIZES, P64_SIZES):
+        args = _random_band_problem(rng, sizes, DEFAULT_TYPES, 8, device)
+        runs = [_cuda_time_ms(lambda: dp_cuda.banded_dp_cuda_batched(*args, route=r), reps=20)
+                for r in ("block", None, None, "block")]
+        ms, block_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+        P, T, A, B = args[0].shape
+        _log(f"[time] banded_dp bucket P={P} (T={T} A={A} B={B}): warp kernel {ms:.4f} ms per "
+             f"launch ({ms / (A + 2) * 1e3:.4f} us per anti-diagonal, {ms / P:.4f} ms per pair), "
+             f"block kernel {block_ms:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -947,6 +1080,10 @@ def main(argv=None):
     mode.add_argument("--checks", action="store_true",
                       help="only build and hold each kernel against its plain version "
                            "(phases 1-2); prints no result line")
+    mode.add_argument("--dp", action="store_true",
+                      help="only the banded DP: build, hold it against its plain version, "
+                           "run stage 5.4 and time the kernel (no SONAR model is built); "
+                           "prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -963,13 +1100,18 @@ def main(argv=None):
         profile_embed(device)
         return 0
     check_err = phase_kernel_checks(device)
-    attn_err = phase_attention_checks(device)
+    if not args.dp:
+        attn_err = phase_attention_checks(device)
     if args.checks:
         _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         stack, launches = phase_main_path(Path(td), N_SRC, N_TGT)
     t = phase_times(stack, device)
+    phase_bucket_times(device)
+    if args.dp:
+        _log(f"[done] banded-DP phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
         info, embed_launches = phase_embed_path(Path(td), device)
     a, _ = phase_attention_times(info, device)
@@ -980,7 +1122,11 @@ def main(argv=None):
         "launches": launches["banded_dp"],
         "max_abs_err": max(check_err, t["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
+        # the chain of dependent steps is counted as operations at their
+        # latency; bound_kind says which of the three bounds it is
+        "bound_by": "bytes" if t["bound_by"] == "bytes" else "operations",
+        "bound_kind": t["bound_by"], "bytes_bound_ms": t["bytes_bound_ms"],
+        "block_route_ms": t["block_ms"], "library_ms": None,
     }, {
         "name": "relkey_attention", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/relkey_attention.cu",

@@ -15,13 +15,30 @@
 //
 // What bounds it: A + 2 dependent steps, each moving a few hundred bytes,
 // so latency and not bandwidth (the bytes of one pair at the stage-5.4
-// defaults are ~2.5 MB, under a microsecond at 3.35 TB/s). The design
-// keeps each step's dependent chain on chip: one CTA per pair, threads
-// across band lanes (looping when B exceeds the block), the last K + 1
-// csum rows in a ring in shared memory (global scratch when it does not
-// fit), one __syncthreads() per anti-diagonal. The ring has K + 1 rows, not
-// K, so the row written at step a is never one that step a reads, and one
-// barrier per step separates the writes of a from the reads of a + 1.
+// defaults are ~2.5 MB, under a microsecond at 3.35 TB/s). Only the csum
+// values depend on earlier steps; costs, offsets and types are known
+// before the first step. Two kernels, picked by shape in ops/dp_cuda.py:
+//
+// banded_dp_warp_kernel (B <= 32): one warp per pair, one CTA per warp,
+// lane b owns band lane b, so a step's barrier is a __syncwarp() and a
+// bucket of pairs spreads over the SMs (32 resident CTAs each). Every load
+// is taken off the dependent chain: the T cost rows of a step are copied
+// into a ring of DP_STAGES stages in shared memory by cp.async,
+// DP_STAGES - 1 steps before the wavefront reads them (one commit group
+// per step, empty where a step has no cost row), the pair's A + 2 node
+// offsets and the type table are loaded into shared memory once, and the
+// loop over anti-diagonals makes no global load. What is left per step is
+// one shared-memory write -> barrier -> read round trip, an add and a
+// minimum over the types.
+//
+// banded_dp_kernel (any B): one CTA per pair, threads across band lanes
+// (looping when B exceeds the block), costs and offsets read from global
+// memory as each step needs them, one __syncthreads() per anti-diagonal.
+//
+// Both keep the last K + 1 csum rows in a ring in shared memory (the block
+// kernel in global scratch when it does not fit). The ring has K + 1 rows,
+// not K, so the row written at step a is never one that step a reads, and
+// one barrier per step separates the writes of a from the reads of a + 1.
 // Each ring row holds the B band lanes between K lanes of +inf on either
 // side: boff_out steps by 0 or 1, so |shift| <= K and the shifted read
 // needs no branch.
@@ -151,6 +168,217 @@ __global__ void banded_dp_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// The warp route
+// ---------------------------------------------------------------------------
+
+constexpr int WARP = 32;
+// Cost stages in flight. A step's rows are requested DP_STAGES - 1 steps
+// ahead: at ~0.1-0.3 us a step that is a few microseconds, several DRAM
+// round trips. ops/dp_cuda.py::WARP_STAGES mirrors it.
+constexpr int DP_STAGES = 16;
+static_assert((DP_STAGES & (DP_STAGES - 1)) == 0 && DP_STAGES >= 2, "power of two");
+
+__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    if constexpr (BYTES == 16) {  // streamed once: past L1
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
+// 16-byte aligned (every cost row then is), else 4.
+template <typename BP, int CPB>
+__global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
+    const float* __restrict__ costs,     // (P, T, A, B)
+    const int* __restrict__ boff_out,    // (P, A + 2)
+    const float* __restrict__ pens,      // (P,)
+    const int* __restrict__ x_in_size,   // (P,)
+    const int* __restrict__ y_in_size,   // (P,)
+    const int* __restrict__ type_off,    // (2, n_types): xo then yo
+    int n_types, int T, int A, int B, int K,
+    float* __restrict__ csum,            // (P, A + 2, B)
+    BP* __restrict__ xp_out,             // (P, A + 2, B)
+    BP* __restrict__ yp_out)             // (P, A + 2, B)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x;
+    const int p = blockIdx.x;
+    const int W = B + 2 * K;
+    const int R = K + 1;
+    const int a2 = A + 2;
+    const int stage_floats = T * B;
+    // layout: cost stages | csum ring | node offsets | types (16-byte segments)
+    float* s_cost = reinterpret_cast<float*>(smem_raw);
+    float* ring = reinterpret_cast<float*>(
+        smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
+    int* s_boff = reinterpret_cast<int*>(
+        reinterpret_cast<unsigned char*>(ring) + round16((size_t)R * W * sizeof(float)));
+    int2* s_ty = reinterpret_cast<int2*>(
+        reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
+
+    const int x_in = x_in_size[p];
+    const int y_in = y_in_size[p];
+    const int x_out = x_in + 1;
+    const int y_out = y_in + 1;
+    const float pen = pens[p];
+    const float* cost_p = costs + (size_t)p * T * A * B;
+    float* csum_p = csum + (size_t)p * a2 * B;
+    BP* xp_p = xp_out + (size_t)p * a2 * B;
+    BP* yp_p = yp_out + (size_t)p * a2 * B;
+
+    // Copies of one stage, spread over all 32 lanes (those past B too):
+    // a cost row is cpr copies, a pass of the warp covers rows_pp rows.
+    constexpr int CPF = CPB / (int)sizeof(float);
+    const int cpr = B / CPF;
+    const int rows_pp = WARP / cpr;
+    const int r_sub = lane / cpr;
+    const int c_sub = lane - r_sub * cpr;
+    const bool copier = r_sub < rows_pp;
+    const float* src_lane = cost_p + (size_t)r_sub * A * B + c_sub * CPF;
+    const int dst_lane = r_sub * B + c_sub * CPF;
+    const size_t src_pass = (size_t)rows_pp * A * B;
+    const int dst_pass = rows_pp * B;
+
+    // Request the cost rows of anti-diagonal `step` (row step - 2 of each
+    // type) into stage step % DP_STAGES, and commit one group for the step
+    // whether or not it copies, so that group g is always step g's.
+    auto request = [&](int step) {
+        if (copier && step >= 2 && step < a2) {
+            const float* src = src_lane + (size_t)(step - 2) * B;
+            float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
+            for (int t = r_sub; t < T; t += rows_pp) {
+                cp_async<CPB>(dst, src);
+                src += src_pass;
+                dst += dst_pass;
+            }
+        }
+        cp_async_commit();
+    };
+    for (int step = 0; step < DP_STAGES - 1; ++step) request(step);
+
+    for (int i = lane; i < n_types; i += WARP) {
+        s_ty[i] = make_int2(type_off[i], type_off[n_types + i]);
+    }
+    for (int i = lane; i < R * W; i += WARP) ring[i] = CUDART_INF_F;
+    const int* boff = boff_out + (size_t)p * a2;
+    for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
+
+    int cur = 0;  // aa % R
+    for (int aa = 0; aa < a2; ++aa) {
+        // Groups 0 .. aa + DP_STAGES - 2 are committed; all but the newest
+        // DP_STAGES - 2 complete means group aa, this step's, has landed.
+        cp_async_wait<DP_STAGES - 2>();
+        // A lane's wait covers its own copies only. This barrier makes every
+        // lane's copies of stage aa, the set-up stores (first step) and the
+        // ring row written at step aa - 1 visible to all lanes, and it
+        // orders the reads of step aa - 1 before what follows: the request
+        // below overwrites the stage that step read, (aa - 1) % DP_STAGES,
+        // and this step's ring write lands in a row that step aa - 1 could
+        // still read only if the ring had K rows (it has K + 1).
+        __syncwarp();
+        request(aa + DP_STAGES - 1);
+
+        if (lane < B) {
+            const int b = lane;
+            const int boff_a = s_boff[aa];
+            const float* cst = s_cost + (aa & (DP_STAGES - 1)) * stage_floats;
+            const int yy = boff_a + b;
+            const int xx = aa - yy;
+            const bool cell_ok =
+                xx - 1 >= 0 && xx - 1 < x_in && yy - 1 >= 0 && yy - 1 < y_in;
+            float best = CUDART_INF_F;
+            int bxp = NEG_BP;
+            int byp = NEG_BP;
+            for (int t = 0; t < n_types; ++t) {
+                const int2 ty = s_ty[t];
+                const int xo = ty.x;
+                const int yo = ty.y;
+                const int s = xo + yo;
+                const int xpv = xx - xo;
+                const int ypv = yy - yo;
+                const bool valid = cell_ok && aa >= s && xpv >= 0 && xpv < x_out &&
+                                   ypv >= 0 && ypv < y_out;
+                if (!valid) continue;  // cand = +inf never beats best
+                int row = cur - s;     // (aa - s) % R, s <= K < R
+                row += row < 0 ? R : 0;
+                int shift = boff_a - yo - s_boff[aa - s];
+                shift = max(-K, min(K, shift));  // memory safety on bad offsets
+                const float prev = ring[row * W + K + b + shift];
+                // cost rows exist for 2 <= aa < A + 2 only
+                const float cost = t >= T ? pen : aa >= 2 ? cst[t * B + b] : CUDART_INF_F;
+                const float cand = __fadd_rn(prev, cost);
+                if (cand < best) {  // strict: first minimum wins
+                    best = cand;
+                    bxp = xo;
+                    byp = yo;
+                }
+            }
+            if (!(best < CUDART_INF_F)) {  // unreachable: +inf / NEG_BP
+                best = CUDART_INF_F;
+                bxp = NEG_BP;
+                byp = NEG_BP;
+            }
+            const bool edge_y = xx == 0 && yy >= 0 && yy < y_out;
+            const bool edge_x = !edge_y && yy == 0 && xx >= 0 && xx < x_out;
+            if (edge_y) {
+                best = __fmul_rn(pen, (float)yy);
+                bxp = 0;
+                byp = 1;
+            }
+            if (edge_x) {
+                best = __fmul_rn(pen, (float)xx);
+                bxp = 1;
+                byp = 0;
+            }
+            ring[cur * W + K + b] = best;
+            // fire and forget: nothing reads these back
+            const size_t o = (size_t)aa * B + b;
+            csum_p[o] = best;
+            xp_p[o] = (BP)bxp;
+            yp_p[o] = (BP)byp;
+        }
+        cur = cur + 1 == R ? 0 : cur + 1;
+    }
+    cp_async_wait<0>();
+}
+
+size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
+    return round16((size_t)DP_STAGES * T * B * sizeof(float)) +
+           round16((size_t)(K + 1) * (B + 2 * K) * sizeof(float)) +
+           round16((size_t)(A + 2) * sizeof(int)) +
+           round16((size_t)n_types * sizeof(int2));
+}
+
+template <typename BP, int CPB>
+cudaError_t launch_warp(const float* costs, const int* boff_out, const float* pens,
+                        const int* x_in_size, const int* y_in_size, const int* type_off,
+                        int n_types, int T, int P, int A, int B, int K, float* csum,
+                        void* xp, void* yp, size_t smem, cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(banded_dp_warp_kernel<BP, CPB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    banded_dp_warp_kernel<BP, CPB><<<P, WARP, smem, st>>>(
+        costs, boff_out, pens, x_in_size, y_in_size, type_off, n_types, T, A, B, K,
+        csum, (BP*)xp, (BP*)yp);
+    return cudaGetLastError();
+}
+
 size_t ring_bytes(int B, int K) {
     return (size_t)(K + 1) * (B + 2 * K) * sizeof(float);
 }
@@ -204,6 +432,38 @@ int banded_dp_launch(const float* costs, const int* boff_out, const float* pens,
             A, B, K, csum, (int32_t*)xp, (int32_t*)yp, ring_global);
     }
     return (int)cudaGetLastError();
+}
+
+// The warp route (B <= 32): cost stages in flight, and the dynamic shared
+// memory it needs; ops/dp_cuda.py mirrors both for its route rule.
+int banded_dp_warp_stages() { return DP_STAGES; }
+
+size_t banded_dp_warp_smem_bytes(int B, int K, int T, int A, int n_types) {
+    return warp_smem_bytes(B, K, T, A, n_types);
+}
+
+// Launch the warp kernel on `stream`: one warp per pair. Returns the CUDA
+// error code of the launch (0 on success, cudaErrorInvalidValue for B > 32).
+int banded_dp_warp_launch(const float* costs, const int* boff_out, const float* pens,
+                          const int* x_in_size, const int* y_in_size,
+                          const int* type_off, int n_types, int T, int P, int A,
+                          int B, int K, float* csum, void* xp, void* yp, int bp_int8,
+                          void* stream) {
+    if (B < 1 || B > WARP) return (int)cudaErrorInvalidValue;
+    const size_t smem = warp_smem_bytes(B, K, T, A, n_types);
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
+#define WARP_LAUNCH(BP, CPB)                                                      \
+    launch_warp<BP, CPB>(costs, boff_out, pens, x_in_size, y_in_size, type_off,   \
+                         n_types, T, P, A, B, K, csum, xp, yp, smem, st)
+    cudaError_t err;
+    if (bp_int8) {
+        err = wide ? WARP_LAUNCH(int8_t, 16) : WARP_LAUNCH(int8_t, 4);
+    } else {
+        err = wide ? WARP_LAUNCH(int32_t, 16) : WARP_LAUNCH(int32_t, 4);
+    }
+#undef WARP_LAUNCH
+    return (int)err;
 }
 
 }  // extern "C"

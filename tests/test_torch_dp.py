@@ -153,3 +153,89 @@ def test_dense_dp_matches_jax(seed, shape, ties):
 def test_extend_band_offsets_matches_jax():
     b = np.array([-3, -3, -2, -1, -1, 0], np.int32)
     np.testing.assert_array_equal(tdp.extend_band_offsets(b), jdp.extend_band_offsets(b))
+
+
+H100_SMEM_OPTIN = 232448  # bytes a block may opt in to on an H100
+
+
+@pytest.mark.parametrize(
+    "B,K,T,A,smem_optin,want",
+    [
+        (16, 6, 15, 2303, H100_SMEM_OPTIN, "warp"),  # the stage's final level
+        (16, 2, 1, 1153, H100_SMEM_OPTIN, "warp"),  # its coarse level
+        (32, 6, 15, 2303, H100_SMEM_OPTIN, "warp"),  # a full warp
+        (6, 6, 15, 400, H100_SMEM_OPTIN, "warp"),  # the narrowest band
+        (32, 51, 50, 421, H100_SMEM_OPTIN, "warp"),  # many-to-one: 100 KB of stages fit
+        (34, 6, 15, 2303, H100_SMEM_OPTIN, "block"),  # first band past a warp
+        (140, 3, 3, 951, H100_SMEM_OPTIN, "block"),
+        (1200, 51, 50, 211, H100_SMEM_OPTIN, "block"),
+        (16, 6, 15, 2303, 24 * 1024, "block"),  # stages + ring fit, the offsets row does not
+        (16, 6, 15, 60000, H100_SMEM_OPTIN, "block"),  # a path too long to hold on chip
+    ],
+)
+def test_banded_dp_route_by_shape(B, K, T, A, smem_optin, want):
+    n_types = T + 2
+    assert dp_cuda.banded_dp_route(B, K, T, A, n_types, smem_optin) == want
+    need = dp_cuda.warp_smem_bytes(B, K, T, A, n_types)
+    if want == "warp":
+        assert need <= smem_optin
+    elif B <= 32:
+        # refused for shared memory alone: without the offsets row it would fit
+        assert need > smem_optin
+        assert dp_cuda.warp_smem_bytes(B, K, T, 0, n_types) <= smem_optin
+
+
+def test_warp_smem_bytes_layout():
+    """Stages, ring, offsets row and type table, each rounded up to 16
+    bytes, at the stage's final level (T = 15, B = 16, K = 6, A = 2303)."""
+    stages = dp_cuda.WARP_STAGES * 15 * 16 * 4
+    ring = 7 * (16 + 12) * 4
+    offsets = -(-(2305 * 4) // 16) * 16
+    types = -(-(17 * 8) // 16) * 16
+    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == stages + ring + offsets + types
+    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == 15360 + 784 + 9232 + 144
+
+
+@pytest.mark.parametrize("w2,sizes", [(8, [(20, 18), (7, 9)]), (16, [(15, 12)]), (3, [(9, 11)]),
+                                      (17, [(14, 14)])])
+def test_wrapper_on_cpu_takes_the_plain_version(w2, sizes):
+    """Whatever route the shape would take on the card, a CPU tensor goes
+    through the plain version, counts no launch and returns its planes; a
+    forced route changes nothing there."""
+    from chip_smoke import _random_band_problem
+
+    args = _random_band_problem(np.random.default_rng(5), sizes, DEFAULT_TYPES, w2, "cpu")
+    want = tdp.banded_dp_batched(*args)
+    before = dict(dp_cuda.LAUNCHES)
+    for route in (None, "block"):
+        got = dp_cuda.banded_dp_cuda_batched(*args, route=route)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert dp_cuda.LAUNCHES == before
+    assert set(before) == {"banded_dp", "banded_dp_warp", "banded_dp_block"}
+
+
+@pytest.mark.parametrize("T,A,n_cycles", [(15, 2303, 104), (1, 1153, 80)])
+def test_banded_dp_bound_is_the_dependent_chain(T, A, n_cycles):
+    """chip_smoke's bound at the stage's two banded levels (P = 1, B = 16):
+    A + 2 steps of one shared-memory store and load (30 cycles each), one
+    add (4) and a minimum tree over T + 2 types (8 a level) at the SM
+    clock; far above the bytes and the operations, which it must still
+    report when the clock is taken out."""
+    from chip_smoke import (H100_BYTES_PER_S, H100_FP32_OPS_PER_S, _bound_ms,
+                            _chain_cycles_per_step)
+
+    n_types, B = T + 2, 16
+    assert _chain_cycles_per_step(n_types) == n_cycles
+    ms, by = _bound_ms(1, T, A, B, n_types, 1, sm_clock_hz=1.98e9)
+    assert by == "latency"
+    assert ms == pytest.approx((A + 2) * n_cycles / 1.98e9 * 1e3, rel=1e-12)
+    nbytes = T * A * B * 4 + (A + 2) * 4 + 12 + 2 * n_types * 4 + (A + 2) * B * 6
+    ops = 2 * (A + 2) * B * n_types
+    ms_rest, by_rest = _bound_ms(1, T, A, B, n_types, 1, sm_clock_hz=float("inf"))
+    assert by_rest == "bytes"
+    assert ms_rest == pytest.approx(nbytes / H100_BYTES_PER_S * 1e3, rel=1e-12)
+    assert ms_rest > ops / H100_FP32_OPS_PER_S * 1e3
+    assert ms > 50 * ms_rest
+    # a bucket of pairs runs side by side: the chain does not grow with P
+    assert _bound_ms(64, T, A, B, n_types, 1, sm_clock_hz=1.98e9)[0] == pytest.approx(ms)
