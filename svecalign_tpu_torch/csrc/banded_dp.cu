@@ -29,7 +29,8 @@
 // offsets and the type table are loaded into shared memory once, and the
 // loop over anti-diagonals makes no global load. What is left per step is
 // one shared-memory write -> barrier -> read round trip, an add and a
-// minimum over the types.
+// minimum over the types (see the kernel for how the type loop is kept
+// free of tests and dependent loads).
 //
 // banded_dp_kernel (any B): one CTA per pair, threads across band lanes
 // (looping when B exceeds the block), costs and offsets read from global
@@ -200,6 +201,50 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Types are padded to a multiple of TYPE_GROUP: the minimum takes them
+// TYPE_GROUP at a time.
+constexpr int TYPE_GROUP = 4;
+
+__host__ __device__ constexpr int padded_types(int n_types) {
+    return (n_types + TYPE_GROUP - 1) / TYPE_GROUP * TYPE_GROUP;
+}
+
+// The first minimum of two (value, tag) candidates: b, the later one in
+// type order, wins only if it is strictly smaller.
+__device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) {
+    const bool later = vb < va;
+    va = later ? vb : va;
+    ta = later ? tb : ta;
+}
+
+// What a step does, with n_types padded to NTP:
+//
+//   cand_t = ring[roff_t + b] + stage[t * B + b]      for t < NTP
+//
+// and nothing else per type: no test, no branch, no load that depends on
+// another. That takes three things.
+// - Validity is in the data. A predecessor outside the document holds +inf
+//   in the ring (a cell outside the node grid is never written with
+//   anything else, a lane outside the band is the row's +inf padding, a row
+//   before the first is still as initialised), and +inf + cost is +inf, which
+//   never beats `best` under the strict '<'. So the per-type test of the
+//   predecessor's coordinates is dropped; the cell's own (cell_ok) is
+//   applied once after the minimum. No input makes a NaN: costs are finite
+//   or +inf.
+// - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
+//   for every lane, and depends on the offsets and the types alone, not on
+//   earlier steps. So during step a the lanes compute it for step a + 1,
+//   lane t for type t (the lanes past B too), and leave it in shared memory
+//   beside the type's packed (xo, yo) tag; the barrier at the top of step
+//   a + 1 publishes it.
+// - The two deletion types read their cost, pen, from rows T and T + 1 of
+//   every stage, written once at set-up, so they are types like any other;
+//   the padding types read row R of the ring, all +inf, never written.
+//   Stages 0 and 1 start as +inf: steps 0 and 1 have no cost row.
+// The minimum takes TYPE_GROUP contiguous types at a time as a tree of
+// (value, tag) pairs, then merges the group into the running best: the
+// lowest type index wins ties at every merge, as in a scan in type order.
+//
 // CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
 // 16-byte aligned (every cost row then is), else 4.
 template <typename BP, int CPB>
@@ -221,15 +266,18 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int W = B + 2 * K;
     const int R = K + 1;
     const int a2 = A + 2;
-    const int stage_floats = T * B;
-    // layout: cost stages | csum ring | node offsets | types (16-byte segments)
+    const int NTP = padded_types(n_types);
+    const int stage_floats = NTP * B;
+    // layout: cost stages | csum ring (R rows + one of +inf) | node offsets
+    // | types | ring offsets and tags of two steps (16-byte segments)
     float* s_cost = reinterpret_cast<float*>(smem_raw);
     float* ring = reinterpret_cast<float*>(
         smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
     int* s_boff = reinterpret_cast<int*>(
-        reinterpret_cast<unsigned char*>(ring) + round16((size_t)R * W * sizeof(float)));
+        reinterpret_cast<unsigned char*>(ring) + round16((size_t)(R + 1) * W * sizeof(float)));
     int2* s_ty = reinterpret_cast<int2*>(
         reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
+    int2* s_rp = s_ty + NTP;  // [2][NTP]: (roff, xo | yo << 16)
 
     const int x_in = x_in_size[p];
     const int y_in = y_in_size[p];
@@ -269,14 +317,45 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         }
         cp_async_commit();
     };
+
+    // Stages 0 and 1 serve steps 0 and 1 first, which have no cost row:
+    // +inf there; the copies of steps 16 and 17 overwrite them later.
+    for (int i = lane; i < 2 * stage_floats; i += WARP) {
+        if (i % stage_floats < T * B) s_cost[i] = CUDART_INF_F;
+    }
+    // rows T.. of every stage: pen for the two deletions, 0 for the padding
+    for (int i = lane; i < DP_STAGES * (NTP - T) * B; i += WARP) {
+        const int d = i / ((NTP - T) * B);
+        const int r = i - d * (NTP - T) * B;
+        s_cost[d * stage_floats + T * B + r] = r < 2 * B ? pen : 0.0f;
+    }
     for (int step = 0; step < DP_STAGES - 1; ++step) request(step);
 
-    for (int i = lane; i < n_types; i += WARP) {
-        s_ty[i] = make_int2(type_off[i], type_off[n_types + i]);
+    for (int i = lane; i < NTP; i += WARP) {  // padding types: xo = -1
+        s_ty[i] = i < n_types ? make_int2(type_off[i], type_off[n_types + i])
+                              : make_int2(-1, 0);
     }
-    for (int i = lane; i < R * W; i += WARP) ring[i] = CUDART_INF_F;
+    for (int i = lane; i < (R + 1) * W; i += WARP) ring[i] = CUDART_INF_F;
     const int* boff = boff_out + (size_t)p * a2;
     for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
+    __syncwarp();
+
+    // Ring offsets and tags of step `an` (whose ring row is `cur_n`), lane
+    // t for type t, into half an & 1 of s_rp.
+    auto offsets_of = [&](int an, int cur_n) {
+        const int boff_n = s_boff[min(an, a2 - 1)];
+        for (int t = lane; t < NTP; t += WARP) {
+            const int2 ty = s_ty[t];
+            const int s = ty.x + ty.y;
+            int row = cur_n - s;  // (an - s) % R, as s <= K < R
+            row += row < 0 ? R : 0;
+            int shift = boff_n - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
+            shift = max(-K, min(K, shift));  // memory safety on bad offsets
+            const int roff = ty.x < 0 ? R * W : row * W + K + shift;
+            s_rp[(an & 1) * NTP + t] = make_int2(roff, ty.x | (ty.y << 16));
+        }
+    };
+    offsets_of(0, 0);
 
     int cur = 0;  // aa % R
     for (int aa = 0; aa < a2; ++aa) {
@@ -284,51 +363,46 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         // DP_STAGES - 2 complete means group aa, this step's, has landed.
         cp_async_wait<DP_STAGES - 2>();
         // A lane's wait covers its own copies only. This barrier makes every
-        // lane's copies of stage aa, the set-up stores (first step) and the
-        // ring row written at step aa - 1 visible to all lanes, and it
-        // orders the reads of step aa - 1 before what follows: the request
-        // below overwrites the stage that step read, (aa - 1) % DP_STAGES,
-        // and this step's ring write lands in a row that step aa - 1 could
-        // still read only if the ring had K rows (it has K + 1).
+        // lane's copies of stage aa, the set-up stores (first step), the
+        // ring row and the offsets written at step aa - 1 visible to all
+        // lanes, and it orders the reads of step aa - 1 before what follows:
+        // the request below overwrites the stage that step read,
+        // (aa - 1) % DP_STAGES, offsets_of overwrites the half of s_rp it
+        // read, and this step's ring write lands in a row that step aa - 1
+        // could still read only if the ring had K rows (it has K + 1).
         __syncwarp();
         request(aa + DP_STAGES - 1);
+        const int cur_n = cur + 1 == R ? 0 : cur + 1;
 
         if (lane < B) {
             const int b = lane;
-            const int boff_a = s_boff[aa];
-            const float* cst = s_cost + (aa & (DP_STAGES - 1)) * stage_floats;
-            const int yy = boff_a + b;
+            const int yy = s_boff[aa] + b;
             const int xx = aa - yy;
             const bool cell_ok =
                 xx - 1 >= 0 && xx - 1 < x_in && yy - 1 >= 0 && yy - 1 < y_in;
+            const float* cst = s_cost + (aa & (DP_STAGES - 1)) * stage_floats + b;
+            const float* rng = ring + b;
+            const int4* rp = reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP);
             float best = CUDART_INF_F;
-            int bxp = NEG_BP;
-            int byp = NEG_BP;
-            for (int t = 0; t < n_types; ++t) {
-                const int2 ty = s_ty[t];
-                const int xo = ty.x;
-                const int yo = ty.y;
-                const int s = xo + yo;
-                const int xpv = xx - xo;
-                const int ypv = yy - yo;
-                const bool valid = cell_ok && aa >= s && xpv >= 0 && xpv < x_out &&
-                                   ypv >= 0 && ypv < y_out;
-                if (!valid) continue;  // cand = +inf never beats best
-                int row = cur - s;     // (aa - s) % R, s <= K < R
-                row += row < 0 ? R : 0;
-                int shift = boff_a - yo - s_boff[aa - s];
-                shift = max(-K, min(K, shift));  // memory safety on bad offsets
-                const float prev = ring[row * W + K + b + shift];
-                // cost rows exist for 2 <= aa < A + 2 only
-                const float cost = t >= T ? pen : aa >= 2 ? cst[t * B + b] : CUDART_INF_F;
-                const float cand = __fadd_rn(prev, cost);
-                if (cand < best) {  // strict: first minimum wins
-                    best = cand;
-                    bxp = xo;
-                    byp = yo;
-                }
+            int btag = 0;
+#pragma unroll 2
+            for (int t = 0; t < NTP; t += TYPE_GROUP) {
+                const int4 r01 = rp[t / 2];      // (roff, tag) of t, t + 1
+                const int4 r23 = rp[t / 2 + 1];  // and of t + 2, t + 3
+                float c0 = __fadd_rn(rng[r01.x], cst[t * B]);
+                const float c1 = __fadd_rn(rng[r01.z], cst[(t + 1) * B]);
+                float c2 = __fadd_rn(rng[r23.x], cst[(t + 2) * B]);
+                const float c3 = __fadd_rn(rng[r23.z], cst[(t + 3) * B]);
+                int t0 = r01.y;
+                int t2 = r23.y;
+                first_min(c0, t0, c1, r01.w);
+                first_min(c2, t2, c3, r23.w);
+                first_min(c0, t0, c2, t2);
+                first_min(best, btag, c0, t0);
             }
-            if (!(best < CUDART_INF_F)) {  // unreachable: +inf / NEG_BP
+            int bxp = btag & 0xffff;
+            int byp = btag >> 16;
+            if (!cell_ok || !(best < CUDART_INF_F)) {  // unreachable: +inf / NEG_BP
                 best = CUDART_INF_F;
                 bxp = NEG_BP;
                 byp = NEG_BP;
@@ -352,16 +426,18 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
             xp_p[o] = (BP)bxp;
             yp_p[o] = (BP)byp;
         }
-        cur = cur + 1 == R ? 0 : cur + 1;
+        offsets_of(aa + 1, cur_n);
+        cur = cur_n;
     }
     cp_async_wait<0>();
 }
 
 size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
-    return round16((size_t)DP_STAGES * T * B * sizeof(float)) +
-           round16((size_t)(K + 1) * (B + 2 * K) * sizeof(float)) +
+    const int NTP = padded_types(n_types);
+    return round16((size_t)DP_STAGES * NTP * B * sizeof(float)) +
+           round16((size_t)(K + 2) * (B + 2 * K) * sizeof(float)) +
            round16((size_t)(A + 2) * sizeof(int)) +
-           round16((size_t)n_types * sizeof(int2));
+           3 * (size_t)NTP * sizeof(int2);
 }
 
 template <typename BP, int CPB>
