@@ -201,12 +201,19 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Types are padded to a multiple of TYPE_GROUP: the minimum takes them
-// TYPE_GROUP at a time.
-constexpr int TYPE_GROUP = 4;
+// The minimum takes the types four at a time, and where two band rows fit
+// one warp (2 B <= 32) the types are split over its two halves: lanes
+// [0, B) take the first half of the types and lanes [B, 2B) the second, for
+// the same band lane, and one shuffle merges them. So the types are padded
+// to a multiple of 4 per half.
+constexpr int QUAD = 4;
+constexpr int MAX_TYPES = 2 * WARP;  // padded; a lane owns at most two types
 
-__host__ __device__ constexpr int padded_types(int n_types) {
-    return (n_types + TYPE_GROUP - 1) / TYPE_GROUP * TYPE_GROUP;
+__host__ __device__ constexpr int lane_groups(int B) { return 2 * B <= WARP ? 2 : 1; }
+
+__host__ __device__ constexpr int padded_types(int n_types, int B) {
+    const int m = QUAD * lane_groups(B);
+    return (n_types + m - 1) / m * m;
 }
 
 // The first minimum of two (value, tag) candidates: b, the later one in
@@ -217,12 +224,69 @@ __device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) 
     ta = later ? tb : ta;
 }
 
+// First minimum over the 4 * nq contiguous types whose (ring offset, tag)
+// pairs start at rp and whose cost rows start at cst (B floats apart);
+// rng is the ring at this band lane. With NQ > 0 (= nq) everything is
+// unrolled: every load is issued before the first use, and the minimum is
+// a tree over contiguous ranges in which the lower range wins ties, which
+// is the first minimum of a scan in type order. NQ = 0 is the loop for
+// any nq.
+template <int NQ>
+__device__ __forceinline__ void min_types(const int4* rp, const float* rng, const float* cst,
+                                          int B, int nq, float& best, int& btag) {
+    if constexpr (NQ > 0) {
+        int4 r[2 * NQ];
+        float c[QUAD * NQ];
+        float v[QUAD * NQ];
+        int tg[QUAD * NQ];
+#pragma unroll
+        for (int i = 0; i < 2 * NQ; ++i) r[i] = rp[i];
+#pragma unroll
+        for (int i = 0; i < QUAD * NQ; ++i) c[i] = cst[i * B];
+#pragma unroll
+        for (int i = 0; i < 2 * NQ; ++i) {
+            v[2 * i] = __fadd_rn(rng[r[i].x], c[2 * i]);
+            tg[2 * i] = r[i].y;
+            v[2 * i + 1] = __fadd_rn(rng[r[i].z], c[2 * i + 1]);
+            tg[2 * i + 1] = r[i].w;
+        }
+#pragma unroll
+        for (int stride = 1; stride < QUAD * NQ; stride *= 2) {
+#pragma unroll
+            for (int i = 0; i + stride < QUAD * NQ; i += 2 * stride) {
+                first_min(v[i], tg[i], v[i + stride], tg[i + stride]);
+            }
+        }
+        best = v[0];
+        btag = tg[0];
+    } else {
+        best = CUDART_INF_F;
+        btag = 0;
+#pragma unroll 2
+        for (int q = 0; q < nq; ++q) {
+            const int4 r01 = rp[2 * q];      // (roff, tag) of two types
+            const int4 r23 = rp[2 * q + 1];  // and of the next two
+            const float* cq = cst + QUAD * q * B;
+            float c0 = __fadd_rn(rng[r01.x], cq[0]);
+            const float c1 = __fadd_rn(rng[r01.z], cq[B]);
+            float c2 = __fadd_rn(rng[r23.x], cq[2 * B]);
+            const float c3 = __fadd_rn(rng[r23.z], cq[3 * B]);
+            int t0 = r01.y;
+            int t2 = r23.y;
+            first_min(c0, t0, c1, r01.w);
+            first_min(c2, t2, c3, r23.w);
+            first_min(c0, t0, c2, t2);
+            first_min(best, btag, c0, t0);
+        }
+    }
+}
+
 // What a step does, with n_types padded to NTP:
 //
 //   cand_t = ring[roff_t + b] + stage[t * B + b]      for t < NTP
 //
-// and nothing else per type: no test, no branch, no load that depends on
-// another. That takes three things.
+// and nothing else per type: no test, no branch, no address arithmetic
+// that depends on another load. That takes three things.
 // - Validity is in the data. A predecessor outside the document holds +inf
 //   in the ring (a cell outside the node grid is never written with
 //   anything else, a lane outside the band is the row's +inf padding, a row
@@ -234,20 +298,24 @@ __device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) 
 // - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
 //   for every lane, and depends on the offsets and the types alone, not on
 //   earlier steps. So during step a the lanes compute it for step a + 1,
-//   lane t for type t (the lanes past B too), and leave it in shared memory
-//   beside the type's packed (xo, yo) tag; the barrier at the top of step
-//   a + 1 publishes it.
+//   lane t for types t and t + 32, which it keeps in registers, and leave it
+//   in shared memory beside the type's packed (xo, yo) tag; the barrier at
+//   the top of step a + 1 publishes it. The two offsets it needs are loaded
+//   at the top of the step and used at its end.
 // - The two deletion types read their cost, pen, from rows T and T + 1 of
 //   every stage, written once at set-up, so they are types like any other;
 //   the padding types read row R of the ring, all +inf, never written.
 //   Stages 0 and 1 start as +inf: steps 0 and 1 have no cost row.
-// The minimum takes TYPE_GROUP contiguous types at a time as a tree of
-// (value, tag) pairs, then merges the group into the running best: the
-// lowest type index wins ties at every merge, as in a scan in type order.
+// One warp has little to overlap a dependent instruction with, so the step
+// is kept short: pointers advance by B a step, the lane's band offset is
+// carried from the step before, and the lanes past the band run the type
+// loop on lane 0's addresses and store nothing, so nothing diverges
+// before the stores.
 //
 // CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
-// 16-byte aligned (every cost row then is), else 4.
-template <typename BP, int CPB>
+// 16-byte aligned (every cost row then is), else 4. NQ: quads of types per
+// lane group, unrolled, or 0 for any number.
+template <typename BP, int CPB, int NQ>
 __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const float* __restrict__ costs,     // (P, T, A, B)
     const int* __restrict__ boff_out,    // (P, A + 2)
@@ -266,18 +334,19 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int W = B + 2 * K;
     const int R = K + 1;
     const int a2 = A + 2;
-    const int NTP = padded_types(n_types);
+    const int G = lane_groups(B);
+    const int NTP = padded_types(n_types, B);
+    const int nq = NTP / G / QUAD;  // quads of types per lane group
     const int stage_floats = NTP * B;
     // layout: cost stages | csum ring (R rows + one of +inf) | node offsets
-    // | types | ring offsets and tags of two steps (16-byte segments)
+    // | ring offsets and tags of two steps (16-byte segments)
     float* s_cost = reinterpret_cast<float*>(smem_raw);
     float* ring = reinterpret_cast<float*>(
         smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
     int* s_boff = reinterpret_cast<int*>(
         reinterpret_cast<unsigned char*>(ring) + round16((size_t)(R + 1) * W * sizeof(float)));
-    int2* s_ty = reinterpret_cast<int2*>(
+    int2* s_rp = reinterpret_cast<int2*>(  // [2][NTP]: (roff, xo | yo << 16)
         reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
-    int2* s_rp = s_ty + NTP;  // [2][NTP]: (roff, xo | yo << 16)
 
     const int x_in = x_in_size[p];
     const int y_in = y_in_size[p];
@@ -285,35 +354,46 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int y_out = y_in + 1;
     const float pen = pens[p];
     const float* cost_p = costs + (size_t)p * T * A * B;
-    float* csum_p = csum + (size_t)p * a2 * B;
-    BP* xp_p = xp_out + (size_t)p * a2 * B;
-    BP* yp_p = yp_out + (size_t)p * a2 * B;
 
-    // Copies of one stage, spread over all 32 lanes (those past B too):
-    // a cost row is cpr copies, a pass of the warp covers rows_pp rows.
+    // Lane group g takes types [g * 4 nq, (g + 1) * 4 nq) of band lane b.
+    // Lanes past the groups shadow lane 0.
+    int g = lane / B;
+    int b = lane - g * B;
+    if (g >= G) g = b = 0;
+    const bool writer = lane < B;
+    float* csum_w = csum + (size_t)p * a2 * B + b;
+    BP* xp_w = xp_out + (size_t)p * a2 * B + b;
+    BP* yp_w = yp_out + (size_t)p * a2 * B + b;
+
+    // Copies of one stage, spread over all 32 lanes: a cost row is cpr
+    // copies, a pass of the warp covers rows_pp rows.
     constexpr int CPF = CPB / (int)sizeof(float);
     const int cpr = B / CPF;
     const int rows_pp = WARP / cpr;
     const int r_sub = lane / cpr;
     const int c_sub = lane - r_sub * cpr;
     const bool copier = r_sub < rows_pp;
-    const float* src_lane = cost_p + (size_t)r_sub * A * B + c_sub * CPF;
     const int dst_lane = r_sub * B + c_sub * CPF;
     const size_t src_pass = (size_t)rows_pp * A * B;
     const int dst_pass = rows_pp * B;
+    // the lane's first source of the next step to request; step 2 reads row 0
+    const float* src_next = cost_p + (size_t)r_sub * A * B + c_sub * CPF;
 
     // Request the cost rows of anti-diagonal `step` (row step - 2 of each
     // type) into stage step % DP_STAGES, and commit one group for the step
     // whether or not it copies, so that group g is always step g's.
     auto request = [&](int step) {
-        if (copier && step >= 2 && step < a2) {
-            const float* src = src_lane + (size_t)(step - 2) * B;
-            float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
-            for (int t = r_sub; t < T; t += rows_pp) {
-                cp_async<CPB>(dst, src);
-                src += src_pass;
-                dst += dst_pass;
+        if (step >= 2 && step < a2) {
+            if (copier) {
+                const float* src = src_next;
+                float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
+                for (int t = r_sub; t < T; t += rows_pp) {
+                    cp_async<CPB>(dst, src);
+                    src += src_pass;
+                    dst += dst_pass;
+                }
             }
+            src_next += B;
         }
         cp_async_commit();
     };
@@ -331,31 +411,43 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     }
     for (int step = 0; step < DP_STAGES - 1; ++step) request(step);
 
-    for (int i = lane; i < NTP; i += WARP) {  // padding types: xo = -1
-        s_ty[i] = i < n_types ? make_int2(type_off[i], type_off[n_types + i])
-                              : make_int2(-1, 0);
-    }
     for (int i = lane; i < (R + 1) * W; i += WARP) ring[i] = CUDART_INF_F;
     const int* boff = boff_out + (size_t)p * a2;
     for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
-    __syncwarp();
 
-    // Ring offsets and tags of step `an` (whose ring row is `cur_n`), lane
-    // t for type t, into half an & 1 of s_rp.
-    auto offsets_of = [&](int an, int cur_n) {
-        const int boff_n = s_boff[min(an, a2 - 1)];
-        for (int t = lane; t < NTP; t += WARP) {
-            const int2 ty = s_ty[t];
-            const int s = ty.x + ty.y;
-            int row = cur_n - s;  // (an - s) % R, as s <= K < R
-            row += row < 0 ? R : 0;
-            int shift = boff_n - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
-            shift = max(-K, min(K, shift));  // memory safety on bad offsets
-            const int roff = ty.x < 0 ? R * W : row * W + K + shift;
-            s_rp[(an & 1) * NTP + t] = make_int2(roff, ty.x | (ty.y << 16));
+    // The lane's own types, t = lane and lane + 32, for the ring offsets:
+    // span, yo, tag; span < 0 marks padding (and a type past NTP).
+    int my_s[2], my_yo[2], my_tag[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const int t = lane + k * WARP;
+        const int xo = t < n_types ? type_off[t] : 0;
+        my_yo[k] = t < n_types ? type_off[n_types + t] : 0;
+        my_s[k] = t < n_types ? xo + my_yo[k] : -1;
+        my_tag[k] = xo | (my_yo[k] << 16);
+    }
+    // Publish the ring offsets of step `an` (ring row `cur_n`, band offset
+    // bn, the offsets bprev[k] of rows an - my_s[k]) into half an & 1.
+    auto publish = [&](int an, int cur_n, int bn, const int (&bprev)[2]) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const int t = lane + k * WARP;
+            if (t < NTP) {
+                int row = cur_n - my_s[k];  // (an - s) % R, as s <= K < R
+                row += row < 0 ? R : 0;
+                int shift = bn - my_yo[k] - bprev[k];
+                shift = max(-K, min(K, shift));  // memory safety on bad offsets
+                const int roff = my_s[k] < 0 ? R * W : row * W + K + shift;
+                s_rp[(an & 1) * NTP + t] = make_int2(roff, my_tag[k]);
+            }
         }
     };
-    offsets_of(0, 0);
+    __syncwarp();
+    int boff_a = s_boff[0];
+    {
+        const int bprev[2] = {boff_a, boff_a};  // rows before the first: +inf anyway
+        publish(0, 0, boff_a, bprev);
+    }
 
     int cur = 0;  // aa % R
     for (int aa = 0; aa < a2; ++aa) {
@@ -367,39 +459,35 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         // ring row and the offsets written at step aa - 1 visible to all
         // lanes, and it orders the reads of step aa - 1 before what follows:
         // the request below overwrites the stage that step read,
-        // (aa - 1) % DP_STAGES, offsets_of overwrites the half of s_rp it
+        // (aa - 1) % DP_STAGES, publish overwrites the half of s_rp it
         // read, and this step's ring write lands in a row that step aa - 1
         // could still read only if the ring had K rows (it has K + 1).
         __syncwarp();
+        // the next step's offsets: loaded now, used after the stores
+        const int an = aa + 1;
+        const int bn = s_boff[min(an, a2 - 1)];
+        int bprev[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) bprev[k] = s_boff[min(max(an - my_s[k], 0), a2 - 1)];
         request(aa + DP_STAGES - 1);
-        const int cur_n = cur + 1 == R ? 0 : cur + 1;
 
-        if (lane < B) {
-            const int b = lane;
-            const int yy = s_boff[aa] + b;
+        float best;
+        int btag;
+        min_types<NQ>(reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP + g * nq * QUAD),
+                      ring + b,
+                      s_cost + (aa & (DP_STAGES - 1)) * stage_floats + g * nq * QUAD * B + b,
+                      B, nq, best, btag);
+        if (G == 2) {  // the upper half of the types, from lane b + B
+            const float other = __shfl_down_sync(0xffffffffu, best, B);
+            const int other_tag = __shfl_down_sync(0xffffffffu, btag, B);
+            first_min(best, btag, other, other_tag);
+        }
+
+        if (writer) {
+            const int yy = boff_a + b;
             const int xx = aa - yy;
             const bool cell_ok =
                 xx - 1 >= 0 && xx - 1 < x_in && yy - 1 >= 0 && yy - 1 < y_in;
-            const float* cst = s_cost + (aa & (DP_STAGES - 1)) * stage_floats + b;
-            const float* rng = ring + b;
-            const int4* rp = reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP);
-            float best = CUDART_INF_F;
-            int btag = 0;
-#pragma unroll 2
-            for (int t = 0; t < NTP; t += TYPE_GROUP) {
-                const int4 r01 = rp[t / 2];      // (roff, tag) of t, t + 1
-                const int4 r23 = rp[t / 2 + 1];  // and of t + 2, t + 3
-                float c0 = __fadd_rn(rng[r01.x], cst[t * B]);
-                const float c1 = __fadd_rn(rng[r01.z], cst[(t + 1) * B]);
-                float c2 = __fadd_rn(rng[r23.x], cst[(t + 2) * B]);
-                const float c3 = __fadd_rn(rng[r23.z], cst[(t + 3) * B]);
-                int t0 = r01.y;
-                int t2 = r23.y;
-                first_min(c0, t0, c1, r01.w);
-                first_min(c2, t2, c3, r23.w);
-                first_min(c0, t0, c2, t2);
-                first_min(best, btag, c0, t0);
-            }
             int bxp = btag & 0xffff;
             int byp = btag >> 16;
             if (!cell_ok || !(best < CUDART_INF_F)) {  // unreachable: +inf / NEG_BP
@@ -421,38 +509,55 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
             }
             ring[cur * W + K + b] = best;
             // fire and forget: nothing reads these back
-            const size_t o = (size_t)aa * B + b;
-            csum_p[o] = best;
-            xp_p[o] = (BP)bxp;
-            yp_p[o] = (BP)byp;
+            *csum_w = best;
+            *xp_w = (BP)bxp;
+            *yp_w = (BP)byp;
         }
-        offsets_of(aa + 1, cur_n);
-        cur = cur_n;
+        csum_w += B;
+        xp_w += B;
+        yp_w += B;
+        cur = cur + 1 == R ? 0 : cur + 1;
+        publish(an, cur, bn, bprev);
+        boff_a = bn;
     }
     cp_async_wait<0>();
 }
 
 size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
-    const int NTP = padded_types(n_types);
+    const int NTP = padded_types(n_types, B);
     return round16((size_t)DP_STAGES * NTP * B * sizeof(float)) +
            round16((size_t)(K + 2) * (B + 2 * K) * sizeof(float)) +
            round16((size_t)(A + 2) * sizeof(int)) +
-           3 * (size_t)NTP * sizeof(int2);
+           2 * (size_t)NTP * sizeof(int2);
 }
 
-template <typename BP, int CPB>
+template <typename BP, int CPB, int NQ>
 cudaError_t launch_warp(const float* costs, const int* boff_out, const float* pens,
                         const int* x_in_size, const int* y_in_size, const int* type_off,
                         int n_types, int T, int P, int A, int B, int K, float* csum,
                         void* xp, void* yp, size_t smem, cudaStream_t st) {
-    cudaError_t err = cudaFuncSetAttribute(banded_dp_warp_kernel<BP, CPB>,
+    cudaError_t err = cudaFuncSetAttribute(banded_dp_warp_kernel<BP, CPB, NQ>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    banded_dp_warp_kernel<BP, CPB><<<P, WARP, smem, st>>>(
+    banded_dp_warp_kernel<BP, CPB, NQ><<<P, WARP, smem, st>>>(
         costs, boff_out, pens, x_in_size, y_in_size, type_off, n_types, T, A, B, K,
         csum, (BP*)xp, (BP*)yp);
     return cudaGetLastError();
+}
+
+// The unrolled kernels cover 1 to 5 quads of types per lane group (the
+// stage's T = 15 is 3 at B <= 16 and 5 above, T = 1 is 1); NQ = 0 the rest.
+template <typename BP, int CPB, typename... Args>
+cudaError_t launch_warp_nq(int nq, Args... args) {
+    switch (nq) {
+        case 1: return launch_warp<BP, CPB, 1>(args...);
+        case 2: return launch_warp<BP, CPB, 2>(args...);
+        case 3: return launch_warp<BP, CPB, 3>(args...);
+        case 4: return launch_warp<BP, CPB, 4>(args...);
+        case 5: return launch_warp<BP, CPB, 5>(args...);
+        default: return launch_warp<BP, CPB, 0>(args...);
+    }
 }
 
 size_t ring_bytes(int B, int K) {
@@ -519,19 +624,23 @@ size_t banded_dp_warp_smem_bytes(int B, int K, int T, int A, int n_types) {
 }
 
 // Launch the warp kernel on `stream`: one warp per pair. Returns the CUDA
-// error code of the launch (0 on success, cudaErrorInvalidValue for B > 32).
+// error code of the launch (0 on success, cudaErrorInvalidValue for a shape
+// the route does not take: B > 32 or more than 64 padded types).
 int banded_dp_warp_launch(const float* costs, const int* boff_out, const float* pens,
                           const int* x_in_size, const int* y_in_size,
                           const int* type_off, int n_types, int T, int P, int A,
                           int B, int K, float* csum, void* xp, void* yp, int bp_int8,
                           void* stream) {
-    if (B < 1 || B > WARP) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > WARP || padded_types(n_types, B) > MAX_TYPES || n_types != T + 2) {
+        return (int)cudaErrorInvalidValue;
+    }
     const size_t smem = warp_smem_bytes(B, K, T, A, n_types);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
-#define WARP_LAUNCH(BP, CPB)                                                      \
-    launch_warp<BP, CPB>(costs, boff_out, pens, x_in_size, y_in_size, type_off,   \
-                         n_types, T, P, A, B, K, csum, xp, yp, smem, st)
+    const int nq = padded_types(n_types, B) / lane_groups(B) / QUAD;
+#define WARP_LAUNCH(BP, CPB)                                                          \
+    launch_warp_nq<BP, CPB>(nq, costs, boff_out, pens, x_in_size, y_in_size, type_off, \
+                            n_types, T, P, A, B, K, csum, xp, yp, smem, st)
     cudaError_t err;
     if (bp_int8) {
         err = wide ? WARP_LAUNCH(int8_t, 16) : WARP_LAUNCH(int8_t, 4);
