@@ -175,10 +175,11 @@ __global__ void banded_dp_kernel(
 
 constexpr int WARP = 32;
 // Cost stages in flight. A step's rows are requested DP_STAGES - 1 steps
-// ahead: at ~0.1-0.3 us a step that is a few microseconds, several DRAM
-// round trips. ops/dp_cuda.py::WARP_STAGES mirrors it.
+// ahead and must have landed one step before they are used: at 0.2-0.5 us
+// a step that is a few microseconds, several DRAM round trips.
+// ops/dp_cuda.py::WARP_STAGES mirrors it.
 constexpr int DP_STAGES = 16;
-static_assert((DP_STAGES & (DP_STAGES - 1)) == 0 && DP_STAGES >= 2, "power of two");
+static_assert((DP_STAGES & (DP_STAGES - 1)) == 0 && DP_STAGES >= 4, "power of two");
 
 __host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
@@ -224,60 +225,55 @@ __device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) 
     ta = later ? tb : ta;
 }
 
-// First minimum over the 4 * nq contiguous types whose (ring offset, tag)
-// pairs start at rp and whose cost rows start at cst (B floats apart);
-// rng is the ring at this band lane. With NQ > 0 (= nq) everything is
-// unrolled: every load is issued before the first use, and the minimum is
-// a tree over contiguous ranges in which the lower range wins ties, which
-// is the first minimum of a scan in type order. NQ = 0 is the loop for
-// any nq.
+// First minimum over 4 * NQ contiguous types, unrolled: r holds their
+// (ring offset, tag) pairs, two to an int4, c their costs, rng is the ring
+// at this band lane. Every ring load is issued before the first use, and
+// the minimum is a tree over contiguous ranges in which the lower range
+// wins ties, which is the first minimum of a scan in type order.
 template <int NQ>
-__device__ __forceinline__ void min_types(const int4* rp, const float* rng, const float* cst,
-                                          int B, int nq, float& best, int& btag) {
-    if constexpr (NQ > 0) {
-        int4 r[2 * NQ];
-        float c[QUAD * NQ];
-        float v[QUAD * NQ];
-        int tg[QUAD * NQ];
+__device__ __forceinline__ void min_unrolled(const int4 (&r)[2 * NQ], const float (&c)[QUAD * NQ],
+                                             const float* rng, float& best, int& btag) {
+    float v[QUAD * NQ];
+    int tg[QUAD * NQ];
 #pragma unroll
-        for (int i = 0; i < 2 * NQ; ++i) r[i] = rp[i];
+    for (int i = 0; i < 2 * NQ; ++i) {
+        v[2 * i] = __fadd_rn(rng[r[i].x], c[2 * i]);
+        tg[2 * i] = r[i].y;
+        v[2 * i + 1] = __fadd_rn(rng[r[i].z], c[2 * i + 1]);
+        tg[2 * i + 1] = r[i].w;
+    }
 #pragma unroll
-        for (int i = 0; i < QUAD * NQ; ++i) c[i] = cst[i * B];
+    for (int stride = 1; stride < QUAD * NQ; stride *= 2) {
 #pragma unroll
-        for (int i = 0; i < 2 * NQ; ++i) {
-            v[2 * i] = __fadd_rn(rng[r[i].x], c[2 * i]);
-            tg[2 * i] = r[i].y;
-            v[2 * i + 1] = __fadd_rn(rng[r[i].z], c[2 * i + 1]);
-            tg[2 * i + 1] = r[i].w;
+        for (int i = 0; i + stride < QUAD * NQ; i += 2 * stride) {
+            first_min(v[i], tg[i], v[i + stride], tg[i + stride]);
         }
-#pragma unroll
-        for (int stride = 1; stride < QUAD * NQ; stride *= 2) {
-#pragma unroll
-            for (int i = 0; i + stride < QUAD * NQ; i += 2 * stride) {
-                first_min(v[i], tg[i], v[i + stride], tg[i + stride]);
-            }
-        }
-        best = v[0];
-        btag = tg[0];
-    } else {
-        best = CUDART_INF_F;
-        btag = 0;
+    }
+    best = v[0];
+    btag = tg[0];
+}
+
+// The same over any number nq of quads, as a loop: the pairs start at rp,
+// the cost rows at cst, B floats apart.
+__device__ __forceinline__ void min_loop(const int4* rp, const float* rng, const float* cst,
+                                         int B, int nq, float& best, int& btag) {
+    best = CUDART_INF_F;
+    btag = 0;
 #pragma unroll 2
-        for (int q = 0; q < nq; ++q) {
-            const int4 r01 = rp[2 * q];      // (roff, tag) of two types
-            const int4 r23 = rp[2 * q + 1];  // and of the next two
-            const float* cq = cst + QUAD * q * B;
-            float c0 = __fadd_rn(rng[r01.x], cq[0]);
-            const float c1 = __fadd_rn(rng[r01.z], cq[B]);
-            float c2 = __fadd_rn(rng[r23.x], cq[2 * B]);
-            const float c3 = __fadd_rn(rng[r23.z], cq[3 * B]);
-            int t0 = r01.y;
-            int t2 = r23.y;
-            first_min(c0, t0, c1, r01.w);
-            first_min(c2, t2, c3, r23.w);
-            first_min(c0, t0, c2, t2);
-            first_min(best, btag, c0, t0);
-        }
+    for (int q = 0; q < nq; ++q) {
+        const int4 r01 = rp[2 * q];      // (roff, tag) of two types
+        const int4 r23 = rp[2 * q + 1];  // and of the next two
+        const float* cq = cst + QUAD * q * B;
+        float c0 = __fadd_rn(rng[r01.x], cq[0]);
+        const float c1 = __fadd_rn(rng[r01.z], cq[B]);
+        float c2 = __fadd_rn(rng[r23.x], cq[2 * B]);
+        const float c3 = __fadd_rn(rng[r23.z], cq[3 * B]);
+        int t0 = r01.y;
+        int t2 = r23.y;
+        first_min(c0, t0, c1, r01.w);
+        first_min(c2, t2, c3, r23.w);
+        first_min(c0, t0, c2, t2);
+        first_min(best, btag, c0, t0);
     }
 }
 
@@ -297,20 +293,27 @@ __device__ __forceinline__ void min_types(const int4* rp, const float* rng, cons
 //   or +inf.
 // - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
 //   for every lane, and depends on the offsets and the types alone, not on
-//   earlier steps. So during step a the lanes compute it for step a + 1,
+//   earlier steps. So during step a the lanes compute it for step a + 2,
 //   lane t for types t and t + 32, which it keeps in registers, and leave it
 //   in shared memory beside the type's packed (xo, yo) tag; the barrier at
 //   the top of step a + 1 publishes it. The two offsets it needs are loaded
 //   at the top of the step and used at its end.
+// - In the unrolled kernels (NQ > 0) a step's operands, the (roff, tag)
+//   pairs and the costs of the lane's types, are loaded into registers at
+//   the end of the step before: both were published a step early for that
+//   (the offsets as above; the cost stage because each lane waits for its
+//   copies of step a + 1 before the barrier of step a). What is left
+//   between the barrier and the ring write is the ring loads, the adds, the
+//   minimum and a few selects.
 // - The two deletion types read their cost, pen, from rows T and T + 1 of
 //   every stage, written once at set-up, so they are types like any other;
 //   the padding types read row R of the ring, all +inf, never written.
 //   Stages 0 and 1 start as +inf: steps 0 and 1 have no cost row.
-// One warp has little to overlap a dependent instruction with, so the step
-// is kept short: pointers advance by B a step, the lane's band offset is
-// carried from the step before, and the lanes past the band run the type
-// loop on lane 0's addresses and store nothing, so nothing diverges
-// before the stores.
+// One warp has little to overlap a dependent instruction or a taken branch
+// with, so the step is kept short and straight: pointers advance by B a
+// step, the lane's band offset is carried from the step before, the copy
+// loop has the same trip count on every lane, and the lanes past the band
+// run the whole step on lane 0's addresses and only skip the stores.
 //
 // CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
 // 16-byte aligned (every cost row then is), else 4. NQ: quads of types per
@@ -382,16 +385,15 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     // Request the cost rows of anti-diagonal `step` (row step - 2 of each
     // type) into stage step % DP_STAGES, and commit one group for the step
     // whether or not it copies, so that group g is always step g's.
+    const int n_pass = (T + rows_pp - 1) / rows_pp;
     auto request = [&](int step) {
         if (step >= 2 && step < a2) {
-            if (copier) {
-                const float* src = src_next;
-                float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
-                for (int t = r_sub; t < T; t += rows_pp) {
-                    cp_async<CPB>(dst, src);
-                    src += src_pass;
-                    dst += dst_pass;
-                }
+            const float* src = src_next;
+            float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
+            for (int pass = 0, t = r_sub; pass < n_pass; ++pass, t += rows_pp) {
+                if (copier && t < T) cp_async<CPB>(dst, src);
+                src += src_pass;
+                dst += dst_pass;
             }
             src_next += B;
         }
@@ -432,7 +434,7 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
             const int t = lane + k * WARP;
-            if (t < NTP) {
+            if ((k == 0 || NTP > WARP) && t < NTP) {
                 int row = cur_n - my_s[k];  // (an - s) % R, as s <= K < R
                 row += row < 0 ? R : 0;
                 int shift = bn - my_yo[k] - bprev[k];
@@ -442,83 +444,113 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
             }
         }
     };
+    auto ring_row_after = [&](int row) { return row + 1 == R ? 0 : row + 1; };
     __syncwarp();
     int boff_a = s_boff[0];
+    int boff_n = s_boff[1];  // a2 >= 3
     {
-        const int bprev[2] = {boff_a, boff_a};  // rows before the first: +inf anyway
+        // rows before the first are +inf whatever the shift
+        const int bprev[2] = {boff_a, boff_a};
         publish(0, 0, boff_a, bprev);
+        publish(1, ring_row_after(0), boff_n, bprev);
     }
+
+    // A step's operands in registers (the unrolled kernels only).
+    constexpr int NR = NQ > 0 ? 2 * NQ : 1;
+    constexpr int NC = NQ > 0 ? QUAD * NQ : 1;
+    int4 opr[NR];
+    float opc[NC];
+    const int group_first = g * nq * QUAD;  // the lane group's first type
+    auto load_operands = [&](int step) {
+        if constexpr (NQ > 0) {
+            const int4* rp = reinterpret_cast<const int4*>(s_rp + (step & 1) * NTP + group_first);
+            const float* cst =
+                s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * B + b;
+#pragma unroll
+            for (int i = 0; i < NR; ++i) opr[i] = rp[i];
+#pragma unroll
+            for (int i = 0; i < NC; ++i) opc[i] = cst[i * B];
+        }
+    };
+    // Step 0's operands: its stage is +inf and pen from the set-up stores,
+    // its offsets were published above.
+    __syncwarp();
+    load_operands(0);
 
     int cur = 0;  // aa % R
     for (int aa = 0; aa < a2; ++aa) {
         // Groups 0 .. aa + DP_STAGES - 2 are committed; all but the newest
-        // DP_STAGES - 2 complete means group aa, this step's, has landed.
-        cp_async_wait<DP_STAGES - 2>();
+        // DP_STAGES - 3 complete means group aa + 1, the next step's, has
+        // landed: it is read at the end of this step.
+        cp_async_wait<DP_STAGES - 3>();
         // A lane's wait covers its own copies only. This barrier makes every
-        // lane's copies of stage aa, the set-up stores (first step), the
-        // ring row and the offsets written at step aa - 1 visible to all
-        // lanes, and it orders the reads of step aa - 1 before what follows:
-        // the request below overwrites the stage that step read,
-        // (aa - 1) % DP_STAGES, publish overwrites the half of s_rp it
-        // read, and this step's ring write lands in a row that step aa - 1
-        // could still read only if the ring had K rows (it has K + 1).
+        // lane's copies of stage aa + 1, and the ring row and the offsets
+        // (of step aa + 1) written at step aa - 1, visible to all lanes, and
+        // it orders the reads of step aa - 1 before what follows: the
+        // request below overwrites stage (aa - 1) % DP_STAGES, publish
+        // overwrites the half of s_rp that held step aa's offsets, which
+        // every lane read at the end of step aa - 1 or (NQ = 0) reads before
+        // it publishes, and this step's ring write lands in a row that step
+        // aa - 1 could still read only if the ring had K rows (it has K + 1).
         __syncwarp();
-        // the next step's offsets: loaded now, used after the stores
-        const int an = aa + 1;
-        const int bn = s_boff[min(an, a2 - 1)];
+        // the offsets of step aa + 2: loaded now, used after the stores
+        const int a_pub = aa + 2;
+        const int b_pub = s_boff[min(a_pub, a2 - 1)];
         int bprev[2];
 #pragma unroll
-        for (int k = 0; k < 2; ++k) bprev[k] = s_boff[min(max(an - my_s[k], 0), a2 - 1)];
+        for (int k = 0; k < 2; ++k) bprev[k] = s_boff[min(max(a_pub - my_s[k], 0), a2 - 1)];
         request(aa + DP_STAGES - 1);
+
+        // what does not wait for the minimum
+        const int yy = boff_a + b;
+        const int xx = aa - yy;
+        const bool cell_ok = (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
+        const bool edge_y = xx == 0 && (unsigned)yy < (unsigned)y_out;
+        const bool edge_x = !edge_y && yy == 0 && (unsigned)xx < (unsigned)x_out;
+        const bool edge = edge_y || edge_x;
+        const float edge_val = __fmul_rn(pen, (float)(edge_y ? yy : xx));
 
         float best;
         int btag;
-        min_types<NQ>(reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP + g * nq * QUAD),
-                      ring + b,
-                      s_cost + (aa & (DP_STAGES - 1)) * stage_floats + g * nq * QUAD * B + b,
-                      B, nq, best, btag);
+        if constexpr (NQ > 0) {
+            min_unrolled<NQ>(opr, opc, ring + b, best, btag);
+        } else {
+            min_loop(reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP + group_first), ring + b,
+                     s_cost + (aa & (DP_STAGES - 1)) * stage_floats + group_first * B + b, B, nq,
+                     best, btag);
+        }
         if (G == 2) {  // the upper half of the types, from lane b + B
             const float other = __shfl_down_sync(0xffffffffu, best, B);
             const int other_tag = __shfl_down_sync(0xffffffffu, btag, B);
             first_min(best, btag, other, other_tag);
         }
-
+        // unreachable: +inf / NEG_BP; then the x = 0 column (0, 1) and the
+        // y = 0 row (1, 0)
+        const bool reach = cell_ok && best < CUDART_INF_F;
+        float val = reach ? best : CUDART_INF_F;
+        int bxp = reach ? (btag & 0xffff) : NEG_BP;
+        int byp = reach ? (btag >> 16) : NEG_BP;
+        val = edge ? edge_val : val;
+        bxp = edge ? (int)edge_x : bxp;
+        byp = edge ? (int)edge_y : byp;
         if (writer) {
-            const int yy = boff_a + b;
-            const int xx = aa - yy;
-            const bool cell_ok =
-                xx - 1 >= 0 && xx - 1 < x_in && yy - 1 >= 0 && yy - 1 < y_in;
-            int bxp = btag & 0xffff;
-            int byp = btag >> 16;
-            if (!cell_ok || !(best < CUDART_INF_F)) {  // unreachable: +inf / NEG_BP
-                best = CUDART_INF_F;
-                bxp = NEG_BP;
-                byp = NEG_BP;
-            }
-            const bool edge_y = xx == 0 && yy >= 0 && yy < y_out;
-            const bool edge_x = !edge_y && yy == 0 && xx >= 0 && xx < x_out;
-            if (edge_y) {
-                best = __fmul_rn(pen, (float)yy);
-                bxp = 0;
-                byp = 1;
-            }
-            if (edge_x) {
-                best = __fmul_rn(pen, (float)xx);
-                bxp = 1;
-                byp = 0;
-            }
-            ring[cur * W + K + b] = best;
+            ring[cur * W + K + b] = val;
             // fire and forget: nothing reads these back
-            *csum_w = best;
+            *csum_w = val;
             *xp_w = (BP)bxp;
             *yp_w = (BP)byp;
         }
         csum_w += B;
         xp_w += B;
         yp_w += B;
-        cur = cur + 1 == R ? 0 : cur + 1;
-        publish(an, cur, bn, bprev);
-        boff_a = bn;
+        load_operands(aa + 1);
+        // the loop kernel read this step's offsets from the half of s_rp
+        // that publish now overwrites
+        if constexpr (NQ == 0) __syncwarp();
+        cur = ring_row_after(cur);
+        publish(a_pub, ring_row_after(cur), b_pub, bprev);
+        boff_a = boff_n;
+        boff_n = b_pub;
     }
     cp_async_wait<0>();
 }
