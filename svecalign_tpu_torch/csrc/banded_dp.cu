@@ -208,7 +208,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // the same band lane, and one shuffle merges them. So the types are padded
 // to a multiple of 4 per half.
 constexpr int QUAD = 4;
-constexpr int MAX_TYPES = 2 * WARP;  // padded; a lane owns at most two types
+// Ring offsets are computed a batch of WARP steps at a time, lane l for
+// step base + l, and kept for two batches.
+constexpr int OFFSET_STEPS = 2 * WARP;
 
 __host__ __device__ constexpr int lane_groups(int B) { return 2 * B <= WARP ? 2 : 1; }
 
@@ -293,14 +295,14 @@ __device__ __forceinline__ void min_loop(const int4* rp, const float* rng, const
 //   or +inf.
 // - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
 //   for every lane, and depends on the offsets and the types alone, not on
-//   earlier steps. So during step a the lanes compute it for step a + 2,
-//   lane t for types t and t + 32, which it keeps in registers, and leave it
-//   in shared memory beside the type's packed (xo, yo) tag; the barrier at
-//   the top of step a + 1 publishes it. The two offsets it needs are loaded
-//   at the top of the step and used at its end.
+//   earlier steps. So every 32 steps the lanes compute it for the 32 steps
+//   after the next 32, lane l for one step and all its types, and leave it
+//   in shared memory beside each type's packed (xo, yo) tag: about ten
+//   instructions a step, against forty when each step computed the next
+//   one's.
 // - In the unrolled kernels (NQ > 0) a step's operands, the (roff, tag)
 //   pairs and the costs of the lane's types, are loaded into registers at
-//   the end of the step before: both were published a step early for that
+//   the end of the step before: both are published early enough for that
 //   (the offsets as above; the cost stage because each lane waits for its
 //   copies of step a + 1 before the barrier of step a). What is left
 //   between the barrier and the ring write is the ring loads, the adds, the
@@ -342,14 +344,15 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int nq = NTP / G / QUAD;  // quads of types per lane group
     const int stage_floats = NTP * B;
     // layout: cost stages | csum ring (R rows + one of +inf) | node offsets
-    // | ring offsets and tags of two steps (16-byte segments)
+    // | types | ring offsets and tags of OFFSET_STEPS steps (16-byte segments)
     float* s_cost = reinterpret_cast<float*>(smem_raw);
     float* ring = reinterpret_cast<float*>(
         smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
     int* s_boff = reinterpret_cast<int*>(
         reinterpret_cast<unsigned char*>(ring) + round16((size_t)(R + 1) * W * sizeof(float)));
-    int2* s_rp = reinterpret_cast<int2*>(  // [2][NTP]: (roff, xo | yo << 16)
+    int2* s_ty = reinterpret_cast<int2*>(  // [NTP]: (xo, yo); padding types xo = -1
         reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
+    int2* s_rp = s_ty + NTP;  // [OFFSET_STEPS][NTP]: (roff, xo | yo << 16)
 
     const int x_in = x_in_size[p];
     const int y_in = y_in_size[p];
@@ -385,15 +388,26 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     // Request the cost rows of anti-diagonal `step` (row step - 2 of each
     // type) into stage step % DP_STAGES, and commit one group for the step
     // whether or not it copies, so that group g is always step g's.
+    // The first two passes are written out (the stage's T = 15 at B = 16
+    // is two); the loop takes the rest.
     const int n_pass = (T + rows_pp - 1) / rows_pp;
+    const bool copy0 = copier && r_sub < T;
+    const bool copy1 = copier && r_sub + rows_pp < T;
     auto request = [&](int step) {
         if (step >= 2 && step < a2) {
             const float* src = src_next;
             float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
-            for (int pass = 0, t = r_sub; pass < n_pass; ++pass, t += rows_pp) {
-                if (copier && t < T) cp_async<CPB>(dst, src);
-                src += src_pass;
-                dst += dst_pass;
+            if (copy0) cp_async<CPB>(dst, src);
+            if (copy1) cp_async<CPB>(dst + dst_pass, src + src_pass);
+            if (n_pass > 2) {
+                src += 2 * src_pass;
+                dst += 2 * dst_pass;
+#pragma unroll 1
+                for (int t = r_sub + 2 * rows_pp; t < T; t += rows_pp) {
+                    if (copier) cp_async<CPB>(dst, src);
+                    src += src_pass;
+                    dst += dst_pass;
+                }
             }
             src_next += B;
         }
@@ -417,43 +431,32 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int* boff = boff_out + (size_t)p * a2;
     for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
 
-    // The lane's own types, t = lane and lane + 32, for the ring offsets:
-    // span, yo, tag; span < 0 marks padding (and a type past NTP).
-    int my_s[2], my_yo[2], my_tag[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-        const int t = lane + k * WARP;
-        const int xo = t < n_types ? type_off[t] : 0;
-        my_yo[k] = t < n_types ? type_off[n_types + t] : 0;
-        my_s[k] = t < n_types ? xo + my_yo[k] : -1;
-        my_tag[k] = xo | (my_yo[k] << 16);
+    for (int i = lane; i < NTP; i += WARP) {
+        s_ty[i] = i < n_types ? make_int2(type_off[i], type_off[n_types + i])
+                              : make_int2(-1, 0);
     }
-    // Publish the ring offsets of step `an` (ring row `cur_n`, band offset
-    // bn, the offsets bprev[k] of rows an - my_s[k]) into half an & 1.
-    auto publish = [&](int an, int cur_n, int bn, const int (&bprev)[2]) {
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            const int t = lane + k * WARP;
-            if ((k == 0 || NTP > WARP) && t < NTP) {
-                int row = cur_n - my_s[k];  // (an - s) % R, as s <= K < R
-                row += row < 0 ? R : 0;
-                int shift = bn - my_yo[k] - bprev[k];
-                shift = max(-K, min(K, shift));  // memory safety on bad offsets
-                const int roff = my_s[k] < 0 ? R * W : row * W + K + shift;
-                s_rp[(an & 1) * NTP + t] = make_int2(roff, my_tag[k]);
-            }
+    __syncwarp();
+    // Ring offsets and tags of steps base .. base + 31 (base a multiple of
+    // 32), lane l for step base + l and all its types, into their slots of
+    // s_rp.
+    auto publish = [&](int base) {
+        const int an = base + lane;
+        const int bn = s_boff[min(an, a2 - 1)];
+        const int am = an % R;  // the step's ring row
+        int2* out = s_rp + (an & (OFFSET_STEPS - 1)) * NTP;
+#pragma unroll 2
+        for (int t = 0; t < NTP; ++t) {
+            const int2 ty = s_ty[t];
+            const int s = ty.x + ty.y;
+            int row = am - s;  // (an - s) % R, as s <= K < R
+            row += row < 0 ? R : 0;
+            int shift = bn - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
+            shift = max(-K, min(K, shift));  // memory safety on bad offsets
+            out[t] = make_int2(ty.x < 0 ? R * W : row * W + K + shift, ty.x | (ty.y << 16));
         }
     };
-    auto ring_row_after = [&](int row) { return row + 1 == R ? 0 : row + 1; };
-    __syncwarp();
-    int boff_a = s_boff[0];
-    int boff_n = s_boff[1];  // a2 >= 3
-    {
-        // rows before the first are +inf whatever the shift
-        const int bprev[2] = {boff_a, boff_a};
-        publish(0, 0, boff_a, bprev);
-        publish(1, ring_row_after(0), boff_n, bprev);
-    }
+    publish(0);
+    publish(WARP);
 
     // A step's operands in registers (the unrolled kernels only).
     constexpr int NR = NQ > 0 ? 2 * NQ : 1;
@@ -463,7 +466,8 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const int group_first = g * nq * QUAD;  // the lane group's first type
     auto load_operands = [&](int step) {
         if constexpr (NQ > 0) {
-            const int4* rp = reinterpret_cast<const int4*>(s_rp + (step & 1) * NTP + group_first);
+            const int4* rp = reinterpret_cast<const int4*>(
+                s_rp + (step & (OFFSET_STEPS - 1)) * NTP + group_first);
             const float* cst =
                 s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * B + b;
 #pragma unroll
@@ -484,25 +488,18 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         // landed: it is read at the end of this step.
         cp_async_wait<DP_STAGES - 3>();
         // A lane's wait covers its own copies only. This barrier makes every
-        // lane's copies of stage aa + 1, and the ring row and the offsets
-        // (of step aa + 1) written at step aa - 1, visible to all lanes, and
-        // it orders the reads of step aa - 1 before what follows: the
-        // request below overwrites stage (aa - 1) % DP_STAGES, publish
-        // overwrites the half of s_rp that held step aa's offsets, which
-        // every lane read at the end of step aa - 1 or (NQ = 0) reads before
-        // it publishes, and this step's ring write lands in a row that step
-        // aa - 1 could still read only if the ring had K rows (it has K + 1).
+        // lane's copies of stage aa + 1, and the ring row and any offsets
+        // written at step aa - 1, visible to all lanes, and it orders the
+        // reads of step aa - 1 before what follows: the request below
+        // overwrites stage (aa - 1) % DP_STAGES, publish (every 32 steps)
+        // overwrites the offsets of steps aa - 32 .. aa - 1, and this step's
+        // ring write lands in a row that step aa - 1 could still read only
+        // if the ring had K rows (it has K + 1).
         __syncwarp();
-        // the offsets of step aa + 2: loaded now, used after the stores
-        const int a_pub = aa + 2;
-        const int b_pub = s_boff[min(a_pub, a2 - 1)];
-        int bprev[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) bprev[k] = s_boff[min(max(a_pub - my_s[k], 0), a2 - 1)];
         request(aa + DP_STAGES - 1);
 
         // what does not wait for the minimum
-        const int yy = boff_a + b;
+        const int yy = s_boff[aa] + b;
         const int xx = aa - yy;
         const bool cell_ok = (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
         const bool edge_y = xx == 0 && (unsigned)yy < (unsigned)y_out;
@@ -515,7 +512,8 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         if constexpr (NQ > 0) {
             min_unrolled<NQ>(opr, opc, ring + b, best, btag);
         } else {
-            min_loop(reinterpret_cast<const int4*>(s_rp + (aa & 1) * NTP + group_first), ring + b,
+            min_loop(reinterpret_cast<const int4*>(
+                         s_rp + (aa & (OFFSET_STEPS - 1)) * NTP + group_first), ring + b,
                      s_cost + (aa & (DP_STAGES - 1)) * stage_floats + group_first * B + b, B, nq,
                      best, btag);
         }
@@ -544,13 +542,9 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         xp_w += B;
         yp_w += B;
         load_operands(aa + 1);
-        // the loop kernel read this step's offsets from the half of s_rp
-        // that publish now overwrites
-        if constexpr (NQ == 0) __syncwarp();
-        cur = ring_row_after(cur);
-        publish(a_pub, ring_row_after(cur), b_pub, bprev);
-        boff_a = boff_n;
-        boff_n = b_pub;
+        cur = cur + 1 == R ? 0 : cur + 1;
+        // steps aa .. aa + 31 are published; now the 32 after them
+        if ((aa & (WARP - 1)) == 0 && aa > 0) publish(aa + WARP);
     }
     cp_async_wait<0>();
 }
@@ -560,7 +554,7 @@ size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
     return round16((size_t)DP_STAGES * NTP * B * sizeof(float)) +
            round16((size_t)(K + 2) * (B + 2 * K) * sizeof(float)) +
            round16((size_t)(A + 2) * sizeof(int)) +
-           2 * (size_t)NTP * sizeof(int2);
+           (size_t)(1 + OFFSET_STEPS) * NTP * sizeof(int2);
 }
 
 template <typename BP, int CPB, int NQ>
@@ -657,13 +651,13 @@ size_t banded_dp_warp_smem_bytes(int B, int K, int T, int A, int n_types) {
 
 // Launch the warp kernel on `stream`: one warp per pair. Returns the CUDA
 // error code of the launch (0 on success, cudaErrorInvalidValue for a shape
-// the route does not take: B > 32 or more than 64 padded types).
+// the route does not take: B > 32).
 int banded_dp_warp_launch(const float* costs, const int* boff_out, const float* pens,
                           const int* x_in_size, const int* y_in_size,
                           const int* type_off, int n_types, int T, int P, int A,
                           int B, int K, float* csum, void* xp, void* yp, int bp_int8,
                           void* stream) {
-    if (B < 1 || B > WARP || padded_types(n_types, B) > MAX_TYPES || n_types != T + 2) {
+    if (B < 1 || B > WARP || n_types != T + 2) {
         return (int)cudaErrorInvalidValue;
     }
     const size_t smem = warp_smem_bytes(B, K, T, A, n_types);

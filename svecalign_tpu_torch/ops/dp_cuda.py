@@ -101,29 +101,25 @@ def warp_smem_bytes(B: int, K: int, T: int, A: int, n_types: int) -> int:
     """Dynamic shared memory of the warp route, as the source lays it
     out (``banded_dp_warp_smem_bytes`` there): the cost stages (a row per
     padded type), the csum ring of K + 1 rows of B + 2K floats and one row
-    of +inf, the pair's A + 2 node offsets, and the 8-byte ring offsets of
-    two steps per padded type; each segment rounded up to 16 bytes."""
+    of +inf, the pair's A + 2 node offsets, and per padded type 8 bytes of
+    type table and the 8-byte ring offsets of 64 steps; each segment
+    rounded up to 16 bytes."""
     ntp = warp_padded_types(B, n_types)
     return (
         _round16(WARP_STAGES * ntp * B * 4)
         + _round16((K + 2) * (B + 2 * K) * 4)
         + _round16((A + 2) * 4)
-        + 2 * ntp * 8
+        + (1 + 64) * ntp * 8
     )
 
 
 def banded_dp_route(B: int, K: int, T: int, A: int, n_types: int, smem_optin: int) -> str:
     """Which kernel a problem of this shape takes: ``"warp"`` when a band
-    row fits one warp (B <= 32), the padded types fit two per lane (64),
-    a type's offsets fit the 16 bits its tag gives each (K < 2**15) and the
-    warp route's shared memory fits the ``smem_optin`` bytes a block may
-    opt in to, else ``"block"``."""
-    if (
-        B <= WARP_SIZE
-        and warp_padded_types(B, n_types) <= 2 * WARP_SIZE
-        and K < 2**15
-        and warp_smem_bytes(B, K, T, A, n_types) <= smem_optin
-    ):
+    row fits one warp (B <= 32), a type's offsets fit the 16 bits its tag
+    gives each (K < 2**15) and the warp route's shared memory fits the
+    ``smem_optin`` bytes a block may opt in to, else ``"block"``."""
+    fits = warp_smem_bytes(B, K, T, A, n_types) <= smem_optin
+    if B <= WARP_SIZE and K < 2**15 and fits:
         return "warp"
     return "block"
 
