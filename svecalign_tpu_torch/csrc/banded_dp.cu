@@ -208,9 +208,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // the same band lane, and one shuffle merges them. So the types are padded
 // to a multiple of 4 per half.
 constexpr int QUAD = 4;
-// Ring offsets are computed a batch of WARP steps at a time, lane l for
-// step base + l, and kept for two batches.
-constexpr int OFFSET_STEPS = 2 * WARP;
+// What the feeder prepares per step (ring offsets, edge cells) is computed a
+// batch of WARP steps at a time and kept for two batches.
+constexpr int PREP_STEPS = 2 * WARP;
+// A stage row is ROW floats whatever B is, so that a lane's cost loads sit
+// at constant offsets from one base.
+constexpr int ROW = WARP;
+// The feeder confirms the rows of step s - FEED_LAG after it requests step
+// s: that many steps of copies are in flight. It runs at most DP_STAGES
+// steps ahead of the compute warp, which frees a stage two steps after it
+// used it, so DP_STAGES >= FEED_LAG + 3 or the two wait for each other.
+constexpr int FEED_LAG = 8;
+static_assert(DP_STAGES >= FEED_LAG + 3, "the feeder and the compute warp would deadlock");
+static_assert(PREP_STEPS >= 2 * DP_STAGES + WARP, "what unread steps need would be overwritten");
+
+// A backpointer pair as one tag: xo in the low 16 bits, yo in the high 16,
+// each signed (NEG_BP for an unreachable cell). NOT_FORCED is no such pair.
+__host__ __device__ constexpr int make_tag(int xo, int yo) {
+    return (int)(((unsigned)xo & 0xffffu) | ((unsigned)yo << 16));
+}
+constexpr int NEG_TAG = make_tag(NEG_BP, NEG_BP);
+constexpr int NOT_FORCED = 0x7fffffff;
 
 __host__ __device__ constexpr int lane_groups(int B) { return 2 * B <= WARP ? 2 : 1; }
 
@@ -227,22 +245,47 @@ __device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) 
     ta = later ? tb : ta;
 }
 
-// First minimum over 4 * NQ contiguous types, unrolled: r holds their
-// (ring offset, tag) pairs, two to an int4, c their costs, rng is the ring
-// at this band lane. Every ring load is issued before the first use, and
-// the minimum is a tree over contiguous ranges in which the lower range
-// wins ties, which is the first minimum of a scan in type order.
+// The ring value `roff` bytes from rng, the ring at this band lane.
+__device__ __forceinline__ float ring_at(const unsigned char* rng, int roff) {
+    return *reinterpret_cast<const float*>(rng + roff);
+}
+
+// A step's operands for one lane group of 4 * NQ contiguous types: their
+// ring offsets in bytes (four to an int4), their costs, and the cell's
+// forced (value bits, tag) pair.
 template <int NQ>
-__device__ __forceinline__ void min_unrolled(const int4 (&r)[2 * NQ], const float (&c)[QUAD * NQ],
-                                             const float* rng, float& best, int& btag) {
+struct Operands {
+    int4 r[NQ > 0 ? NQ : 1];
+    float c[NQ > 0 ? QUAD * NQ : 1];
+    int2 forced;
+};
+
+// The ring values of the types of `ops`; rng is the ring at this band lane.
+template <int NQ>
+__device__ __forceinline__ void load_ring(const Operands<NQ>& ops, const unsigned char* rng,
+                                          float (&prev)[QUAD * NQ]) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+        prev[4 * q] = ring_at(rng, ops.r[q].x);
+        prev[4 * q + 1] = ring_at(rng, ops.r[q].y);
+        prev[4 * q + 2] = ring_at(rng, ops.r[q].z);
+        prev[4 * q + 3] = ring_at(rng, ops.r[q].w);
+    }
+}
+
+// First minimum over the candidates prev + c, unrolled: a tree over
+// contiguous ranges in which the lower range wins ties, which is the first
+// minimum of a scan in type order.
+template <int NQ>
+__device__ __forceinline__ void min_unrolled(const float (&prev)[QUAD * NQ],
+                                             const float (&c)[QUAD * NQ],
+                                             const int (&tags)[QUAD * NQ], float& best, int& btag) {
     float v[QUAD * NQ];
     int tg[QUAD * NQ];
 #pragma unroll
-    for (int i = 0; i < 2 * NQ; ++i) {
-        v[2 * i] = __fadd_rn(rng[r[i].x], c[2 * i]);
-        tg[2 * i] = r[i].y;
-        v[2 * i + 1] = __fadd_rn(rng[r[i].z], c[2 * i + 1]);
-        tg[2 * i + 1] = r[i].w;
+    for (int i = 0; i < QUAD * NQ; ++i) {
+        v[i] = __fadd_rn(prev[i], c[i]);
+        tg[i] = tags[i];
     }
 #pragma unroll
     for (int stride = 1; stride < QUAD * NQ; stride *= 2) {
@@ -255,73 +298,131 @@ __device__ __forceinline__ void min_unrolled(const int4 (&r)[2 * NQ], const floa
     btag = tg[0];
 }
 
-// The same over any number nq of quads, as a loop: the pairs start at rp,
-// the cost rows at cst, B floats apart.
-__device__ __forceinline__ void min_loop(const int4* rp, const float* rng, const float* cst,
-                                         int B, int nq, float& best, int& btag) {
+// The same over any number nq of quads, as a loop: the offsets start at
+// r, the tags at tags, the cost rows at cst.
+__device__ __forceinline__ void min_loop(const int4* r, const int4* tags, const unsigned char* rng,
+                                         const float* cst, int nq, float& best, int& btag) {
     best = CUDART_INF_F;
     btag = 0;
 #pragma unroll 2
     for (int q = 0; q < nq; ++q) {
-        const int4 r01 = rp[2 * q];      // (roff, tag) of two types
-        const int4 r23 = rp[2 * q + 1];  // and of the next two
-        const float* cq = cst + QUAD * q * B;
-        float c0 = __fadd_rn(rng[r01.x], cq[0]);
-        const float c1 = __fadd_rn(rng[r01.z], cq[B]);
-        float c2 = __fadd_rn(rng[r23.x], cq[2 * B]);
-        const float c3 = __fadd_rn(rng[r23.z], cq[3 * B]);
-        int t0 = r01.y;
-        int t2 = r23.y;
-        first_min(c0, t0, c1, r01.w);
-        first_min(c2, t2, c3, r23.w);
+        const int4 ro = r[q];
+        const int4 tq = tags[q];
+        const float* cq = cst + QUAD * q * ROW;
+        float c0 = __fadd_rn(ring_at(rng, ro.x), cq[0]);
+        const float c1 = __fadd_rn(ring_at(rng, ro.y), cq[ROW]);
+        float c2 = __fadd_rn(ring_at(rng, ro.z), cq[2 * ROW]);
+        const float c3 = __fadd_rn(ring_at(rng, ro.w), cq[3 * ROW]);
+        int t0 = tq.x;
+        int t2 = tq.z;
+        first_min(c0, t0, c1, tq.y);
+        first_min(c2, t2, c3, tq.w);
         first_min(c0, t0, c2, t2);
         first_min(best, btag, c0, t0);
     }
 }
 
-// What a step does, with n_types padded to NTP:
+// The two progress flags live in shared memory and are read and written
+// with volatile accesses and no fence. A fence (MEMBAR) waits for the
+// thread's outstanding global stores and asynchronous copies, hundreds of
+// cycles a step, and is not needed here: shared memory is one memory per
+// SM that executes a warp's accesses in program order, so what was written
+// before the flag's store is there when another warp reads the flag and
+// then the data; `volatile` and the memory clobber keep the compiler from
+// moving accesses across the flag.
+// A flag is named by its 32-bit shared-memory address, taken once
+// (flag_address) and kept in a register.
+__device__ __forceinline__ int ld_flag(unsigned flag) {
+    int v;
+    asm volatile("ld.volatile.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_flag(unsigned flag, int v) {
+    asm volatile("st.volatile.shared.s32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
+}
+
+// Spin until the flag >= want and return what was read. A wait that
+// outlasts some seconds traps: a launch error, not a hung card.
+__device__ __forceinline__ int wait_flag(unsigned flag, int want, bool sleep) {
+    int v = ld_flag(flag);
+    for (long long spins = 0; v < want; ++spins) {
+        if (sleep) __nanosleep(64);
+        if (spins > (1ll << 27)) __trap();
+        v = ld_flag(flag);
+    }
+    return v;
+}
+
+// A value the compiler must keep in a register instead of recomputing it
+// from a special register or the constant bank in every step.
+__device__ __forceinline__ int pinned(int v) {
+    asm volatile("mov.b32 %0, %0;\n" : "+r"(v));
+    return v;
+}
+
+__device__ __forceinline__ unsigned flag_address(const int* flag) {
+    return (unsigned)pinned((int)__cvta_generic_to_shared(flag));
+}
+
+// Two warps per pair. Warp 0 computes; warp 1, the feeder, owns every load
+// from global memory and everything else that does not depend on earlier
+// steps, and runs ahead of it. One warp has nothing to overlap a dependent
+// instruction or a taken branch with (it issues an instruction every three
+// cycles or so here), so the step's time is its instruction count, and
+// every instruction taken out of the compute warp's step counts. What is
+// left there, with n_types padded to NTP, is
 //
-//   cand_t = ring[roff_t + b] + stage[t * B + b]      for t < NTP
+//   cand_t = ring[roff_t + b] + stage[t][b]      for t < NTP
 //
-// and nothing else per type: no test, no branch, no address arithmetic
-// that depends on another load. That takes three things.
+// a first minimum, four selects and the stores: no test per type, no
+// branch, no address arithmetic that depends on a load, no global load.
+// That takes these things.
 // - Validity is in the data. A predecessor outside the document holds +inf
 //   in the ring (a cell outside the node grid is never written with
 //   anything else, a lane outside the band is the row's +inf padding, a row
 //   before the first is still as initialised), and +inf + cost is +inf, which
 //   never beats `best` under the strict '<'. So the per-type test of the
-//   predecessor's coordinates is dropped; the cell's own (cell_ok) is
-//   applied once after the minimum. No input makes a NaN: costs are finite
-//   or +inf.
-// - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
-//   for every lane, and depends on the offsets and the types alone, not on
-//   earlier steps. So every 32 steps the lanes compute it for the 32 steps
-//   after the next 32, lane l for one step and all its types, and leave it
-//   in shared memory beside each type's packed (xo, yo) tag: about ten
-//   instructions a step, against forty when each step computed the next
-//   one's.
-// - In the unrolled kernels (NQ > 0) a step's operands, the (roff, tag)
-//   pairs and the costs of the lane's types, are loaded into registers at
-//   the end of the step before: both are published early enough for that
-//   (the offsets as above; the cost stage because each lane waits for its
-//   copies of step a + 1 before the barrier of step a). What is left
-//   between the barrier and the ring write is the ring loads, the adds, the
-//   minimum and a few selects.
+//   predecessor's coordinates is dropped. No input makes a NaN: costs are
+//   finite or +inf.
+// - The ring offset roff_t = (((a - s_t) % R) * W + K + shift_t) * 4 bytes is
+//   the same for every lane and depends on the offsets and the types alone.
+//   The feeder computes it 32 steps at a time, lane l for one step and all
+//   its types. The types' packed (xo, yo) tags never change: the unrolled
+//   kernels keep them in registers.
+// - Whether a cell is outside the node grid (+inf, NEG_BP), on the x = 0
+//   column (pen * y, (0, 1)) or on the y = 0 row (pen * x, (1, 0)) depends on
+//   the offsets alone too. The feeder leaves a forced (value, tag) pair per
+//   step and lane, or NOT_FORCED, and the compute warp selects.
 // - The two deletion types read their cost, pen, from rows T and T + 1 of
 //   every stage, written once at set-up, so they are types like any other;
 //   the padding types read row R of the ring, all +inf, never written.
 //   Stages 0 and 1 start as +inf: steps 0 and 1 have no cost row.
-// One warp has little to overlap a dependent instruction or a taken branch
-// with, so the step is kept short and straight: pointers advance by B a
-// step, the lane's band offset is carried from the step before, the copy
-// loop has the same trip count on every lane, and the lanes past the band
-// run the whole step on lane 0's addresses and only skip the stores.
+// - The feeder copies the T cost rows of step s into stage s % DP_STAGES by
+//   cp.async, one commit group per step, and after its wait for the group
+//   of step s - FEED_LAG and a __syncwarp() (a lane's wait covers its own
+//   copies only) lane 0 sets `ready` = s - FEED_LAG. The compute warp waits
+//   for `ready` >= a + 1 before it reads the operands of step a + 1 (it
+//   keeps the value it saw, so it polls once in several steps), and sets
+//   `done` = a - 1 at the end of step a, a step after the last use of what
+//   it read of step a - 1; the feeder waits for `done` >= s - DP_STAGES
+//   before it overwrites a stage.
+// - In the unrolled kernels (NQ > 0) a step's operands, the ring offsets,
+//   the costs of the lane's types and the forced pair, are loaded into
+//   registers during the step before, and a step's global stores are made
+//   during the step after: both sit between the issue of the ring loads and
+//   the first add, where the warp would wait for shared memory anyway. What
+//   is left between the barrier and the ring write is the ring loads, the
+//   adds, the minimum and the selects. Two sets of operand registers take
+//   turns, so the loop is written two steps at a time.
+// - The lanes past the band run the whole step on lane 0's addresses and
+//   only skip the stores.
 //
 // CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
 // 16-byte aligned (every cost row then is), else 4. NQ: quads of types per
 // lane group, unrolled, or 0 for any number.
 template <typename BP, int CPB, int NQ>
-__global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
+__global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
     const float* __restrict__ costs,     // (P, T, A, B)
     const int* __restrict__ boff_out,    // (P, A + 2)
     const float* __restrict__ pens,      // (P,)
@@ -334,17 +435,20 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     BP* __restrict__ yp_out)             // (P, A + 2, B)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int lane = threadIdx.x;
+    const int tid = threadIdx.x;
+    const int lane = tid & (WARP - 1);
+    const bool feeder = tid >= WARP;
     const int p = blockIdx.x;
     const int W = B + 2 * K;
     const int R = K + 1;
     const int a2 = A + 2;
-    const int G = lane_groups(B);
+    const int G = pinned(lane_groups(B));
     const int NTP = padded_types(n_types, B);
     const int nq = NTP / G / QUAD;  // quads of types per lane group
-    const int stage_floats = NTP * B;
-    // layout: cost stages | csum ring (R rows + one of +inf) | node offsets
-    // | types | ring offsets and tags of OFFSET_STEPS steps (16-byte segments)
+    const int stage_floats = NTP * ROW;
+    // layout, in 16-byte segments: cost stages | csum ring (R rows + one of
+    // +inf) | node offsets | types | tags | ring offsets of PREP_STEPS steps
+    // | forced pairs of PREP_STEPS steps | the two flags
     float* s_cost = reinterpret_cast<float*>(smem_raw);
     float* ring = reinterpret_cast<float*>(
         smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
@@ -352,209 +456,262 @@ __global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
         reinterpret_cast<unsigned char*>(ring) + round16((size_t)(R + 1) * W * sizeof(float)));
     int2* s_ty = reinterpret_cast<int2*>(  // [NTP]: (xo, yo); padding types xo = -1
         reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
-    int2* s_rp = s_ty + NTP;  // [OFFSET_STEPS][NTP]: (roff, xo | yo << 16)
+    int* s_tag = reinterpret_cast<int*>(s_ty + NTP);  // [NTP]: make_tag(xo, yo)
+    int* s_roff = s_tag + NTP;                         // [PREP_STEPS][NTP], bytes
+    int2* s_forced = reinterpret_cast<int2*>(s_roff + PREP_STEPS * NTP);  // [PREP_STEPS][WARP]
+    int* s_flags = reinterpret_cast<int*>(s_forced + PREP_STEPS * WARP);
+    const unsigned f_ready = flag_address(s_flags);
+    const unsigned f_done = flag_address(s_flags + 1);
 
-    const int x_in = x_in_size[p];
-    const int y_in = y_in_size[p];
-    const int x_out = x_in + 1;
-    const int y_out = y_in + 1;
     const float pen = pens[p];
-    const float* cost_p = costs + (size_t)p * T * A * B;
 
-    // Lane group g takes types [g * 4 nq, (g + 1) * 4 nq) of band lane b.
-    // Lanes past the groups shadow lane 0.
+    // Set-up, by both warps. Stages 0 and 1 serve steps 0 and 1 first, which
+    // have no cost row: +inf there; the copies of steps 16 and 17 overwrite
+    // them later. Rows T.. of every stage: pen for the two deletions, 0 for
+    // the padding.
+    for (int i = tid; i < 2 * stage_floats; i += 2 * WARP) {
+        if (i % stage_floats < T * ROW) s_cost[i] = CUDART_INF_F;
+    }
+    for (int i = tid; i < DP_STAGES * (NTP - T) * ROW; i += 2 * WARP) {
+        const int d = i / ((NTP - T) * ROW);
+        const int r = i - d * (NTP - T) * ROW;
+        s_cost[d * stage_floats + T * ROW + r] = r < 2 * ROW ? pen : 0.0f;
+    }
+    for (int i = tid; i < (R + 1) * W; i += 2 * WARP) ring[i] = CUDART_INF_F;
+    const int* boff = boff_out + (size_t)p * a2;
+    for (int i = tid; i < a2; i += 2 * WARP) s_boff[i] = boff[i];
+    for (int i = tid; i < NTP; i += 2 * WARP) {
+        const int xo = i < n_types ? type_off[i] : -1;
+        const int yo = i < n_types ? type_off[n_types + i] : 0;
+        s_ty[i] = make_int2(xo, yo);
+        s_tag[i] = make_tag(xo, yo);
+    }
+    if (tid == 0) {
+        s_flags[0] = -1;
+        s_flags[1] = -1;
+    }
+    __syncthreads();
+
+    if (feeder) {
+        // Copies of one stage, spread over the 32 lanes: a cost row is cpr
+        // copies, a pass of the warp covers rows_pp rows. The first two
+        // passes are written out (the stage's T = 15 at B = 16 is two); the
+        // loop takes the rest.
+        constexpr int CPF = CPB / (int)sizeof(float);
+        const int cpr = B / CPF;
+        const int rows_pp = WARP / cpr;
+        const int r_sub = lane / cpr;
+        const int c_sub = lane - r_sub * cpr;
+        const bool copier = r_sub < rows_pp;
+        const int dst_lane = r_sub * ROW + c_sub * CPF;
+        const size_t src_pass = (size_t)rows_pp * A * B;
+        const int dst_pass = rows_pp * ROW;
+        const int n_pass = (T + rows_pp - 1) / rows_pp;
+        const bool copy0 = copier && r_sub < T;
+        const bool copy1 = copier && r_sub + rows_pp < T;
+        // the lane's first source of the next step to request; step 2 reads row 0
+        const float* src_next = costs + (size_t)p * T * A * B + (size_t)r_sub * A * B + c_sub * CPF;
+
+        // Request the cost rows of anti-diagonal `step` (row step - 2 of
+        // each type) into stage step % DP_STAGES, and commit one group for
+        // the step whether or not it copies, so that group g is step g's.
+        auto request = [&](int step) {
+            if (step >= 2 && step < a2) {
+                const float* src = src_next;
+                float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
+                if (copy0) cp_async<CPB>(dst, src);
+                if (copy1) cp_async<CPB>(dst + dst_pass, src + src_pass);
+                if (n_pass > 2) {
+                    src += 2 * src_pass;
+                    dst += 2 * dst_pass;
+#pragma unroll 1
+                    for (int t = r_sub + 2 * rows_pp; t < T; t += rows_pp) {
+                        if (copier) cp_async<CPB>(dst, src);
+                        src += src_pass;
+                        dst += dst_pass;
+                    }
+                }
+                src_next += B;
+            }
+            cp_async_commit();
+        };
+        const int x_in = x_in_size[p];
+        const int y_in = y_in_size[p];
+        // What steps base .. base + 31 (base a multiple of 32) need beside
+        // their costs, into the steps' slots.
+        auto prepare = [&](int base) {
+            {  // ring offsets: lane l for step base + l and all its types
+                const int an = base + lane;
+                const int bn = s_boff[min(an, a2 - 1)];
+                const int am = an % R;  // the step's ring row
+                int* out = s_roff + (an & (PREP_STEPS - 1)) * NTP;
+#pragma unroll 2
+                for (int t = 0; t < NTP; ++t) {
+                    const int2 ty = s_ty[t];
+                    const int s = ty.x + ty.y;
+                    int row = am - s;  // (an - s) % R, as s <= K < R
+                    row += row < 0 ? R : 0;
+                    int shift = bn - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
+                    shift = max(-K, min(K, shift));  // memory safety on bad offsets
+                    out[t] = (ty.x < 0 ? R * W : row * W + K + shift) * (int)sizeof(float);
+                }
+            }
+            // forced pairs: lane b for band lane b of each step
+#pragma unroll 2
+            for (int i = 0; i < WARP; ++i) {
+                const int an = base + i;
+                const int yy = s_boff[min(an, a2 - 1)] + lane;
+                const int xx = an - yy;
+                const bool cell_ok =
+                    (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
+                const bool edge_y = xx == 0 && (unsigned)yy <= (unsigned)y_in;
+                const bool edge_x = !edge_y && yy == 0 && (unsigned)xx <= (unsigned)x_in;
+                int2 forced = make_int2(0, NOT_FORCED);
+                if (!cell_ok) forced = make_int2(__float_as_int(CUDART_INF_F), NEG_TAG);
+                if (edge_y) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)yy)), make_tag(0, 1));
+                if (edge_x) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)xx)), make_tag(1, 0));
+                s_forced[(an & (PREP_STEPS - 1)) * WARP + lane] = forced;
+            }
+        };
+
+        prepare(0);
+        for (int s = 0; s < a2 + FEED_LAG; ++s) {
+            // stage s % DP_STAGES last served step s - DP_STAGES
+            if (s >= DP_STAGES) wait_flag(f_done, s - DP_STAGES, true);
+            request(s);
+            // Steps s + 16 .. s + 47, over what steps s - 48 .. s - 17
+            // needed: the compute warp is past step s - 16. They are
+            // confirmed with step s + 16 at the earliest, 24 steps on.
+            if ((s & (WARP - 1)) == WARP / 2) prepare(s + WARP / 2);
+            // all but the newest FEED_LAG groups complete: the rows of step
+            // s - FEED_LAG have landed, for this lane; the barrier makes that
+            // all lanes, and orders what every lane prepared before the flag
+            cp_async_wait<FEED_LAG>();
+            __syncwarp();
+            if (lane == 0 && s >= FEED_LAG) st_flag(f_ready, s - FEED_LAG);
+        }
+        return;
+    }
+
+    // The compute warp. Lane group g takes types [g * 4 nq, (g + 1) * 4 nq)
+    // of band lane b. Lanes past the groups shadow lane 0.
     int g = lane / B;
     int b = lane - g * B;
     if (g >= G) g = b = 0;
-    const bool writer = lane < B;
+    const int writer = pinned(lane < B);
+    const int lead = pinned(lane == 0);
+    const int Bv = pinned(B);
+    const int last = pinned(a2 - 1);
     float* csum_w = csum + (size_t)p * a2 * B + b;
     BP* xp_w = xp_out + (size_t)p * a2 * B + b;
     BP* yp_w = yp_out + (size_t)p * a2 * B + b;
+    const unsigned char* rng = reinterpret_cast<const unsigned char*>(ring + b);
+    // where this step's ring row is written; wraps after row R - 1
+    float* ring_w = ring + K + b;
+    float* const ring_w_end = ring_w + R * W;
+    const int Wv = pinned(W);
 
-    // Copies of one stage, spread over all 32 lanes: a cost row is cpr
-    // copies, a pass of the warp covers rows_pp rows.
-    constexpr int CPF = CPB / (int)sizeof(float);
-    const int cpr = B / CPF;
-    const int rows_pp = WARP / cpr;
-    const int r_sub = lane / cpr;
-    const int c_sub = lane - r_sub * cpr;
-    const bool copier = r_sub < rows_pp;
-    const int dst_lane = r_sub * B + c_sub * CPF;
-    const size_t src_pass = (size_t)rows_pp * A * B;
-    const int dst_pass = rows_pp * B;
-    // the lane's first source of the next step to request; step 2 reads row 0
-    const float* src_next = cost_p + (size_t)r_sub * A * B + c_sub * CPF;
-
-    // Request the cost rows of anti-diagonal `step` (row step - 2 of each
-    // type) into stage step % DP_STAGES, and commit one group for the step
-    // whether or not it copies, so that group g is always step g's.
-    // The first two passes are written out (the stage's T = 15 at B = 16
-    // is two); the loop takes the rest.
-    const int n_pass = (T + rows_pp - 1) / rows_pp;
-    const bool copy0 = copier && r_sub < T;
-    const bool copy1 = copier && r_sub + rows_pp < T;
-    auto request = [&](int step) {
-        if (step >= 2 && step < a2) {
-            const float* src = src_next;
-            float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
-            if (copy0) cp_async<CPB>(dst, src);
-            if (copy1) cp_async<CPB>(dst + dst_pass, src + src_pass);
-            if (n_pass > 2) {
-                src += 2 * src_pass;
-                dst += 2 * dst_pass;
-#pragma unroll 1
-                for (int t = r_sub + 2 * rows_pp; t < T; t += rows_pp) {
-                    if (copier) cp_async<CPB>(dst, src);
-                    src += src_pass;
-                    dst += dst_pass;
-                }
-            }
-            src_next += B;
-        }
-        cp_async_commit();
-    };
-
-    // Stages 0 and 1 serve steps 0 and 1 first, which have no cost row:
-    // +inf there; the copies of steps 16 and 17 overwrite them later.
-    for (int i = lane; i < 2 * stage_floats; i += WARP) {
-        if (i % stage_floats < T * B) s_cost[i] = CUDART_INF_F;
-    }
-    // rows T.. of every stage: pen for the two deletions, 0 for the padding
-    for (int i = lane; i < DP_STAGES * (NTP - T) * B; i += WARP) {
-        const int d = i / ((NTP - T) * B);
-        const int r = i - d * (NTP - T) * B;
-        s_cost[d * stage_floats + T * B + r] = r < 2 * B ? pen : 0.0f;
-    }
-    for (int step = 0; step < DP_STAGES - 1; ++step) request(step);
-
-    for (int i = lane; i < (R + 1) * W; i += WARP) ring[i] = CUDART_INF_F;
-    const int* boff = boff_out + (size_t)p * a2;
-    for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
-
-    for (int i = lane; i < NTP; i += WARP) {
-        s_ty[i] = i < n_types ? make_int2(type_off[i], type_off[n_types + i])
-                              : make_int2(-1, 0);
-    }
-    __syncwarp();
-    // Ring offsets and tags of steps base .. base + 31 (base a multiple of
-    // 32), lane l for step base + l and all its types, into their slots of
-    // s_rp.
-    auto publish = [&](int base) {
-        const int an = base + lane;
-        const int bn = s_boff[min(an, a2 - 1)];
-        const int am = an % R;  // the step's ring row
-        int2* out = s_rp + (an & (OFFSET_STEPS - 1)) * NTP;
-#pragma unroll 2
-        for (int t = 0; t < NTP; ++t) {
-            const int2 ty = s_ty[t];
-            const int s = ty.x + ty.y;
-            int row = am - s;  // (an - s) % R, as s <= K < R
-            row += row < 0 ? R : 0;
-            int shift = bn - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
-            shift = max(-K, min(K, shift));  // memory safety on bad offsets
-            out[t] = make_int2(ty.x < 0 ? R * W : row * W + K + shift, ty.x | (ty.y << 16));
-        }
-    };
-    publish(0);
-    publish(WARP);
-
-    // A step's operands in registers (the unrolled kernels only).
-    constexpr int NR = NQ > 0 ? 2 * NQ : 1;
-    constexpr int NC = NQ > 0 ? QUAD * NQ : 1;
-    int4 opr[NR];
-    float opc[NC];
     const int group_first = g * nq * QUAD;  // the lane group's first type
-    auto load_operands = [&](int step) {
+    auto offsets_of = [&](int step) {
+        return reinterpret_cast<const int4*>(s_roff + (step & (PREP_STEPS - 1)) * NTP + group_first);
+    };
+    auto costs_of = [&](int step) {
+        return s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * ROW + b;
+    };
+    constexpr int NC = NQ > 0 ? QUAD * NQ : 1;
+    int tags[NC];  // of the lane's types (the unrolled kernels only)
+    if constexpr (NQ > 0) {
+#pragma unroll
+        for (int i = 0; i < NC; ++i) tags[i] = s_tag[group_first + i];
+    }
+    auto load_operands = [&](int step, Operands<NQ>& ops) {
+        ops.forced = s_forced[(step & (PREP_STEPS - 1)) * WARP + b];
         if constexpr (NQ > 0) {
-            const int4* rp = reinterpret_cast<const int4*>(
-                s_rp + (step & (OFFSET_STEPS - 1)) * NTP + group_first);
-            const float* cst =
-                s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * B + b;
+            const int4* ro = offsets_of(step);
+            const float* cst = costs_of(step);
 #pragma unroll
-            for (int i = 0; i < NR; ++i) opr[i] = rp[i];
+            for (int i = 0; i < NQ; ++i) ops.r[i] = ro[i];
 #pragma unroll
-            for (int i = 0; i < NC; ++i) opc[i] = cst[i * B];
+            for (int i = 0; i < NC; ++i) ops.c[i] = cst[i * ROW];
         }
     };
-    // Step 0's operands: its stage is +inf and pen from the set-up stores,
-    // its offsets were published above.
-    __syncwarp();
-    load_operands(0);
+    int ready = wait_flag(f_ready, 0, false);
+    // the cell of the step before, stored a step late
+    float out_val = 0.0f;
+    int out_tag = 0;
+    auto store_out = [&]() {
+        if (writer) {  // fire and forget: nothing reads these back
+            *csum_w = out_val;
+            *xp_w = (BP)(short)(out_tag & 0xffff);
+            *yp_w = (BP)(out_tag >> 16);
+        }
+        csum_w += Bv;
+        xp_w += Bv;
+        yp_w += Bv;
+    };
 
-    int cur = 0;  // aa % R
-    for (int aa = 0; aa < a2; ++aa) {
-        // Groups 0 .. aa + DP_STAGES - 2 are committed; all but the newest
-        // DP_STAGES - 3 complete means group aa + 1, the next step's, has
-        // landed: it is read at the end of this step.
-        cp_async_wait<DP_STAGES - 3>();
-        // A lane's wait covers its own copies only. This barrier makes every
-        // lane's copies of stage aa + 1, and the ring row and any offsets
-        // written at step aa - 1, visible to all lanes, and it orders the
-        // reads of step aa - 1 before what follows: the request below
-        // overwrites stage (aa - 1) % DP_STAGES, publish (every 32 steps)
-        // overwrites the offsets of steps aa - 32 .. aa - 1, and this step's
-        // ring write lands in a row that step aa - 1 could still read only
-        // if the ring had K rows (it has K + 1).
+    // One step: `cur` holds its operands, `next` takes those of step aa + 1.
+    auto step = [&](int aa, const Operands<NQ>& cur, Operands<NQ>& next) {
+        // The ring row written at step aa - 1 becomes visible to all lanes,
+        // and the reads of step aa - 1 are ordered before this step's ring
+        // write, which lands in a row that step aa - 1 could still read only
+        // if the ring had K rows (it has K + 1), and before the store of
+        // `done` below.
         __syncwarp();
-        request(aa + DP_STAGES - 1);
+        float prev[NC];
+        if constexpr (NQ > 0) load_ring<NQ>(cur, rng, prev);
 
-        // what does not wait for the minimum
-        const int yy = s_boff[aa] + b;
-        const int xx = aa - yy;
-        const bool cell_ok = (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
-        const bool edge_y = xx == 0 && (unsigned)yy < (unsigned)y_out;
-        const bool edge_x = !edge_y && yy == 0 && (unsigned)xx < (unsigned)x_out;
-        const bool edge = edge_y || edge_x;
-        const float edge_val = __fmul_rn(pen, (float)(edge_y ? yy : xx));
+        // In the shadow of the ring loads: the stores of step aa - 1, and the
+        // operands of step aa + 1. Steps up to aa - 1 are done with their
+        // stage and slots: every lane read step aa - 1's before this step's
+        // barrier at the latest (the loop kernel reads step aa's below).
+        if (aa > 0) store_out();
+        if (lead) st_flag(f_done, aa - 1);
+        if (aa < last) {
+            if (ready <= aa) ready = wait_flag(f_ready, aa + 1, false);
+            load_operands(aa + 1, next);
+        }
 
         float best;
         int btag;
         if constexpr (NQ > 0) {
-            min_unrolled<NQ>(opr, opc, ring + b, best, btag);
+            min_unrolled<NQ>(prev, cur.c, tags, best, btag);
         } else {
-            min_loop(reinterpret_cast<const int4*>(
-                         s_rp + (aa & (OFFSET_STEPS - 1)) * NTP + group_first), ring + b,
-                     s_cost + (aa & (DP_STAGES - 1)) * stage_floats + group_first * B + b, B, nq,
-                     best, btag);
+            min_loop(offsets_of(aa), reinterpret_cast<const int4*>(s_tag + group_first), rng,
+                     costs_of(aa), nq, best, btag);
         }
         if (G == 2) {  // the upper half of the types, from lane b + B
-            const float other = __shfl_down_sync(0xffffffffu, best, B);
-            const int other_tag = __shfl_down_sync(0xffffffffu, btag, B);
+            const float other = __shfl_down_sync(0xffffffffu, best, Bv);
+            const int other_tag = __shfl_down_sync(0xffffffffu, btag, Bv);
             first_min(best, btag, other, other_tag);
         }
-        // unreachable: +inf / NEG_BP; then the x = 0 column (0, 1) and the
-        // y = 0 row (1, 0)
-        const bool reach = cell_ok && best < CUDART_INF_F;
-        float val = reach ? best : CUDART_INF_F;
-        int bxp = reach ? (btag & 0xffff) : NEG_BP;
-        int byp = reach ? (btag >> 16) : NEG_BP;
-        val = edge ? edge_val : val;
-        bxp = edge ? (int)edge_x : bxp;
-        byp = edge ? (int)edge_y : byp;
-        if (writer) {
-            ring[cur * W + K + b] = val;
-            // fire and forget: nothing reads these back
-            *csum_w = val;
-            *xp_w = (BP)bxp;
-            *yp_w = (BP)byp;
-        }
-        csum_w += B;
-        xp_w += B;
-        yp_w += B;
-        load_operands(aa + 1);
-        cur = cur + 1 == R ? 0 : cur + 1;
-        // steps aa .. aa + 31 are published; now the 32 after them
-        if ((aa & (WARP - 1)) == 0 && aa > 0) publish(aa + WARP);
+        // an unreachable cell keeps +inf and gets NEG_BP; a forced cell takes
+        // the feeder's pair
+        const bool is_forced = cur.forced.y != NOT_FORCED;
+        out_tag = best < CUDART_INF_F ? btag : NEG_TAG;
+        out_tag = is_forced ? cur.forced.y : out_tag;
+        out_val = is_forced ? __int_as_float(cur.forced.x) : best;
+        if (writer) *ring_w = out_val;
+        ring_w += Wv;
+        if (ring_w == ring_w_end) ring_w -= R * W;
+    };
+
+    Operands<NQ> even, odd;
+    load_operands(0, even);
+    for (int aa = 0; aa <= last; aa += 2) {
+        step(aa, even, odd);
+        if (aa < last) step(aa + 1, odd, even);
     }
-    cp_async_wait<0>();
+    store_out();
 }
 
 size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
     const int NTP = padded_types(n_types, B);
-    return round16((size_t)DP_STAGES * NTP * B * sizeof(float)) +
+    return round16((size_t)DP_STAGES * NTP * ROW * sizeof(float)) +
            round16((size_t)(K + 2) * (B + 2 * K) * sizeof(float)) +
            round16((size_t)(A + 2) * sizeof(int)) +
-           (size_t)(1 + OFFSET_STEPS) * NTP * sizeof(int2);
+           (size_t)NTP * (sizeof(int2) + sizeof(int) + PREP_STEPS * sizeof(int)) +
+           (size_t)PREP_STEPS * WARP * sizeof(int2) + 16;
 }
 
 template <typename BP, int CPB, int NQ>
@@ -566,7 +723,7 @@ cudaError_t launch_warp(const float* costs, const int* boff_out, const float* pe
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    banded_dp_warp_kernel<BP, CPB, NQ><<<P, WARP, smem, st>>>(
+    banded_dp_warp_kernel<BP, CPB, NQ><<<P, 2 * WARP, smem, st>>>(
         costs, boff_out, pens, x_in_size, y_in_size, type_off, n_types, T, A, B, K,
         csum, (BP*)xp, (BP*)yp);
     return cudaGetLastError();

@@ -99,17 +99,20 @@ def warp_padded_types(B: int, n_types: int) -> int:
 
 def warp_smem_bytes(B: int, K: int, T: int, A: int, n_types: int) -> int:
     """Dynamic shared memory of the warp route, as the source lays it
-    out (``banded_dp_warp_smem_bytes`` there): the cost stages (a row per
-    padded type), the csum ring of K + 1 rows of B + 2K floats and one row
-    of +inf, the pair's A + 2 node offsets, and per padded type 8 bytes of
-    type table and the 8-byte ring offsets of 64 steps; each segment
-    rounded up to 16 bytes."""
+    out (``banded_dp_warp_smem_bytes`` there): the cost stages (a row of 32
+    floats per padded type), the csum ring of K + 1 rows of B + 2K floats
+    and one row of +inf, the pair's A + 2 node offsets, per padded type 12
+    bytes of type table and tag and the 4-byte ring offsets of 64 steps,
+    the 8-byte forced pairs of 64 steps of 32 lanes, and the two flags;
+    each segment rounded up to 16 bytes."""
     ntp = warp_padded_types(B, n_types)
     return (
-        _round16(WARP_STAGES * ntp * B * 4)
+        WARP_STAGES * ntp * WARP_SIZE * 4
         + _round16((K + 2) * (B + 2 * K) * 4)
         + _round16((A + 2) * 4)
-        + (1 + 64) * ntp * 8
+        + ntp * (12 + 64 * 4)
+        + 64 * WARP_SIZE * 8
+        + 16
     )
 
 
