@@ -291,20 +291,28 @@ P64_SIZES = [(120 + (37 * k) % 200, 110 + (53 * k) % 190) for k in range(64)]
 # geometry the TPU kernel admits, at the main path's shapes where the main
 # path has them, and the edges of the warp route (B <= 32): 4-byte copies
 # (B = 6, and a misaligned cost tensor), fewer steps than cost stages,
-# padding rows, the first B past a warp, and T = 50 with its large stages
+# padding rows, every count of type quads its kernels are unrolled for
+# (1-5) and the loop kernel beyond, with the types split over two half-warps
+# (B <= 16, more than 8 types) and not, int32 backpointers, the first B
+# past a warp, and T = 50 with its large stages
 KERNEL_CASES = [
     ("default P=1 (T=15, B=16, K=6)", [(1200, 1100)], DEFAULT_TYPES, 8, "warp"),
     ("default P=8", P8_SIZES, DEFAULT_TYPES, 8, "warp"),
     ("default P=64, mixed sizes", P64_SIZES, DEFAULT_TYPES, 8, "warp"),
     ("coarse (T=1, K=2)", [(600, 550)], [(1, 1)], 8, "warp"),
-    ("a full warp (B=32)", [(400, 380), (90, 130)], DEFAULT_TYPES, 16, "warp"),
+    ("three types (T=3, two quads)", [(310, 290)], [(1, 1), (1, 2), (2, 1)], 8, "warp"),
+    ("ten types (T=10, two quads a half-warp)", [(250, 260)], DEFAULT_TYPES[:10], 8, "warp"),
+    ("twelve types at B=32 (four quads)", [(240, 200)], DEFAULT_TYPES[:12], 16, "warp"),
+    ("a full warp (B=32, five quads)", [(400, 380), (90, 130)], DEFAULT_TYPES, 16, "warp"),
     ("narrowest band (B=6, 4-byte copies)", [(200, 190), (50, 61)], DEFAULT_TYPES, 3, "warp"),
     ("misaligned costs (B=16, 4-byte copies)", [(210, 205)], DEFAULT_TYPES, 8, "warp"),
     ("tiny pairs (3, 2) and (1, 1)", [(3, 2), (1, 1)], DEFAULT_TYPES, 8, "warp"),
     ("one tiny pair (1, 1)", [(1, 1)], [(1, 1)], 3, "warp"),
+    ("int32 backpointers (a type offset of 130)", [(300, 20)], [(1, 1), (130, 1)], 8, "warp"),
     ("first band past a warp (B=34)", [(300, 280)], DEFAULT_TYPES, 17, "block"),
     ("wide band (B=140, K=3)", [(500, 450), (420, 470)], [(1, 1), (1, 2), (2, 1)], 70, "block"),
     ("many-to-one narrow (T=50, K=51, B=32)", [(300, 120), (100, 40)], MANY_TO_ONE_TYPES, 16, "warp"),
+    ("many-to-one narrow (T=50, K=51, B=16, half-warps)", [(280, 100)], MANY_TO_ONE_TYPES, 8, "warp"),
     ("many-to-one (T=50, K=51)", [(300, 120)], MANY_TO_ONE_TYPES, 30, "block"),
     ("many-to-one wide (ring in global memory)", [(150, 60)], MANY_TO_ONE_TYPES, 600, "block"),
 ]
@@ -587,7 +595,7 @@ def _chain_cycles_per_step(n_types):
     n_types candidates (a tree of ceil(log2 n_types) levels, a compare and
     a select each). The two constants are round figures for Hopper from
     published microbenchmarks of the H100 (shared-memory load latency about
-    30 cycles, dependent fp32 ALU issue about 4), not measured here."""
+    30 cycles, a dependent fp32 ALU operation about 4), not measured here."""
     depth = int(np.ceil(np.log2(n_types)))
     return 2 * SMEM_ACCESS_CYCLES + ALU_CYCLES + depth * 2 * ALU_CYCLES
 
@@ -693,23 +701,41 @@ def phase_times(stack, device):
     return totals
 
 
-def phase_bucket_times(device):
-    """The warp kernel on buckets of P = 1, 8 and 64 pairs at the stage
-    defaults (T = 15, B = 16), each padded to its longest pair, beside the
-    block kernel forced on the same inputs: pairs run side by side, so a
-    launch should take about what its longest pair takes alone."""
+# (label, pair sizes, types, width_over2) timed on both routes: buckets of
+# 1, 8 and 64 pairs at the stage defaults, and the other kernels of the warp
+# route (five quads of types at B = 32, 4-byte copies, the loop kernel)
+ROUTE_TIME_CASES = [
+    ("a bucket of 1", P8_SIZES[-1:], DEFAULT_TYPES, 8),
+    ("a bucket of 8", P8_SIZES, DEFAULT_TYPES, 8),
+    ("a bucket of 64", P64_SIZES, DEFAULT_TYPES, 8),
+    ("a full warp", [(400, 380)], DEFAULT_TYPES, 16),
+    ("narrowest band", [(200, 190)], DEFAULT_TYPES, 3),
+    ("many-to-one, B=32", [(300, 120)], MANY_TO_ONE_TYPES, 16),
+    ("many-to-one, B=16", [(280, 100)], MANY_TO_ONE_TYPES, 8),
+]
+
+
+def phase_route_times(device):
+    """The warp kernel beside the block kernel forced on the same inputs,
+    in turns, at ROUTE_TIME_CASES. Pairs of a bucket run side by side, so a
+    launch should take about what its longest pair takes alone. Fails if
+    the warp route, which the shape rule gives all of them, is the slower
+    one anywhere."""
     from svecalign_tpu_torch.ops import dp_cuda
 
     rng = np.random.default_rng(4242)
-    for sizes in (P8_SIZES[-1:], P8_SIZES, P64_SIZES):
-        args = _random_band_problem(rng, sizes, DEFAULT_TYPES, 8, device)
+    for label, sizes, types, w2 in ROUTE_TIME_CASES:
+        args = _random_band_problem(rng, sizes, types, w2, device)
         runs = [_cuda_time_ms(lambda: dp_cuda.banded_dp_cuda_batched(*args, route=r), reps=20)
                 for r in ("block", None, None, "block")]
         ms, block_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
         P, T, A, B = args[0].shape
-        _log(f"[time] banded_dp bucket P={P} (T={T} A={A} B={B}): warp kernel {ms:.4f} ms per "
+        _log(f"[time] banded_dp {label} (P={P} T={T} A={A} B={B}): warp kernel {ms:.4f} ms per "
              f"launch ({ms / (A + 2) * 1e3:.4f} us per anti-diagonal, {ms / P:.4f} ms per pair), "
              f"block kernel {block_ms:.4f} ms")
+        if ms > block_ms:
+            raise AssertionError(f"{label}: the warp route ({ms} ms) is slower than the block "
+                                 f"route ({block_ms} ms)")
 
 
 # ---------------------------------------------------------------------------
@@ -1108,7 +1134,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         stack, launches = phase_main_path(Path(td), N_SRC, N_TGT)
     t = phase_times(stack, device)
-    phase_bucket_times(device)
+    phase_route_times(device)
     if args.dp:
         _log(f"[done] banded-DP phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0

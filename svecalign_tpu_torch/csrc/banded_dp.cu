@@ -19,18 +19,19 @@
 // values depend on earlier steps; costs, offsets and types are known
 // before the first step. Two kernels, picked by shape in ops/dp_cuda.py:
 //
-// banded_dp_warp_kernel (B <= 32): one warp per pair, one CTA per warp,
-// lane b owns band lane b, so a step's barrier is a __syncwarp() and a
-// bucket of pairs spreads over the SMs (32 resident CTAs each). Every load
-// is taken off the dependent chain: the T cost rows of a step are copied
-// into a ring of DP_STAGES stages in shared memory by cp.async,
-// DP_STAGES - 1 steps before the wavefront reads them (one commit group
-// per step, empty where a step has no cost row), the pair's A + 2 node
-// offsets and the type table are loaded into shared memory once, and the
-// loop over anti-diagonals makes no global load. What is left per step is
-// one shared-memory write -> barrier -> read round trip, an add and a
-// minimum over the types (see the kernel for how the type loop is kept
-// free of tests and dependent loads).
+// banded_dp_warp_kernel (B <= 32): one compute warp per pair, lane b owns
+// band lane b, so a step's barrier is a __syncwarp(), and a bucket of pairs
+// spreads over the SMs (one 64-thread CTA per pair). A second warp, the
+// feeder, takes every load off the dependent chain: it copies the T cost
+// rows of a step into a ring of DP_STAGES stages in shared memory by
+// cp.async, steps ahead of the wavefront (one commit group per step, empty
+// where a step has no cost row), holds the pair's A + 2 node offsets and
+// the type table in shared memory, and prepares per step whatever does not
+// depend on earlier steps. The compute warp's loop over anti-diagonals
+// makes no global load: what is left per step is one shared-memory write
+// -> barrier -> read round trip, an add and a first minimum over the types
+// (see the kernel for how its step is kept free of tests, dependent loads
+// and address arithmetic).
 //
 // banded_dp_kernel (any B): one CTA per pair, threads across band lanes
 // (looping when B exceeds the block), costs and offsets read from global
@@ -174,10 +175,9 @@ __global__ void banded_dp_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int WARP = 32;
-// Cost stages in flight. A step's rows are requested DP_STAGES - 1 steps
-// ahead and must have landed one step before they are used: at 0.2-0.5 us
-// a step that is a few microseconds, several DRAM round trips.
-// ops/dp_cuda.py::WARP_STAGES mirrors it.
+// Cost stages: the feeder requests a step's rows at most DP_STAGES steps
+// ahead of the compute warp, a few microseconds at 0.2-0.3 us a step,
+// several DRAM round trips. ops/dp_cuda.py::WARP_STAGES mirrors it.
 constexpr int DP_STAGES = 16;
 static_assert((DP_STAGES & (DP_STAGES - 1)) == 0 && DP_STAGES >= 4, "power of two");
 
@@ -203,24 +203,30 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The minimum takes the types four at a time, and where two band rows fit
-// one warp (2 B <= 32) the types are split over its two halves: lanes
-// [0, B) take the first half of the types and lanes [B, 2B) the second, for
-// the same band lane, and one shuffle merges them. So the types are padded
-// to a multiple of 4 per half.
+// one warp (2 B <= 32) and there are more than 8 types, the types are split
+// over its two halves: lanes [0, B) take the first half of the types and
+// lanes [B, 2B) the second, for the same band lane, and one shuffle merges
+// them. So the types are padded to a multiple of 4 per half.
 constexpr int QUAD = 4;
-// What the feeder prepares per step (ring offsets, edge cells) is computed a
-// batch of WARP steps at a time and kept for two batches.
-constexpr int PREP_STEPS = 2 * WARP;
+// What the feeder prepares per step (ring offsets, forced cells) is
+// computed PREP_AHEAD steps before the step whose costs it requests, and
+// kept for PREP_STEPS steps.
+constexpr int PREP_AHEAD = 16;
+constexpr int PREP_STEPS = 32;
 // A stage row is ROW floats whatever B is, so that a lane's cost loads sit
 // at constant offsets from one base.
 constexpr int ROW = WARP;
 // The feeder confirms the rows of step s - FEED_LAG after it requests step
 // s: that many steps of copies are in flight. It runs at most DP_STAGES
 // steps ahead of the compute warp, which frees a stage two steps after it
-// used it, so DP_STAGES >= FEED_LAG + 3 or the two wait for each other.
-constexpr int FEED_LAG = 8;
-static_assert(DP_STAGES >= FEED_LAG + 3, "the feeder and the compute warp would deadlock");
-static_assert(PREP_STEPS >= 2 * DP_STAGES + WARP, "what unread steps need would be overwritten");
+// used it, and it moves FEED_BATCH steps at a time, so DP_STAGES >=
+// FEED_LAG + FEED_BATCH + 2 or the two wait for each other.
+constexpr int FEED_LAG = 4;
+constexpr int FEED_BATCH = 4;  // steps per turn of the feeder's loop
+static_assert(DP_STAGES >= FEED_LAG + FEED_BATCH + 2,
+              "the feeder and the compute warp would deadlock");
+static_assert(PREP_STEPS >= DP_STAGES + PREP_AHEAD && (PREP_STEPS & (PREP_STEPS - 1)) == 0,
+              "what unread steps need would be overwritten");
 
 // A backpointer pair as one tag: xo in the low 16 bits, yo in the high 16,
 // each signed (NEG_BP for an unreachable cell). NOT_FORCED is no such pair.
@@ -230,10 +236,14 @@ __host__ __device__ constexpr int make_tag(int xo, int yo) {
 constexpr int NEG_TAG = make_tag(NEG_BP, NEG_BP);
 constexpr int NOT_FORCED = 0x7fffffff;
 
-__host__ __device__ constexpr int lane_groups(int B) { return 2 * B <= WARP ? 2 : 1; }
+// Two lane groups where two band rows fit one warp and there are more than
+// two quads of types to split; fewer are not worth the shuffle.
+__host__ __device__ constexpr int lane_groups(int n_types, int B) {
+    return 2 * B <= WARP && n_types > 2 * QUAD ? 2 : 1;
+}
 
 __host__ __device__ constexpr int padded_types(int n_types, int B) {
-    const int m = QUAD * lane_groups(B);
+    const int m = QUAD * lane_groups(n_types, B);
     return (n_types + m - 1) / m * m;
 }
 
@@ -354,11 +364,12 @@ __device__ __forceinline__ int wait_flag(unsigned flag, int want, bool sleep) {
     return v;
 }
 
-// A value the compiler must keep in a register instead of recomputing it
-// from a special register or the constant bank in every step.
+// A value that must stay in a register. Left alone, the assembler
+// recomputes what it can from the constant bank or a special register
+// wherever it is used, and in a one-warp loop each such load is a stall of
+// tens of cycles. It cannot see through a shuffle.
 __device__ __forceinline__ int pinned(int v) {
-    asm volatile("mov.b32 %0, %0;\n" : "+r"(v));
-    return v;
+    return __shfl_sync(0xffffffffu, v, threadIdx.x & (WARP - 1));
 }
 
 __device__ __forceinline__ unsigned flag_address(const int* flag) {
@@ -368,9 +379,10 @@ __device__ __forceinline__ unsigned flag_address(const int* flag) {
 // Two warps per pair. Warp 0 computes; warp 1, the feeder, owns every load
 // from global memory and everything else that does not depend on earlier
 // steps, and runs ahead of it. One warp has nothing to overlap a dependent
-// instruction or a taken branch with (it issues an instruction every three
-// cycles or so here), so the step's time is its instruction count, and
-// every instruction taken out of the compute warp's step counts. What is
+// instruction or a taken branch with (it starts an instruction every three
+// cycles or so here), so the step's time follows its instruction count
+// and its chain of dependent loads, and every instruction taken out of the
+// compute warp's step counts. What is
 // left there, with n_types padded to NTP, is
 //
 //   cand_t = ring[roff_t + b] + stage[t][b]      for t < NTP
@@ -387,9 +399,8 @@ __device__ __forceinline__ unsigned flag_address(const int* flag) {
 //   finite or +inf.
 // - The ring offset roff_t = (((a - s_t) % R) * W + K + shift_t) * 4 bytes is
 //   the same for every lane and depends on the offsets and the types alone.
-//   The feeder computes it 32 steps at a time, lane l for one step and all
-//   its types. The types' packed (xo, yo) tags never change: the unrolled
-//   kernels keep them in registers.
+//   The feeder computes it, lane t for type t. The types' packed (xo, yo)
+//   tags never change: the unrolled kernels keep them in registers.
 // - Whether a cell is outside the node grid (+inf, NEG_BP), on the x = 0
 //   column (pen * y, (0, 1)) or on the y = 0 row (pen * x, (1, 0)) depends on
 //   the offsets alone too. The feeder leaves a forced (value, tag) pair per
@@ -404,13 +415,13 @@ __device__ __forceinline__ unsigned flag_address(const int* flag) {
 //   copies only) lane 0 sets `ready` = s - FEED_LAG. The compute warp waits
 //   for `ready` >= a + 1 before it reads the operands of step a + 1 (it
 //   keeps the value it saw, so it polls once in several steps), and sets
-//   `done` = a - 1 at the end of step a, a step after the last use of what
-//   it read of step a - 1; the feeder waits for `done` >= s - DP_STAGES
-//   before it overwrites a stage.
+//   `done` = a - 1 in step a, after the barrier that follows the last use
+//   of what it read of step a - 1; the feeder waits for `done` >=
+//   s - DP_STAGES before it overwrites a stage.
 // - In the unrolled kernels (NQ > 0) a step's operands, the ring offsets,
 //   the costs of the lane's types and the forced pair, are loaded into
 //   registers during the step before, and a step's global stores are made
-//   during the step after: both sit between the issue of the ring loads and
+//   during the step after: both sit between the start of the ring loads and
 //   the first add, where the warp would wait for shared memory anyway. What
 //   is left between the barrier and the ring write is the ring loads, the
 //   adds, the minimum and the selects. Two sets of operand registers take
@@ -442,7 +453,7 @@ __global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
     const int W = B + 2 * K;
     const int R = K + 1;
     const int a2 = A + 2;
-    const int G = pinned(lane_groups(B));
+    const int G = pinned(lane_groups(n_types, B));
     const int NTP = padded_types(n_types, B);
     const int nq = NTP / G / QUAD;  // quads of types per lane group
     const int stage_floats = NTP * ROW;
@@ -537,58 +548,56 @@ __global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
         };
         const int x_in = x_in_size[p];
         const int y_in = y_in_size[p];
-        // What steps base .. base + 31 (base a multiple of 32) need beside
-        // their costs, into the steps' slots.
-        auto prepare = [&](int base) {
-            {  // ring offsets: lane l for step base + l and all its types
-                const int an = base + lane;
-                const int bn = s_boff[min(an, a2 - 1)];
-                const int am = an % R;  // the step's ring row
-                int* out = s_roff + (an & (PREP_STEPS - 1)) * NTP;
-#pragma unroll 2
-                for (int t = 0; t < NTP; ++t) {
-                    const int2 ty = s_ty[t];
-                    const int s = ty.x + ty.y;
-                    int row = am - s;  // (an - s) % R, as s <= K < R
-                    row += row < 0 ? R : 0;
-                    int shift = bn - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
-                    shift = max(-K, min(K, shift));  // memory safety on bad offsets
-                    out[t] = (ty.x < 0 ? R * W : row * W + K + shift) * (int)sizeof(float);
-                }
+        // What step `an` needs beside its costs, into the step's slot; called
+        // for an = 0, 1, 2, ... in turn.
+        int prep_row = 0;  // an % R, the step's ring row
+        auto prepare = [&](int an) {
+            const int slot = an & (PREP_STEPS - 1);
+            const int bn = s_boff[min(an, a2 - 1)];
+            // ring offsets: lane t for types t, t + 32, ...
+            for (int t = lane; t < NTP; t += WARP) {
+                const int2 ty = s_ty[t];
+                const int sp = ty.x + ty.y;
+                int row = prep_row - sp;  // (an - sp) % R, as sp <= K < R
+                row += row < 0 ? R : 0;
+                int shift = bn - ty.y - s_boff[min(max(an - sp, 0), a2 - 1)];
+                shift = max(-K, min(K, shift));  // memory safety on bad offsets
+                s_roff[slot * NTP + t] =
+                    (ty.x < 0 ? R * W : row * W + K + shift) * (int)sizeof(float);
             }
-            // forced pairs: lane b for band lane b of each step
-#pragma unroll 2
-            for (int i = 0; i < WARP; ++i) {
-                const int an = base + i;
-                const int yy = s_boff[min(an, a2 - 1)] + lane;
-                const int xx = an - yy;
-                const bool cell_ok =
-                    (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
-                const bool edge_y = xx == 0 && (unsigned)yy <= (unsigned)y_in;
-                const bool edge_x = !edge_y && yy == 0 && (unsigned)xx <= (unsigned)x_in;
-                int2 forced = make_int2(0, NOT_FORCED);
-                if (!cell_ok) forced = make_int2(__float_as_int(CUDART_INF_F), NEG_TAG);
-                if (edge_y) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)yy)), make_tag(0, 1));
-                if (edge_x) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)xx)), make_tag(1, 0));
-                s_forced[(an & (PREP_STEPS - 1)) * WARP + lane] = forced;
-            }
+            // the forced pair of band lane `lane`
+            const int yy = bn + lane;
+            const int xx = an - yy;
+            const bool cell_ok =
+                (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
+            const bool edge_y = xx == 0 && (unsigned)yy <= (unsigned)y_in;
+            const bool edge_x = !edge_y && yy == 0 && (unsigned)xx <= (unsigned)x_in;
+            int2 forced = make_int2(0, NOT_FORCED);
+            if (!cell_ok) forced = make_int2(__float_as_int(CUDART_INF_F), NEG_TAG);
+            if (edge_y) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)yy)), make_tag(0, 1));
+            if (edge_x) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)xx)), make_tag(1, 0));
+            s_forced[slot * WARP + lane] = forced;
+            prep_row = prep_row + 1 == R ? 0 : prep_row + 1;
         };
 
-        prepare(0);
-        for (int s = 0; s < a2 + FEED_LAG; ++s) {
-            // stage s % DP_STAGES last served step s - DP_STAGES
-            if (s >= DP_STAGES) wait_flag(f_done, s - DP_STAGES, true);
-            request(s);
-            // Steps s + 16 .. s + 47, over what steps s - 48 .. s - 17
-            // needed: the compute warp is past step s - 16. They are
-            // confirmed with step s + 16 at the earliest, 24 steps on.
-            if ((s & (WARP - 1)) == WARP / 2) prepare(s + WARP / 2);
+        for (int an = 0; an < PREP_AHEAD; ++an) prepare(an);
+        // FEED_BATCH steps per turn, so that their dependent loads overlap
+        // and the wait and the flag are paid once.
+        for (int s = 0; s < a2 + FEED_LAG; s += FEED_BATCH) {
+            // stage s % DP_STAGES last served step s - DP_STAGES, and what
+            // step s + PREP_AHEAD - PREP_STEPS needed is overwritten
+            if (s + FEED_BATCH > DP_STAGES) wait_flag(f_done, s + FEED_BATCH - 1 - DP_STAGES, true);
+#pragma unroll
+            for (int i = 0; i < FEED_BATCH; ++i) request(s + i);
+#pragma unroll
+            for (int i = 0; i < FEED_BATCH; ++i) prepare(s + i + PREP_AHEAD);
             // all but the newest FEED_LAG groups complete: the rows of step
-            // s - FEED_LAG have landed, for this lane; the barrier makes that
-            // all lanes, and orders what every lane prepared before the flag
+            // s + FEED_BATCH - 1 - FEED_LAG have landed, for this lane; the
+            // barrier makes that all lanes, and orders what every lane
+            // prepared before the flag
             cp_async_wait<FEED_LAG>();
             __syncwarp();
-            if (lane == 0 && s >= FEED_LAG) st_flag(f_ready, s - FEED_LAG);
+            if (lane == 0) st_flag(f_ready, s + FEED_BATCH - 1 - FEED_LAG);
         }
         return;
     }
@@ -820,7 +829,7 @@ int banded_dp_warp_launch(const float* costs, const int* boff_out, const float* 
     const size_t smem = warp_smem_bytes(B, K, T, A, n_types);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
-    const int nq = padded_types(n_types, B) / lane_groups(B) / QUAD;
+    const int nq = padded_types(n_types, B) / lane_groups(n_types, B) / QUAD;
 #define WARP_LAUNCH(BP, CPB)                                                          \
     launch_warp_nq<BP, CPB>(nq, costs, boff_out, pens, x_in_size, y_in_size, type_off, \
                             n_types, T, P, A, B, K, csum, xp, yp, smem, st)

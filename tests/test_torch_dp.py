@@ -170,7 +170,7 @@ H100_SMEM_OPTIN = 232448  # bytes a block may opt in to on an H100
         (140, 3, 3, 951, H100_SMEM_OPTIN, "block"),
         (1200, 51, 50, 211, H100_SMEM_OPTIN, "block"),
         (16, 2**15, 1, 100, 2**40, "block"),  # a type offset past the tag's 16 bits
-        (16, 6, 15, 2303, 76 * 1024, "block"),  # stages + ring fit, the offsets row does not
+        (16, 6, 15, 2303, 64 * 1024, "block"),  # stages + ring fit, the offsets row does not
         (16, 6, 15, 60000, H100_SMEM_OPTIN, "block"),  # a path too long to hold on chip
     ],
 )
@@ -190,18 +190,19 @@ def test_warp_smem_bytes_layout():
     """Stages (a row of 32 floats per type, 17 padded to 24: two halves of a
     warp take 12 each), ring (K + 1 rows and one of +inf), offsets row rounded up to
     16 bytes, per padded type 12 bytes of type table and tag and the 4-byte
-    ring offsets of 64 steps, the forced pairs of 64 steps of 32 lanes and
+    ring offsets of 32 steps, the forced pairs of 32 steps of 32 lanes and
     16 bytes of flags, at the stage's final level (T = 15, B = 16, K = 6, A = 2303); at B = 32 one group of lanes
     takes all the types, 17 padded to 20."""
     assert dp_cuda.warp_padded_types(16, 17) == 24
     assert dp_cuda.warp_padded_types(32, 17) == 20
-    assert dp_cuda.warp_padded_types(16, 3) == 8
+    assert dp_cuda.warp_padded_types(16, 3) == 4  # too few types to split
+    assert dp_cuda.warp_padded_types(16, 9) == 16
     stages = dp_cuda.WARP_STAGES * 24 * 32 * 4
     ring = 8 * (16 + 12) * 4
     offsets = -(-(2305 * 4) // 16) * 16
-    types = 24 * (12 + 64 * 4) + 64 * 32 * 8
+    types = 24 * (12 + 32 * 4) + 32 * 32 * 8
     assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == stages + ring + offsets + types + 16
-    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == 49152 + 896 + 9232 + 22816 + 16
+    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == 49152 + 896 + 9232 + 11552 + 16
 
 
 @pytest.mark.parametrize("w2,sizes", [(8, [(20, 18), (7, 9)]), (16, [(15, 12)]), (3, [(9, 11)]),
