@@ -332,24 +332,21 @@ __device__ __forceinline__ void min_loop(const int4* r, const int4* tags, const 
     }
 }
 
-// The two progress flags live in shared memory and are read and written
-// with volatile accesses and no fence. A fence (MEMBAR) waits for the
-// thread's outstanding global stores and asynchronous copies, hundreds of
-// cycles a step, and is not needed here: shared memory is one memory per
-// SM that executes a warp's accesses in program order, so what was written
-// before the flag's store is there when another warp reads the flag and
-// then the data; `volatile` and the memory clobber keep the compiler from
-// moving accesses across the flag.
-// A flag is named by its 32-bit shared-memory address, taken once
-// (flag_address) and kept in a register.
+// The two progress flags live in shared memory. A flag is set with a
+// release store and read with an acquire load, both of CTA scope: what a
+// warp wrote (or, for asynchronous copies, waited for) before it set the
+// flag is visible to the warp that read the flag. The release is
+// cumulative, so lane 0 can set a flag for its whole warp after a
+// __syncwarp(). A flag is named by its 32-bit shared-memory address, taken
+// once (flag_address) and kept in a register.
 __device__ __forceinline__ int ld_flag(unsigned flag) {
     int v;
-    asm volatile("ld.volatile.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
+    asm volatile("ld.acquire.cta.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
     return v;
 }
 
 __device__ __forceinline__ void st_flag(unsigned flag, int v) {
-    asm volatile("st.volatile.shared.s32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
+    asm volatile("st.release.cta.shared.s32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
 }
 
 // Spin until the flag >= want and return what was read. A wait that
