@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
    counts show it went through the kernels, its output must equal a run
    with the plain DP, and it must recover the planted 1-1 pairs;
 4. time each kernel against its plain version and its bound at the main
-   path's shapes, and the stage-5.4 run by phase;
+   path's shapes, and the stage-5.4 run by phase; the banded DP's bound is
+   its chain of dependent steps, at latencies that a probe
+   (``csrc/chain_latency_probe.cu``) measures on the card;
 5. run the stage-5.3 CLI (``svecalign_tpu_torch.seg_align.embed``) with the
    full-width 24-layer SONAR encoder (bf16, random weights from a seed) on
    a synthetic 10-minute document written from a seed: the rel-key kernel
@@ -47,9 +49,13 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12  # bf16 dense tensor cores
 H100_SM_CLOCK_HZ = 1.98e9  # H100 SXM maximum SM clock, where the device's cannot be read
-# Cycles of the banded DP's dependent chain (see _bound_ms)
-SMEM_ACCESS_CYCLES = 30  # one shared-memory access, store or dependent load
-ALU_CYCLES = 4  # one dependent fp32 add, compare or select
+# Cycles of the banded DP's dependent chain (see _chain_cycles_per_step), as
+# phase_chain_latencies measured them on an NVIDIA H100 80GB HBM3 at 700 W
+# with csrc/chain_latency_probe.cu (a shuffle 26.00, a shared-memory store, barrier and
+# load 28.00, an fp32 operation 5.10); a run on a card measures anew and uses
+# its own, these serve where no card is at hand
+ROW_HANDOVER_CYCLES = 26.0  # a row from the lanes that wrote it to those that read it
+ALU_CYCLES = 5.1  # one dependent fp32 add, minimum or select
 DOC_SECONDS = 600  # the stage-5.3 document: 10 minutes of 16 kHz audio
 MIN_COSINE = 0.99  # kernel run vs plain-attention run, per .embed row
 
@@ -291,18 +297,18 @@ P64_SIZES = [(120 + (37 * k) % 200, 110 + (53 * k) % 190) for k in range(64)]
 # geometry the TPU kernel admits, at the main path's shapes where the main
 # path has them, and the edges of the warp route (B <= 32): 4-byte copies
 # (B = 6, and a misaligned cost tensor), fewer steps than cost stages,
-# padding rows, every count of type quads its kernels are unrolled for
-# (1-5) and the loop kernel beyond, with the types split over two half-warps
-# (B <= 16, more than 8 types) and not, int32 backpointers, the first B
-# past a warp, and T = 50 with its large stages
+# padding rows, the counts of type quads a lane group that its kernels are
+# unrolled for (1, 3, 5) and others, which its loop kernel takes, with the
+# types split over two half-warps (B <= 16) and not, int32 backpointers, the
+# first B past a warp, and T = 50 with its large stages
 KERNEL_CASES = [
     ("default P=1 (T=15, B=16, K=6)", [(1200, 1100)], DEFAULT_TYPES, 8, "warp"),
     ("default P=8", P8_SIZES, DEFAULT_TYPES, 8, "warp"),
     ("default P=64, mixed sizes", P64_SIZES, DEFAULT_TYPES, 8, "warp"),
     ("coarse (T=1, K=2)", [(600, 550)], [(1, 1)], 8, "warp"),
-    ("three types (T=3, two quads)", [(310, 290)], [(1, 1), (1, 2), (2, 1)], 8, "warp"),
-    ("ten types (T=10, two quads a half-warp)", [(250, 260)], DEFAULT_TYPES[:10], 8, "warp"),
-    ("twelve types at B=32 (four quads)", [(240, 200)], DEFAULT_TYPES[:12], 16, "warp"),
+    ("three types (T=3, one quad a half-warp)", [(310, 290)], [(1, 1), (1, 2), (2, 1)], 8, "warp"),
+    ("ten types (T=10, two quads a half-warp: loop kernel)", [(250, 260)], DEFAULT_TYPES[:10], 8, "warp"),
+    ("twelve types at B=32 (four quads: loop kernel)", [(240, 200)], DEFAULT_TYPES[:12], 16, "warp"),
     ("a full warp (B=32, five quads)", [(400, 380), (90, 130)], DEFAULT_TYPES, 16, "warp"),
     ("narrowest band (B=6, 4-byte copies)", [(200, 190), (50, 61)], DEFAULT_TYPES, 3, "warp"),
     ("misaligned costs (B=16, 4-byte copies)", [(210, 205)], DEFAULT_TYPES, 8, "warp"),
@@ -586,39 +592,95 @@ def phase_main_path(workdir, n_src, n_tgt):
     return stack, launches
 
 
-def _chain_cycles_per_step(n_types):
-    """Cycles one anti-diagonal must take however the kernel is written: a
-    row is a function of rows that other lanes computed, so each step
-    passes its row through shared memory (one store and one dependent
-    load, SMEM_ACCESS_CYCLES each; the barrier between them counted as
-    free), adds the cost (one ALU_CYCLES add) and takes a first minimum over
-    n_types candidates (a tree of ceil(log2 n_types) levels, a compare and
-    a select each). The two constants are round figures for Hopper from
-    published microbenchmarks of the H100 (shared-memory load latency about
-    30 cycles, a dependent fp32 ALU operation about 4), not measured here."""
-    depth = int(np.ceil(np.log2(n_types)))
-    return 2 * SMEM_ACCESS_CYCLES + ALU_CYCLES + depth * 2 * ALU_CYCLES
+def _chain_cycles_per_step(x_offsets, y_offsets, handover=ROW_HANDOVER_CYCLES,
+                           alu=ALU_CYCLES):
+    """Cycles that one anti-diagonal's result must follow the one before's
+    by, whatever the kernel: the length of the chain of dependent
+    operations from row a - 1 to row a. Only the candidates of span
+    xo + yo = 1 read row a - 1: the two deletions (0, 1) and (1, 0), which
+    every type set has, and any given type of that span. Every other
+    candidate reads rows a - 2 and older and can be reduced to one value
+    ahead of the step, off the chain. The chain is then: row a - 1 passes
+    from the lanes that wrote it to the lanes that read it (``handover``:
+    a warp shuffle, or a shared-memory store, barrier and load, whichever
+    the card does faster), one add of the cost, a minimum over the span-1
+    candidates and the one merged rest (a tree of ceil(log2(n + 1)) levels,
+    one minimum instruction a level: the winner's tag feeds no later step
+    and is selected beside the chain), and one select that puts the edge
+    and out-of-grid cells in. ``alu`` is the latency of one such dependent
+    fp32 operation. Both latencies are measured on the card by
+    phase_chain_latencies; the defaults are what it measured on an H100."""
+    n_span1 = 2 + sum(1 for x, y in zip(x_offsets, y_offsets) if x + y == 1)
+    depth = int(np.ceil(np.log2(n_span1 + 1)))
+    return handover + alu * (1 + depth + 1)
 
 
-def _bound_ms(P, T, A, B, n_types, bp_bytes, sm_clock_hz=H100_SM_CLOCK_HZ):
-    """Least time for the banded DP on these shapes, the largest of three:
-    bytes (every needed input read once: costs, node offsets, penalties,
-    sizes; every output written once: csum + two backpointer planes) at the
-    memory rate; operations (one add and one compare per cell and type) at
-    the fp32 rate; and latency, the A + 2 anti-diagonals one after the
-    other at _chain_cycles_per_step cycles each at ``sm_clock_hz`` (pairs
-    run side by side, so P does not enter). Returns (ms, "bytes",
-    "operations" or "latency")."""
+def _bound_ms(P, A, B, x_offsets, y_offsets, bp_bytes, sm_clock_hz=H100_SM_CLOCK_HZ,
+              handover=ROW_HANDOVER_CYCLES, alu=ALU_CYCLES):
+    """Least time for the banded DP of P pairs over A + 2 anti-diagonals of
+    B lanes with the given types (the two deletions are added to them),
+    the largest of three: bytes (every needed input read once: costs, node
+    offsets, penalties, sizes; every output written once: csum + two
+    backpointer planes) at the memory rate; operations (one add and one
+    compare per cell and type) at the fp32 rate; and latency, the A + 2
+    anti-diagonals one after the other at _chain_cycles_per_step cycles
+    each at ``sm_clock_hz`` (pairs run side by side, so P does not enter).
+    Returns (ms, "bytes", "operations" or "latency")."""
+    T = len(x_offsets)
+    n_types = T + 2
     read = P * (T * A * B * 4 + (A + 2) * 4 + 12) + 2 * n_types * 4
     write = P * (A + 2) * B * (4 + 2 * bp_bytes)
     ops = 2 * P * (A + 2) * B * n_types
+    step = _chain_cycles_per_step(x_offsets, y_offsets, handover, alu)
     bounds = {
         "bytes": (read + write) / H100_BYTES_PER_S * 1e3,
         "operations": ops / H100_FP32_OPS_PER_S * 1e3,
-        "latency": (A + 2) * _chain_cycles_per_step(n_types) / sm_clock_hz * 1e3,
+        "latency": (A + 2) * step / sm_clock_hz * 1e3,
     }
     by = max(bounds, key=bounds.get)
     return bounds[by], by
+
+
+PROBE_LINKS = 1 << 14  # dependent links per chain of the latency probe
+
+
+def phase_chain_latencies(device):
+    """The card's latencies, in SM cycles, of the operations on the banded
+    DP's step-to-step chain, from csrc/chain_latency_probe.cu: one dependent
+    fp32 operation, a warp shuffle, and a shared-memory store, barrier and
+    load. The least of five runs each (a chain cannot run faster than its
+    latency, only be disturbed). Returns (handover, alu): the cheaper way
+    to hand a row over, and the fp32 operation."""
+    import ctypes
+
+    import torch
+
+    from svecalign_tpu_torch.ops import _build
+
+    lib = _build.load("chain_latency_probe")
+    lib.chain_latency_probe.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.chain_latency_probe.restype = ctypes.c_int
+    cycles = torch.zeros(3, dtype=torch.int64, device=device)
+    sink = torch.zeros(96, dtype=torch.float32, device=device)
+    runs = []
+    for _ in range(5):
+        err = lib.chain_latency_probe(PROBE_LINKS, 1, 0.5, 1e30, cycles.data_ptr(),
+                                      sink.data_ptr(),
+                                      torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"chain_latency_probe launch failed: CUDA error {err}")
+        torch.cuda.synchronize()
+        runs.append(cycles.cpu().numpy() / PROBE_LINKS)
+    pair, shuffle, smem = np.min(runs, axis=0)
+    alu = pair / 2  # a link of the first chain is an add and a minimum
+    if not (0.5 < alu < 100 and 1 < shuffle < 1000 and 1 < smem < 1000):
+        raise AssertionError(f"implausible latencies: {alu}, {shuffle}, {smem} cycles")
+    _log(f"[probe] dependent chains of {PROBE_LINKS} links on this card, SM cycles per link: "
+         f"fp32 add or minimum {alu:.2f}, warp shuffle {shuffle:.2f}, shared-memory store + "
+         f"barrier + load {smem:.2f}")
+    return float(min(shuffle, smem)), float(alu)
 
 
 def _sm_clock_hz():
@@ -658,6 +720,7 @@ def phase_times(stack, device):
     from svecalign_tpu_torch.ops import dp_cuda
 
     clock = _sm_clock_hz()
+    handover, alu = phase_chain_latencies(device)
     totals = {"ms": 0.0, "block_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "bytes_bound_ms": 0.0, "err": 0.0}
     bound_by = set()
@@ -670,15 +733,15 @@ def phase_times(stack, device):
         ms, block_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
         plain = _cuda_time_ms(lambda: dp_ops.banded_dp_batched(*args), reps=3, warmup=1)
         P, T, A, B = args[0].shape
-        n_types = T + 2
-        bound, by = _bound_ms(P, T, A, B, n_types, 1, clock)
-        bytes_bound = (_bound_ms(P, T, A, B, n_types, 1, float("inf")))[0]
+        xo, yo = args[3], args[4]
+        bound, by = _bound_ms(P, A, B, xo, yo, 1, clock, handover, alu)
+        bytes_bound = _bound_ms(P, A, B, xo, yo, 1, float("inf"))[0]
         _log(f"[time] banded_dp depth {depth} (P={P} T={T} A={A} B={B}): warp kernel {ms:.4f} ms "
              f"({runs[1]:.4f}, {runs[2]:.4f}; {ms / (A + 2) * 1e3:.4f} us per anti-diagonal), "
              f"block kernel {block_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}; "
              f"{block_ms / (A + 2) * 1e3:.4f} us per anti-diagonal), plain {plain:.3f} ms, "
              f"bound {bound:.6f} ms ({by}: {A + 2} dependent steps of "
-             f"{_chain_cycles_per_step(n_types)} cycles at {clock / 1e6:.0f} MHz; by bytes or "
+             f"{_chain_cycles_per_step(xo, yo, handover, alu):.2f} cycles at {clock / 1e6:.0f} MHz; by bytes or "
              f"operations {bytes_bound:.6f} ms), kernel / bound {ms / bound:.2f}, err {err}")
         totals["ms"] += ms
         totals["block_ms"] += block_ms
@@ -703,7 +766,8 @@ def phase_times(stack, device):
 
 # (label, pair sizes, types, width_over2) timed on both routes: buckets of
 # 1, 8 and 64 pairs at the stage defaults, and the other kernels of the warp
-# route (five quads of types at B = 32, 4-byte copies, the loop kernel)
+# route (five quads of types at B = 32, 4-byte copies, the loop kernel at
+# 2, 4, 7 and 13 quads)
 ROUTE_TIME_CASES = [
     ("a bucket of 1", P8_SIZES[-1:], DEFAULT_TYPES, 8),
     ("a bucket of 8", P8_SIZES, DEFAULT_TYPES, 8),
@@ -712,6 +776,8 @@ ROUTE_TIME_CASES = [
     ("narrowest band", [(200, 190)], DEFAULT_TYPES, 3),
     ("many-to-one, B=32", [(300, 120)], MANY_TO_ONE_TYPES, 16),
     ("many-to-one, B=16", [(280, 100)], MANY_TO_ONE_TYPES, 8),
+    ("ten types, B=16", [(250, 260)], DEFAULT_TYPES[:10], 8),
+    ("twelve types, B=32", [(240, 200)], DEFAULT_TYPES[:12], 16),
 ]
 
 
@@ -1148,10 +1214,7 @@ def main(argv=None):
         "launches": launches["banded_dp"],
         "max_abs_err": max(check_err, t["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        # the chain of dependent steps is counted as operations at their
-        # latency; bound_kind says which of the three bounds it is
-        "bound_by": "bytes" if t["bound_by"] == "bytes" else "operations",
-        "bound_kind": t["bound_by"], "bytes_bound_ms": t["bytes_bound_ms"],
+        "bound_by": t["bound_by"], "bytes_bound_ms": t["bytes_bound_ms"],
         "block_route_ms": t["block_ms"], "library_ms": None,
     }, {
         "name": "relkey_attention", "route": "cuda",

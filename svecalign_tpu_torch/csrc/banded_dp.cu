@@ -19,19 +19,18 @@
 // values depend on earlier steps; costs, offsets and types are known
 // before the first step. Two kernels, picked by shape in ops/dp_cuda.py:
 //
-// banded_dp_warp_kernel (B <= 32): one compute warp per pair, lane b owns
-// band lane b, so a step's barrier is a __syncwarp(), and a bucket of pairs
-// spreads over the SMs (one 64-thread CTA per pair). A second warp, the
-// feeder, takes every load off the dependent chain: it copies the T cost
-// rows of a step into a ring of DP_STAGES stages in shared memory by
-// cp.async, steps ahead of the wavefront (one commit group per step, empty
-// where a step has no cost row), holds the pair's A + 2 node offsets and
-// the type table in shared memory, and prepares per step whatever does not
-// depend on earlier steps. The compute warp's loop over anti-diagonals
-// makes no global load: what is left per step is one shared-memory write
-// -> barrier -> read round trip, an add and a first minimum over the types
-// (see the kernel for how its step is kept free of tests, dependent loads
-// and address arithmetic).
+// banded_dp_warp_kernel (B <= 32): one warp per pair, one CTA per warp,
+// lane b owns band lane b, so a step's barrier is a __syncwarp() and a
+// bucket of pairs spreads over the SMs (32 resident CTAs each). Every load
+// is taken off the dependent chain: the T cost rows of a step are copied
+// into a ring of DP_STAGES stages in shared memory by cp.async,
+// DP_STAGES - 1 steps before the wavefront reads them (one commit group
+// per step, empty where a step has no cost row), the pair's A + 2 node
+// offsets and the type table are loaded into shared memory once, and the
+// loop over anti-diagonals makes no global load. What is left per step is
+// one shared-memory write -> barrier -> read round trip, an add and a
+// minimum over the types (see the kernel for how the type loop is kept
+// free of tests and dependent loads).
 //
 // banded_dp_kernel (any B): one CTA per pair, threads across band lanes
 // (looping when B exceeds the block), costs and offsets read from global
@@ -175,9 +174,10 @@ __global__ void banded_dp_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int WARP = 32;
-// Cost stages: the feeder requests a step's rows at most DP_STAGES steps
-// ahead of the compute warp, a few microseconds at 0.2-0.3 us a step,
-// several DRAM round trips. ops/dp_cuda.py::WARP_STAGES mirrors it.
+// Cost stages in flight. A step's rows are requested DP_STAGES - 1 steps
+// ahead and must have landed one step before they are used: at 0.2-0.5 us
+// a step that is a few microseconds, several DRAM round trips.
+// ops/dp_cuda.py::WARP_STAGES mirrors it.
 constexpr int DP_STAGES = 16;
 static_assert((DP_STAGES & (DP_STAGES - 1)) == 0 && DP_STAGES >= 4, "power of two");
 
@@ -203,47 +203,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The minimum takes the types four at a time, and where two band rows fit
-// one warp (2 B <= 32) and there are more than 8 types, the types are split
-// over its two halves: lanes [0, B) take the first half of the types and
-// lanes [B, 2B) the second, for the same band lane, and one shuffle merges
-// them. So the types are padded to a multiple of 4 per half.
+// one warp (2 B <= 32) the types are split over its two halves: lanes
+// [0, B) take the first half of the types and lanes [B, 2B) the second, for
+// the same band lane, and one shuffle merges them. So the types are padded
+// to a multiple of 4 per half.
 constexpr int QUAD = 4;
-// What the feeder prepares per step (ring offsets, forced cells) is
-// computed PREP_AHEAD steps before the step whose costs it requests, and
-// kept for PREP_STEPS steps.
-constexpr int PREP_AHEAD = 16;
-constexpr int PREP_STEPS = 32;
-// A stage row is ROW floats whatever B is, so that a lane's cost loads sit
-// at constant offsets from one base.
-constexpr int ROW = WARP;
-// The feeder confirms the rows of step s - FEED_LAG after it requests step
-// s: that many steps of copies are in flight. It runs at most DP_STAGES
-// steps ahead of the compute warp, which frees a stage two steps after it
-// used it, and it moves FEED_BATCH steps at a time, so DP_STAGES >=
-// FEED_LAG + FEED_BATCH + 2 or the two wait for each other.
-constexpr int FEED_LAG = 4;
-constexpr int FEED_BATCH = 4;  // steps per turn of the feeder's loop
-static_assert(DP_STAGES >= FEED_LAG + FEED_BATCH + 2,
-              "the feeder and the compute warp would deadlock");
-static_assert(PREP_STEPS >= DP_STAGES + PREP_AHEAD && (PREP_STEPS & (PREP_STEPS - 1)) == 0,
-              "what unread steps need would be overwritten");
+// Ring offsets are computed a batch of WARP steps at a time, lane l for
+// step base + l, and kept for two batches.
+constexpr int OFFSET_STEPS = 2 * WARP;
 
-// A backpointer pair as one tag: xo in the low 16 bits, yo in the high 16,
-// each signed (NEG_BP for an unreachable cell). NOT_FORCED is no such pair.
-__host__ __device__ constexpr int make_tag(int xo, int yo) {
-    return (int)(((unsigned)xo & 0xffffu) | ((unsigned)yo << 16));
-}
-constexpr int NEG_TAG = make_tag(NEG_BP, NEG_BP);
-constexpr int NOT_FORCED = 0x7fffffff;
-
-// Two lane groups where two band rows fit one warp and there are more than
-// two quads of types to split; fewer are not worth the shuffle.
-__host__ __device__ constexpr int lane_groups(int n_types, int B) {
-    return 2 * B <= WARP && n_types > 2 * QUAD ? 2 : 1;
-}
+__host__ __device__ constexpr int lane_groups(int B) { return 2 * B <= WARP ? 2 : 1; }
 
 __host__ __device__ constexpr int padded_types(int n_types, int B) {
-    const int m = QUAD * lane_groups(n_types, B);
+    const int m = QUAD * lane_groups(B);
     return (n_types + m - 1) / m * m;
 }
 
@@ -255,47 +227,22 @@ __device__ __forceinline__ void first_min(float& va, int& ta, float vb, int tb) 
     ta = later ? tb : ta;
 }
 
-// The ring value `roff` bytes from rng, the ring at this band lane.
-__device__ __forceinline__ float ring_at(const unsigned char* rng, int roff) {
-    return *reinterpret_cast<const float*>(rng + roff);
-}
-
-// A step's operands for one lane group of 4 * NQ contiguous types: their
-// ring offsets in bytes (four to an int4), their costs, and the cell's
-// forced (value bits, tag) pair.
+// First minimum over 4 * NQ contiguous types, unrolled: r holds their
+// (ring offset, tag) pairs, two to an int4, c their costs, rng is the ring
+// at this band lane. Every ring load is issued before the first use, and
+// the minimum is a tree over contiguous ranges in which the lower range
+// wins ties, which is the first minimum of a scan in type order.
 template <int NQ>
-struct Operands {
-    int4 r[NQ > 0 ? NQ : 1];
-    float c[NQ > 0 ? QUAD * NQ : 1];
-    int2 forced;
-};
-
-// The ring values of the types of `ops`; rng is the ring at this band lane.
-template <int NQ>
-__device__ __forceinline__ void load_ring(const Operands<NQ>& ops, const unsigned char* rng,
-                                          float (&prev)[QUAD * NQ]) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-        prev[4 * q] = ring_at(rng, ops.r[q].x);
-        prev[4 * q + 1] = ring_at(rng, ops.r[q].y);
-        prev[4 * q + 2] = ring_at(rng, ops.r[q].z);
-        prev[4 * q + 3] = ring_at(rng, ops.r[q].w);
-    }
-}
-
-// First minimum over the candidates prev + c, unrolled: a tree over
-// contiguous ranges in which the lower range wins ties, which is the first
-// minimum of a scan in type order.
-template <int NQ>
-__device__ __forceinline__ void min_unrolled(const float (&prev)[QUAD * NQ],
-                                             const float (&c)[QUAD * NQ],
-                                             const int (&tags)[QUAD * NQ], float& best, int& btag) {
+__device__ __forceinline__ void min_unrolled(const int4 (&r)[2 * NQ], const float (&c)[QUAD * NQ],
+                                             const float* rng, float& best, int& btag) {
     float v[QUAD * NQ];
     int tg[QUAD * NQ];
 #pragma unroll
-    for (int i = 0; i < QUAD * NQ; ++i) {
-        v[i] = __fadd_rn(prev[i], c[i]);
-        tg[i] = tags[i];
+    for (int i = 0; i < 2 * NQ; ++i) {
+        v[2 * i] = __fadd_rn(rng[r[i].x], c[2 * i]);
+        tg[2 * i] = r[i].y;
+        v[2 * i + 1] = __fadd_rn(rng[r[i].z], c[2 * i + 1]);
+        tg[2 * i + 1] = r[i].w;
     }
 #pragma unroll
     for (int stride = 1; stride < QUAD * NQ; stride *= 2) {
@@ -308,129 +255,73 @@ __device__ __forceinline__ void min_unrolled(const float (&prev)[QUAD * NQ],
     btag = tg[0];
 }
 
-// The same over any number nq of quads, as a loop: the offsets start at
-// r, the tags at tags, the cost rows at cst.
-__device__ __forceinline__ void min_loop(const int4* r, const int4* tags, const unsigned char* rng,
-                                         const float* cst, int nq, float& best, int& btag) {
+// The same over any number nq of quads, as a loop: the pairs start at rp,
+// the cost rows at cst, B floats apart.
+__device__ __forceinline__ void min_loop(const int4* rp, const float* rng, const float* cst,
+                                         int B, int nq, float& best, int& btag) {
     best = CUDART_INF_F;
     btag = 0;
 #pragma unroll 2
     for (int q = 0; q < nq; ++q) {
-        const int4 ro = r[q];
-        const int4 tq = tags[q];
-        const float* cq = cst + QUAD * q * ROW;
-        float c0 = __fadd_rn(ring_at(rng, ro.x), cq[0]);
-        const float c1 = __fadd_rn(ring_at(rng, ro.y), cq[ROW]);
-        float c2 = __fadd_rn(ring_at(rng, ro.z), cq[2 * ROW]);
-        const float c3 = __fadd_rn(ring_at(rng, ro.w), cq[3 * ROW]);
-        int t0 = tq.x;
-        int t2 = tq.z;
-        first_min(c0, t0, c1, tq.y);
-        first_min(c2, t2, c3, tq.w);
+        const int4 r01 = rp[2 * q];      // (roff, tag) of two types
+        const int4 r23 = rp[2 * q + 1];  // and of the next two
+        const float* cq = cst + QUAD * q * B;
+        float c0 = __fadd_rn(rng[r01.x], cq[0]);
+        const float c1 = __fadd_rn(rng[r01.z], cq[B]);
+        float c2 = __fadd_rn(rng[r23.x], cq[2 * B]);
+        const float c3 = __fadd_rn(rng[r23.z], cq[3 * B]);
+        int t0 = r01.y;
+        int t2 = r23.y;
+        first_min(c0, t0, c1, r01.w);
+        first_min(c2, t2, c3, r23.w);
         first_min(c0, t0, c2, t2);
         first_min(best, btag, c0, t0);
     }
 }
 
-// The two progress flags live in shared memory. A flag is set with a
-// release store and read with an acquire load, both of CTA scope: what a
-// warp wrote (or, for asynchronous copies, waited for) before it set the
-// flag is visible to the warp that read the flag. The release is
-// cumulative, so lane 0 can set a flag for its whole warp after a
-// __syncwarp(). A flag is named by its 32-bit shared-memory address, taken
-// once (flag_address) and kept in a register.
-__device__ __forceinline__ int ld_flag(unsigned flag) {
-    int v;
-    asm volatile("ld.acquire.cta.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void st_flag(unsigned flag, int v) {
-    asm volatile("st.release.cta.shared.s32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
-}
-
-// Spin until the flag >= want and return what was read. A wait that
-// outlasts some seconds traps: a launch error, not a hung card.
-__device__ __forceinline__ int wait_flag(unsigned flag, int want, bool sleep) {
-    int v = ld_flag(flag);
-    for (long long spins = 0; v < want; ++spins) {
-        if (sleep) __nanosleep(64);
-        if (spins > (1ll << 27)) __trap();
-        v = ld_flag(flag);
-    }
-    return v;
-}
-
-// A value that must stay in a register. Left alone, the assembler
-// recomputes what it can from the constant bank or a special register
-// wherever it is used, and in a one-warp loop each such load is a stall of
-// tens of cycles. It cannot see through a shuffle.
-__device__ __forceinline__ int pinned(int v) {
-    return __shfl_sync(0xffffffffu, v, threadIdx.x & (WARP - 1));
-}
-
-__device__ __forceinline__ unsigned flag_address(const int* flag) {
-    return (unsigned)pinned((int)__cvta_generic_to_shared(flag));
-}
-
-// Two warps per pair. Warp 0 computes; warp 1, the feeder, owns every load
-// from global memory and everything else that does not depend on earlier
-// steps, and runs ahead of it. One warp has nothing to overlap a dependent
-// instruction or a taken branch with (it starts an instruction every three
-// cycles or so here), so the step's time follows its instruction count
-// and its chain of dependent loads, and every instruction taken out of the
-// compute warp's step counts. What is
-// left there, with n_types padded to NTP, is
+// What a step does, with n_types padded to NTP:
 //
-//   cand_t = ring[roff_t + b] + stage[t][b]      for t < NTP
+//   cand_t = ring[roff_t + b] + stage[t * B + b]      for t < NTP
 //
-// a first minimum, four selects and the stores: no test per type, no
-// branch, no address arithmetic that depends on a load, no global load.
-// That takes these things.
+// and nothing else per type: no test, no branch, no address arithmetic
+// that depends on another load. That takes three things.
 // - Validity is in the data. A predecessor outside the document holds +inf
 //   in the ring (a cell outside the node grid is never written with
 //   anything else, a lane outside the band is the row's +inf padding, a row
 //   before the first is still as initialised), and +inf + cost is +inf, which
 //   never beats `best` under the strict '<'. So the per-type test of the
-//   predecessor's coordinates is dropped. No input makes a NaN: costs are
-//   finite or +inf.
-// - The ring offset roff_t = (((a - s_t) % R) * W + K + shift_t) * 4 bytes is
-//   the same for every lane and depends on the offsets and the types alone.
-//   The feeder computes it, lane t for type t. The types' packed (xo, yo)
-//   tags never change: the unrolled kernels keep them in registers.
-// - Whether a cell is outside the node grid (+inf, NEG_BP), on the x = 0
-//   column (pen * y, (0, 1)) or on the y = 0 row (pen * x, (1, 0)) depends on
-//   the offsets alone too. The feeder leaves a forced (value, tag) pair per
-//   step and lane, or NOT_FORCED, and the compute warp selects.
+//   predecessor's coordinates is dropped; the cell's own (cell_ok) is
+//   applied once after the minimum. No input makes a NaN: costs are finite
+//   or +inf.
+// - The ring offset roff_t = ((a - s_t) % R) * W + K + shift_t is the same
+//   for every lane, and depends on the offsets and the types alone, not on
+//   earlier steps. So every 32 steps the lanes compute it for the 32 steps
+//   after the next 32, lane l for one step and all its types, and leave it
+//   in shared memory beside each type's packed (xo, yo) tag: about ten
+//   instructions a step, against forty when each step computed the next
+//   one's.
+// - In the unrolled kernels (NQ > 0) a step's operands, the (roff, tag)
+//   pairs and the costs of the lane's types, are loaded into registers at
+//   the end of the step before: both are published early enough for that
+//   (the offsets as above; the cost stage because each lane waits for its
+//   copies of step a + 1 before the barrier of step a). What is left
+//   between the barrier and the ring write is the ring loads, the adds, the
+//   minimum and a few selects.
 // - The two deletion types read their cost, pen, from rows T and T + 1 of
 //   every stage, written once at set-up, so they are types like any other;
 //   the padding types read row R of the ring, all +inf, never written.
 //   Stages 0 and 1 start as +inf: steps 0 and 1 have no cost row.
-// - The feeder copies the T cost rows of step s into stage s % DP_STAGES by
-//   cp.async, one commit group per step, and after its wait for the group
-//   of step s - FEED_LAG and a __syncwarp() (a lane's wait covers its own
-//   copies only) lane 0 sets `ready` = s - FEED_LAG. The compute warp waits
-//   for `ready` >= a + 1 before it reads the operands of step a + 1 (it
-//   keeps the value it saw, so it polls once in several steps), and sets
-//   `done` = a - 1 in step a, after the barrier that follows the last use
-//   of what it read of step a - 1; the feeder waits for `done` >=
-//   s - DP_STAGES before it overwrites a stage.
-// - In the unrolled kernels (NQ > 0) a step's operands, the ring offsets,
-//   the costs of the lane's types and the forced pair, are loaded into
-//   registers during the step before, and a step's global stores are made
-//   during the step after: both sit between the start of the ring loads and
-//   the first add, where the warp would wait for shared memory anyway. What
-//   is left between the barrier and the ring write is the ring loads, the
-//   adds, the minimum and the selects. Two sets of operand registers take
-//   turns, so the loop is written two steps at a time.
-// - The lanes past the band run the whole step on lane 0's addresses and
-//   only skip the stores.
+// One warp has little to overlap a dependent instruction or a taken branch
+// with, so the step is kept short and straight: pointers advance by B a
+// step, the lane's band offset is carried from the step before, the copy
+// loop has the same trip count on every lane, and the lanes past the band
+// run the whole step on lane 0's addresses and only skip the stores.
 //
 // CPB: bytes per asynchronous copy, 16 where B % 4 == 0 and costs is
 // 16-byte aligned (every cost row then is), else 4. NQ: quads of types per
 // lane group, unrolled, or 0 for any number.
 template <typename BP, int CPB, int NQ>
-__global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
+__global__ void __launch_bounds__(WARP) banded_dp_warp_kernel(
     const float* __restrict__ costs,     // (P, T, A, B)
     const int* __restrict__ boff_out,    // (P, A + 2)
     const float* __restrict__ pens,      // (P,)
@@ -443,20 +334,17 @@ __global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
     BP* __restrict__ yp_out)             // (P, A + 2, B)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int tid = threadIdx.x;
-    const int lane = tid & (WARP - 1);
-    const bool feeder = tid >= WARP;
+    const int lane = threadIdx.x;
     const int p = blockIdx.x;
     const int W = B + 2 * K;
     const int R = K + 1;
     const int a2 = A + 2;
-    const int G = pinned(lane_groups(n_types, B));
+    const int G = lane_groups(B);
     const int NTP = padded_types(n_types, B);
     const int nq = NTP / G / QUAD;  // quads of types per lane group
-    const int stage_floats = NTP * ROW;
-    // layout, in 16-byte segments: cost stages | csum ring (R rows + one of
-    // +inf) | node offsets | types | tags | ring offsets of PREP_STEPS steps
-    // | forced pairs of PREP_STEPS steps | the two flags
+    const int stage_floats = NTP * B;
+    // layout: cost stages | csum ring (R rows + one of +inf) | node offsets
+    // | types | ring offsets and tags of OFFSET_STEPS steps (16-byte segments)
     float* s_cost = reinterpret_cast<float*>(smem_raw);
     float* ring = reinterpret_cast<float*>(
         smem_raw + round16((size_t)DP_STAGES * stage_floats * sizeof(float)));
@@ -464,260 +352,209 @@ __global__ void __launch_bounds__(2 * WARP) banded_dp_warp_kernel(
         reinterpret_cast<unsigned char*>(ring) + round16((size_t)(R + 1) * W * sizeof(float)));
     int2* s_ty = reinterpret_cast<int2*>(  // [NTP]: (xo, yo); padding types xo = -1
         reinterpret_cast<unsigned char*>(s_boff) + round16((size_t)a2 * sizeof(int)));
-    int* s_tag = reinterpret_cast<int*>(s_ty + NTP);  // [NTP]: make_tag(xo, yo)
-    int* s_roff = s_tag + NTP;                         // [PREP_STEPS][NTP], bytes
-    int2* s_forced = reinterpret_cast<int2*>(s_roff + PREP_STEPS * NTP);  // [PREP_STEPS][WARP]
-    int* s_flags = reinterpret_cast<int*>(s_forced + PREP_STEPS * WARP);
-    const unsigned f_ready = flag_address(s_flags);
-    const unsigned f_done = flag_address(s_flags + 1);
+    int2* s_rp = s_ty + NTP;  // [OFFSET_STEPS][NTP]: (roff, xo | yo << 16)
 
+    const int x_in = x_in_size[p];
+    const int y_in = y_in_size[p];
+    const int x_out = x_in + 1;
+    const int y_out = y_in + 1;
     const float pen = pens[p];
+    const float* cost_p = costs + (size_t)p * T * A * B;
 
-    // Set-up, by both warps. Stages 0 and 1 serve steps 0 and 1 first, which
-    // have no cost row: +inf there; the copies of steps 16 and 17 overwrite
-    // them later. Rows T.. of every stage: pen for the two deletions, 0 for
-    // the padding.
-    for (int i = tid; i < 2 * stage_floats; i += 2 * WARP) {
-        if (i % stage_floats < T * ROW) s_cost[i] = CUDART_INF_F;
-    }
-    for (int i = tid; i < DP_STAGES * (NTP - T) * ROW; i += 2 * WARP) {
-        const int d = i / ((NTP - T) * ROW);
-        const int r = i - d * (NTP - T) * ROW;
-        s_cost[d * stage_floats + T * ROW + r] = r < 2 * ROW ? pen : 0.0f;
-    }
-    for (int i = tid; i < (R + 1) * W; i += 2 * WARP) ring[i] = CUDART_INF_F;
-    const int* boff = boff_out + (size_t)p * a2;
-    for (int i = tid; i < a2; i += 2 * WARP) s_boff[i] = boff[i];
-    for (int i = tid; i < NTP; i += 2 * WARP) {
-        const int xo = i < n_types ? type_off[i] : -1;
-        const int yo = i < n_types ? type_off[n_types + i] : 0;
-        s_ty[i] = make_int2(xo, yo);
-        s_tag[i] = make_tag(xo, yo);
-    }
-    if (tid == 0) {
-        s_flags[0] = -1;
-        s_flags[1] = -1;
-    }
-    __syncthreads();
-
-    if (feeder) {
-        // Copies of one stage, spread over the 32 lanes: a cost row is cpr
-        // copies, a pass of the warp covers rows_pp rows. The first two
-        // passes are written out (the stage's T = 15 at B = 16 is two); the
-        // loop takes the rest.
-        constexpr int CPF = CPB / (int)sizeof(float);
-        const int cpr = B / CPF;
-        const int rows_pp = WARP / cpr;
-        const int r_sub = lane / cpr;
-        const int c_sub = lane - r_sub * cpr;
-        const bool copier = r_sub < rows_pp;
-        const int dst_lane = r_sub * ROW + c_sub * CPF;
-        const size_t src_pass = (size_t)rows_pp * A * B;
-        const int dst_pass = rows_pp * ROW;
-        const int n_pass = (T + rows_pp - 1) / rows_pp;
-        const bool copy0 = copier && r_sub < T;
-        const bool copy1 = copier && r_sub + rows_pp < T;
-        // the lane's first source of the next step to request; step 2 reads row 0
-        const float* src_next = costs + (size_t)p * T * A * B + (size_t)r_sub * A * B + c_sub * CPF;
-
-        // Request the cost rows of anti-diagonal `step` (row step - 2 of
-        // each type) into stage step % DP_STAGES, and commit one group for
-        // the step whether or not it copies, so that group g is step g's.
-        auto request = [&](int step) {
-            if (step >= 2 && step < a2) {
-                const float* src = src_next;
-                float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
-                if (copy0) cp_async<CPB>(dst, src);
-                if (copy1) cp_async<CPB>(dst + dst_pass, src + src_pass);
-                if (n_pass > 2) {
-                    src += 2 * src_pass;
-                    dst += 2 * dst_pass;
-#pragma unroll 1
-                    for (int t = r_sub + 2 * rows_pp; t < T; t += rows_pp) {
-                        if (copier) cp_async<CPB>(dst, src);
-                        src += src_pass;
-                        dst += dst_pass;
-                    }
-                }
-                src_next += B;
-            }
-            cp_async_commit();
-        };
-        const int x_in = x_in_size[p];
-        const int y_in = y_in_size[p];
-        // What step `an` needs beside its costs, into the step's slot; called
-        // for an = 0, 1, 2, ... in turn.
-        int prep_row = 0;  // an % R, the step's ring row
-        auto prepare = [&](int an) {
-            const int slot = an & (PREP_STEPS - 1);
-            const int bn = s_boff[min(an, a2 - 1)];
-            // ring offsets: lane t for types t, t + 32, ...
-            for (int t = lane; t < NTP; t += WARP) {
-                const int2 ty = s_ty[t];
-                const int sp = ty.x + ty.y;
-                int row = prep_row - sp;  // (an - sp) % R, as sp <= K < R
-                row += row < 0 ? R : 0;
-                int shift = bn - ty.y - s_boff[min(max(an - sp, 0), a2 - 1)];
-                shift = max(-K, min(K, shift));  // memory safety on bad offsets
-                s_roff[slot * NTP + t] =
-                    (ty.x < 0 ? R * W : row * W + K + shift) * (int)sizeof(float);
-            }
-            // the forced pair of band lane `lane`
-            const int yy = bn + lane;
-            const int xx = an - yy;
-            const bool cell_ok =
-                (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
-            const bool edge_y = xx == 0 && (unsigned)yy <= (unsigned)y_in;
-            const bool edge_x = !edge_y && yy == 0 && (unsigned)xx <= (unsigned)x_in;
-            int2 forced = make_int2(0, NOT_FORCED);
-            if (!cell_ok) forced = make_int2(__float_as_int(CUDART_INF_F), NEG_TAG);
-            if (edge_y) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)yy)), make_tag(0, 1));
-            if (edge_x) forced = make_int2(__float_as_int(__fmul_rn(pen, (float)xx)), make_tag(1, 0));
-            s_forced[slot * WARP + lane] = forced;
-            prep_row = prep_row + 1 == R ? 0 : prep_row + 1;
-        };
-
-        for (int an = 0; an < PREP_AHEAD; ++an) prepare(an);
-        // FEED_BATCH steps per turn, so that their dependent loads overlap
-        // and the wait and the flag are paid once.
-        for (int s = 0; s < a2 + FEED_LAG; s += FEED_BATCH) {
-            // stage s % DP_STAGES last served step s - DP_STAGES, and what
-            // step s + PREP_AHEAD - PREP_STEPS needed is overwritten
-            if (s + FEED_BATCH > DP_STAGES) wait_flag(f_done, s + FEED_BATCH - 1 - DP_STAGES, true);
-#pragma unroll
-            for (int i = 0; i < FEED_BATCH; ++i) request(s + i);
-#pragma unroll
-            for (int i = 0; i < FEED_BATCH; ++i) prepare(s + i + PREP_AHEAD);
-            // all but the newest FEED_LAG groups complete: the rows of step
-            // s + FEED_BATCH - 1 - FEED_LAG have landed, for this lane; the
-            // barrier makes that all lanes, and orders what every lane
-            // prepared before the flag
-            cp_async_wait<FEED_LAG>();
-            __syncwarp();
-            if (lane == 0) st_flag(f_ready, s + FEED_BATCH - 1 - FEED_LAG);
-        }
-        return;
-    }
-
-    // The compute warp. Lane group g takes types [g * 4 nq, (g + 1) * 4 nq)
-    // of band lane b. Lanes past the groups shadow lane 0.
+    // Lane group g takes types [g * 4 nq, (g + 1) * 4 nq) of band lane b.
+    // Lanes past the groups shadow lane 0.
     int g = lane / B;
     int b = lane - g * B;
     if (g >= G) g = b = 0;
-    const int writer = pinned(lane < B);
-    const int lead = pinned(lane == 0);
-    const int Bv = pinned(B);
-    const int last = pinned(a2 - 1);
+    const bool writer = lane < B;
     float* csum_w = csum + (size_t)p * a2 * B + b;
     BP* xp_w = xp_out + (size_t)p * a2 * B + b;
     BP* yp_w = yp_out + (size_t)p * a2 * B + b;
-    const unsigned char* rng = reinterpret_cast<const unsigned char*>(ring + b);
-    // where this step's ring row is written; wraps after row R - 1
-    float* ring_w = ring + K + b;
-    float* const ring_w_end = ring_w + R * W;
-    const int Wv = pinned(W);
 
-    const int group_first = g * nq * QUAD;  // the lane group's first type
-    auto offsets_of = [&](int step) {
-        return reinterpret_cast<const int4*>(s_roff + (step & (PREP_STEPS - 1)) * NTP + group_first);
+    // Copies of one stage, spread over all 32 lanes: a cost row is cpr
+    // copies, a pass of the warp covers rows_pp rows.
+    constexpr int CPF = CPB / (int)sizeof(float);
+    const int cpr = B / CPF;
+    const int rows_pp = WARP / cpr;
+    const int r_sub = lane / cpr;
+    const int c_sub = lane - r_sub * cpr;
+    const bool copier = r_sub < rows_pp;
+    const int dst_lane = r_sub * B + c_sub * CPF;
+    const size_t src_pass = (size_t)rows_pp * A * B;
+    const int dst_pass = rows_pp * B;
+    // the lane's first source of the next step to request; step 2 reads row 0
+    const float* src_next = cost_p + (size_t)r_sub * A * B + c_sub * CPF;
+
+    // Request the cost rows of anti-diagonal `step` (row step - 2 of each
+    // type) into stage step % DP_STAGES, and commit one group for the step
+    // whether or not it copies, so that group g is always step g's.
+    // The first two passes are written out (the stage's T = 15 at B = 16
+    // is two); the loop takes the rest.
+    const int n_pass = (T + rows_pp - 1) / rows_pp;
+    const bool copy0 = copier && r_sub < T;
+    const bool copy1 = copier && r_sub + rows_pp < T;
+    auto request = [&](int step) {
+        if (step >= 2 && step < a2) {
+            const float* src = src_next;
+            float* dst = s_cost + (step & (DP_STAGES - 1)) * stage_floats + dst_lane;
+            if (copy0) cp_async<CPB>(dst, src);
+            if (copy1) cp_async<CPB>(dst + dst_pass, src + src_pass);
+            if (n_pass > 2) {
+                src += 2 * src_pass;
+                dst += 2 * dst_pass;
+#pragma unroll 1
+                for (int t = r_sub + 2 * rows_pp; t < T; t += rows_pp) {
+                    if (copier) cp_async<CPB>(dst, src);
+                    src += src_pass;
+                    dst += dst_pass;
+                }
+            }
+            src_next += B;
+        }
+        cp_async_commit();
     };
-    auto costs_of = [&](int step) {
-        return s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * ROW + b;
-    };
-    constexpr int NC = NQ > 0 ? QUAD * NQ : 1;
-    int tags[NC];  // of the lane's types (the unrolled kernels only)
-    if constexpr (NQ > 0) {
-#pragma unroll
-        for (int i = 0; i < NC; ++i) tags[i] = s_tag[group_first + i];
+
+    // Stages 0 and 1 serve steps 0 and 1 first, which have no cost row:
+    // +inf there; the copies of steps 16 and 17 overwrite them later.
+    for (int i = lane; i < 2 * stage_floats; i += WARP) {
+        if (i % stage_floats < T * B) s_cost[i] = CUDART_INF_F;
     }
-    auto load_operands = [&](int step, Operands<NQ>& ops) {
-        ops.forced = s_forced[(step & (PREP_STEPS - 1)) * WARP + b];
+    // rows T.. of every stage: pen for the two deletions, 0 for the padding
+    for (int i = lane; i < DP_STAGES * (NTP - T) * B; i += WARP) {
+        const int d = i / ((NTP - T) * B);
+        const int r = i - d * (NTP - T) * B;
+        s_cost[d * stage_floats + T * B + r] = r < 2 * B ? pen : 0.0f;
+    }
+    for (int step = 0; step < DP_STAGES - 1; ++step) request(step);
+
+    for (int i = lane; i < (R + 1) * W; i += WARP) ring[i] = CUDART_INF_F;
+    const int* boff = boff_out + (size_t)p * a2;
+    for (int i = lane; i < a2; i += WARP) s_boff[i] = boff[i];
+
+    for (int i = lane; i < NTP; i += WARP) {
+        s_ty[i] = i < n_types ? make_int2(type_off[i], type_off[n_types + i])
+                              : make_int2(-1, 0);
+    }
+    __syncwarp();
+    // Ring offsets and tags of steps base .. base + 31 (base a multiple of
+    // 32), lane l for step base + l and all its types, into their slots of
+    // s_rp.
+    auto publish = [&](int base) {
+        const int an = base + lane;
+        const int bn = s_boff[min(an, a2 - 1)];
+        const int am = an % R;  // the step's ring row
+        int2* out = s_rp + (an & (OFFSET_STEPS - 1)) * NTP;
+#pragma unroll 2
+        for (int t = 0; t < NTP; ++t) {
+            const int2 ty = s_ty[t];
+            const int s = ty.x + ty.y;
+            int row = am - s;  // (an - s) % R, as s <= K < R
+            row += row < 0 ? R : 0;
+            int shift = bn - ty.y - s_boff[min(max(an - s, 0), a2 - 1)];
+            shift = max(-K, min(K, shift));  // memory safety on bad offsets
+            out[t] = make_int2(ty.x < 0 ? R * W : row * W + K + shift, ty.x | (ty.y << 16));
+        }
+    };
+    publish(0);
+    publish(WARP);
+
+    // A step's operands in registers (the unrolled kernels only).
+    constexpr int NR = NQ > 0 ? 2 * NQ : 1;
+    constexpr int NC = NQ > 0 ? QUAD * NQ : 1;
+    int4 opr[NR];
+    float opc[NC];
+    const int group_first = g * nq * QUAD;  // the lane group's first type
+    auto load_operands = [&](int step) {
         if constexpr (NQ > 0) {
-            const int4* ro = offsets_of(step);
-            const float* cst = costs_of(step);
+            const int4* rp = reinterpret_cast<const int4*>(
+                s_rp + (step & (OFFSET_STEPS - 1)) * NTP + group_first);
+            const float* cst =
+                s_cost + (step & (DP_STAGES - 1)) * stage_floats + group_first * B + b;
 #pragma unroll
-            for (int i = 0; i < NQ; ++i) ops.r[i] = ro[i];
+            for (int i = 0; i < NR; ++i) opr[i] = rp[i];
 #pragma unroll
-            for (int i = 0; i < NC; ++i) ops.c[i] = cst[i * ROW];
+            for (int i = 0; i < NC; ++i) opc[i] = cst[i * B];
         }
     };
-    int ready = wait_flag(f_ready, 0, false);
-    // the cell of the step before, stored a step late
-    float out_val = 0.0f;
-    int out_tag = 0;
-    auto store_out = [&]() {
-        if (writer) {  // fire and forget: nothing reads these back
-            *csum_w = out_val;
-            *xp_w = (BP)(short)(out_tag & 0xffff);
-            *yp_w = (BP)(out_tag >> 16);
-        }
-        csum_w += Bv;
-        xp_w += Bv;
-        yp_w += Bv;
-    };
+    // Step 0's operands: its stage is +inf and pen from the set-up stores,
+    // its offsets were published above.
+    __syncwarp();
+    load_operands(0);
 
-    // One step: `cur` holds its operands, `next` takes those of step aa + 1.
-    auto step = [&](int aa, const Operands<NQ>& cur, Operands<NQ>& next) {
-        // The ring row written at step aa - 1 becomes visible to all lanes,
-        // and the reads of step aa - 1 are ordered before this step's ring
-        // write, which lands in a row that step aa - 1 could still read only
-        // if the ring had K rows (it has K + 1), and before the store of
-        // `done` below.
+    int cur = 0;  // aa % R
+    for (int aa = 0; aa < a2; ++aa) {
+        // Groups 0 .. aa + DP_STAGES - 2 are committed; all but the newest
+        // DP_STAGES - 3 complete means group aa + 1, the next step's, has
+        // landed: it is read at the end of this step.
+        cp_async_wait<DP_STAGES - 3>();
+        // A lane's wait covers its own copies only. This barrier makes every
+        // lane's copies of stage aa + 1, and the ring row and any offsets
+        // written at step aa - 1, visible to all lanes, and it orders the
+        // reads of step aa - 1 before what follows: the request below
+        // overwrites stage (aa - 1) % DP_STAGES, publish (every 32 steps)
+        // overwrites the offsets of steps aa - 32 .. aa - 1, and this step's
+        // ring write lands in a row that step aa - 1 could still read only
+        // if the ring had K rows (it has K + 1).
         __syncwarp();
-        float prev[NC];
-        if constexpr (NQ > 0) load_ring<NQ>(cur, rng, prev);
+        request(aa + DP_STAGES - 1);
 
-        // In the shadow of the ring loads: the stores of step aa - 1, and the
-        // operands of step aa + 1. Steps up to aa - 1 are done with their
-        // stage and slots: every lane read step aa - 1's before this step's
-        // barrier at the latest (the loop kernel reads step aa's below).
-        if (aa > 0) store_out();
-        if (lead) st_flag(f_done, aa - 1);
-        if (aa < last) {
-            if (ready <= aa) ready = wait_flag(f_ready, aa + 1, false);
-            load_operands(aa + 1, next);
-        }
+        // what does not wait for the minimum
+        const int yy = s_boff[aa] + b;
+        const int xx = aa - yy;
+        const bool cell_ok = (unsigned)(xx - 1) < (unsigned)x_in && (unsigned)(yy - 1) < (unsigned)y_in;
+        const bool edge_y = xx == 0 && (unsigned)yy < (unsigned)y_out;
+        const bool edge_x = !edge_y && yy == 0 && (unsigned)xx < (unsigned)x_out;
+        const bool edge = edge_y || edge_x;
+        const float edge_val = __fmul_rn(pen, (float)(edge_y ? yy : xx));
 
         float best;
         int btag;
         if constexpr (NQ > 0) {
-            min_unrolled<NQ>(prev, cur.c, tags, best, btag);
+            min_unrolled<NQ>(opr, opc, ring + b, best, btag);
         } else {
-            min_loop(offsets_of(aa), reinterpret_cast<const int4*>(s_tag + group_first), rng,
-                     costs_of(aa), nq, best, btag);
+            min_loop(reinterpret_cast<const int4*>(
+                         s_rp + (aa & (OFFSET_STEPS - 1)) * NTP + group_first), ring + b,
+                     s_cost + (aa & (DP_STAGES - 1)) * stage_floats + group_first * B + b, B, nq,
+                     best, btag);
         }
         if (G == 2) {  // the upper half of the types, from lane b + B
-            const float other = __shfl_down_sync(0xffffffffu, best, Bv);
-            const int other_tag = __shfl_down_sync(0xffffffffu, btag, Bv);
+            const float other = __shfl_down_sync(0xffffffffu, best, B);
+            const int other_tag = __shfl_down_sync(0xffffffffu, btag, B);
             first_min(best, btag, other, other_tag);
         }
-        // an unreachable cell keeps +inf and gets NEG_BP; a forced cell takes
-        // the feeder's pair
-        const bool is_forced = cur.forced.y != NOT_FORCED;
-        out_tag = best < CUDART_INF_F ? btag : NEG_TAG;
-        out_tag = is_forced ? cur.forced.y : out_tag;
-        out_val = is_forced ? __int_as_float(cur.forced.x) : best;
-        if (writer) *ring_w = out_val;
-        ring_w += Wv;
-        if (ring_w == ring_w_end) ring_w -= R * W;
-    };
-
-    Operands<NQ> even, odd;
-    load_operands(0, even);
-    for (int aa = 0; aa <= last; aa += 2) {
-        step(aa, even, odd);
-        if (aa < last) step(aa + 1, odd, even);
+        // unreachable: +inf / NEG_BP; then the x = 0 column (0, 1) and the
+        // y = 0 row (1, 0)
+        const bool reach = cell_ok && best < CUDART_INF_F;
+        float val = reach ? best : CUDART_INF_F;
+        int bxp = reach ? (btag & 0xffff) : NEG_BP;
+        int byp = reach ? (btag >> 16) : NEG_BP;
+        val = edge ? edge_val : val;
+        bxp = edge ? (int)edge_x : bxp;
+        byp = edge ? (int)edge_y : byp;
+        if (writer) {
+            ring[cur * W + K + b] = val;
+            // fire and forget: nothing reads these back
+            *csum_w = val;
+            *xp_w = (BP)bxp;
+            *yp_w = (BP)byp;
+        }
+        csum_w += B;
+        xp_w += B;
+        yp_w += B;
+        load_operands(aa + 1);
+        cur = cur + 1 == R ? 0 : cur + 1;
+        // steps aa .. aa + 31 are published; now the 32 after them
+        if ((aa & (WARP - 1)) == 0 && aa > 0) publish(aa + WARP);
     }
-    store_out();
+    cp_async_wait<0>();
 }
 
 size_t warp_smem_bytes(int B, int K, int T, int A, int n_types) {
     const int NTP = padded_types(n_types, B);
-    return round16((size_t)DP_STAGES * NTP * ROW * sizeof(float)) +
+    return round16((size_t)DP_STAGES * NTP * B * sizeof(float)) +
            round16((size_t)(K + 2) * (B + 2 * K) * sizeof(float)) +
            round16((size_t)(A + 2) * sizeof(int)) +
-           (size_t)NTP * (sizeof(int2) + sizeof(int) + PREP_STEPS * sizeof(int)) +
-           (size_t)PREP_STEPS * WARP * sizeof(int2) + 16;
+           (size_t)(1 + OFFSET_STEPS) * NTP * sizeof(int2);
 }
 
 template <typename BP, int CPB, int NQ>
@@ -729,21 +566,20 @@ cudaError_t launch_warp(const float* costs, const int* boff_out, const float* pe
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    banded_dp_warp_kernel<BP, CPB, NQ><<<P, 2 * WARP, smem, st>>>(
+    banded_dp_warp_kernel<BP, CPB, NQ><<<P, WARP, smem, st>>>(
         costs, boff_out, pens, x_in_size, y_in_size, type_off, n_types, T, A, B, K,
         csum, (BP*)xp, (BP*)yp);
     return cudaGetLastError();
 }
 
-// The unrolled kernels cover 1 to 5 quads of types per lane group (the
-// stage's T = 15 is 3 at B <= 16 and 5 above, T = 1 is 1); NQ = 0 the rest.
+// The unrolled kernels cover the quads of types per lane group that the
+// stage's type sets give: T = 1 is 1, T = 15 is 3 at B <= 16 and 5 above.
+// The loop kernel (NQ = 0) takes every other count.
 template <typename BP, int CPB, typename... Args>
 cudaError_t launch_warp_nq(int nq, Args... args) {
     switch (nq) {
         case 1: return launch_warp<BP, CPB, 1>(args...);
-        case 2: return launch_warp<BP, CPB, 2>(args...);
         case 3: return launch_warp<BP, CPB, 3>(args...);
-        case 4: return launch_warp<BP, CPB, 4>(args...);
         case 5: return launch_warp<BP, CPB, 5>(args...);
         default: return launch_warp<BP, CPB, 0>(args...);
     }
@@ -826,7 +662,7 @@ int banded_dp_warp_launch(const float* costs, const int* boff_out, const float* 
     const size_t smem = warp_smem_bytes(B, K, T, A, n_types);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
-    const int nq = padded_types(n_types, B) / lane_groups(n_types, B) / QUAD;
+    const int nq = padded_types(n_types, B) / lane_groups(B) / QUAD;
 #define WARP_LAUNCH(BP, CPB)                                                          \
     launch_warp_nq<BP, CPB>(nq, costs, boff_out, pens, x_in_size, y_in_size, type_off, \
                             n_types, T, P, A, B, K, csum, xp, yp, smem, st)

@@ -9,12 +9,10 @@ traffic; see the source for the design.
 The source holds two kernels and :func:`banded_dp_route` picks one by
 shape alone:
 
-- ``"warp"``: one compute warp per pair, and a second warp that copies
-  the cost rows into shared memory ``WARP_STAGES`` stages deep, steps ahead
-  of the wavefront, and prepares whatever does not depend on earlier steps;
-  the pair's offsets row is held on chip too, so the compute warp's loop
-  over anti-diagonals makes no global load. For B <= 32 when its shared
-  memory fits.
+- ``"warp"``: one warp per pair, the cost rows staged ``WARP_STAGES``
+  steps ahead of the wavefront in shared memory and the pair's offsets
+  row held there too, so the loop over anti-diagonals makes no global
+  load. For B <= 32 when its shared memory fits.
 - ``"block"``: one thread block per pair, threads looping over band
   lanes, the ring in global scratch when it does not fit on chip. The
   general route.
@@ -41,8 +39,8 @@ ROUTES = ("warp", "block")
 LAUNCHES = {KERNEL: 0, **{f"{KERNEL}_{r}": 0 for r in ROUTES}}
 
 WARP_SIZE = 32
-# cost stages of the warp route (DP_STAGES in the source): the copy warp
-# runs at most that many steps ahead of the wavefront
+# cost stages of the warp route (DP_STAGES in the source): a step's rows
+# are requested WARP_STAGES - 1 steps before the wavefront reads them
 WARP_STAGES = 16
 
 _P = ctypes.c_void_p
@@ -93,28 +91,25 @@ def _round16(n: int) -> int:
 
 def warp_padded_types(B: int, n_types: int) -> int:
     """The warp route's type count: where two band rows fit one warp
-    (2 B <= 32) and there are more than 8 types, the types are split over
-    its two halves, and each half takes them four at a time."""
-    m = 4 * (2 if 2 * B <= WARP_SIZE and n_types > 8 else 1)
+    (2 B <= 32) the types are split over its two halves, and each half
+    takes them four at a time."""
+    m = 4 * (2 if 2 * B <= WARP_SIZE else 1)
     return -(-n_types // m) * m
 
 
 def warp_smem_bytes(B: int, K: int, T: int, A: int, n_types: int) -> int:
     """Dynamic shared memory of the warp route, as the source lays it
-    out (``banded_dp_warp_smem_bytes`` there): the cost stages (a row of 32
-    floats per padded type), the csum ring of K + 1 rows of B + 2K floats
-    and one row of +inf, the pair's A + 2 node offsets, per padded type 12
-    bytes of type table and tag and the 4-byte ring offsets of 32 steps,
-    the 8-byte forced pairs of 32 steps of 32 lanes, and the two flags;
-    each segment rounded up to 16 bytes."""
+    out (``banded_dp_warp_smem_bytes`` there): the cost stages (a row per
+    padded type), the csum ring of K + 1 rows of B + 2K floats and one row
+    of +inf, the pair's A + 2 node offsets, and per padded type 8 bytes of
+    type table and the 8-byte ring offsets of 64 steps; each segment
+    rounded up to 16 bytes."""
     ntp = warp_padded_types(B, n_types)
     return (
-        WARP_STAGES * ntp * WARP_SIZE * 4
+        _round16(WARP_STAGES * ntp * B * 4)
         + _round16((K + 2) * (B + 2 * K) * 4)
         + _round16((A + 2) * 4)
-        + ntp * (12 + 32 * 4)
-        + 32 * WARP_SIZE * 8
-        + 16
+        + (1 + 64) * ntp * 8
     )
 
 

@@ -170,7 +170,7 @@ H100_SMEM_OPTIN = 232448  # bytes a block may opt in to on an H100
         (140, 3, 3, 951, H100_SMEM_OPTIN, "block"),
         (1200, 51, 50, 211, H100_SMEM_OPTIN, "block"),
         (16, 2**15, 1, 100, 2**40, "block"),  # a type offset past the tag's 16 bits
-        (16, 6, 15, 2303, 64 * 1024, "block"),  # stages + ring fit, the offsets row does not
+        (16, 6, 15, 2303, 44 * 1024, "block"),  # stages + ring fit, the offsets row does not
         (16, 6, 15, 60000, H100_SMEM_OPTIN, "block"),  # a path too long to hold on chip
     ],
 )
@@ -187,22 +187,20 @@ def test_banded_dp_route_by_shape(B, K, T, A, smem_optin, want):
 
 
 def test_warp_smem_bytes_layout():
-    """Stages (a row of 32 floats per type, 17 padded to 24: two halves of a
-    warp take 12 each), ring (K + 1 rows and one of +inf), offsets row rounded up to
-    16 bytes, per padded type 12 bytes of type table and tag and the 4-byte
-    ring offsets of 32 steps, the forced pairs of 32 steps of 32 lanes and
-    16 bytes of flags, at the stage's final level (T = 15, B = 16, K = 6, A = 2303); at B = 32 one group of lanes
+    """Stages (a row per type, 17 padded to 24: two halves of a warp take
+    12 each), ring (K + 1 rows and one of +inf), offsets row rounded up to
+    16 bytes, and 65 8-byte entries per padded type (the type table and
+    the ring offsets of 64 steps), at the stage's final level (T = 15, B = 16, K = 6, A = 2303); at B = 32 one group of lanes
     takes all the types, 17 padded to 20."""
     assert dp_cuda.warp_padded_types(16, 17) == 24
     assert dp_cuda.warp_padded_types(32, 17) == 20
-    assert dp_cuda.warp_padded_types(16, 3) == 4  # too few types to split
-    assert dp_cuda.warp_padded_types(16, 9) == 16
-    stages = dp_cuda.WARP_STAGES * 24 * 32 * 4
+    assert dp_cuda.warp_padded_types(16, 3) == 8
+    stages = dp_cuda.WARP_STAGES * 24 * 16 * 4
     ring = 8 * (16 + 12) * 4
     offsets = -(-(2305 * 4) // 16) * 16
-    types = 24 * (12 + 32 * 4) + 32 * 32 * 8
-    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == stages + ring + offsets + types + 16
-    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == 49152 + 896 + 9232 + 11552 + 16
+    types = 65 * 24 * 8
+    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == stages + ring + offsets + types
+    assert dp_cuda.warp_smem_bytes(16, 6, 15, 2303, 17) == 24576 + 896 + 9232 + 12480
 
 
 @pytest.mark.parametrize("w2,sizes", [(8, [(20, 18), (7, 9)]), (16, [(15, 12)]), (3, [(9, 11)]),
@@ -224,27 +222,45 @@ def test_wrapper_on_cpu_takes_the_plain_version(w2, sizes):
     assert set(before) == {"banded_dp", "banded_dp_warp", "banded_dp_block"}
 
 
-@pytest.mark.parametrize("T,A,n_cycles", [(15, 2303, 104), (1, 1153, 80)])
-def test_banded_dp_bound_is_the_dependent_chain(T, A, n_cycles):
+@pytest.mark.parametrize("types,A,n_cycles", [(DEFAULT_TYPES, 2303, 46.4), ([(1, 1)], 1153, 46.4)])
+def test_banded_dp_bound_is_the_dependent_chain(types, A, n_cycles):
     """chip_smoke's bound at the stage's two banded levels (P = 1, B = 16):
-    A + 2 steps of one shared-memory store and load (30 cycles each), one
-    add (4) and a minimum tree over T + 2 types (8 a level) at the SM
-    clock; far above the bytes and the operations, which it must still
-    report when the clock is taken out."""
+    A + 2 steps of one row handover (26 cycles, a shuffle on an H100), one
+    add, a two-level minimum over the two deletions and the merged rest,
+    and one select (5.1 cycles each) at the SM clock. The types of span 2
+    and more are off the chain, so T = 15 and T = 1 cost the same a step.
+    It is far above the bytes and the operations, which the function must
+    still report when the clock is taken out."""
     from chip_smoke import (H100_BYTES_PER_S, H100_FP32_OPS_PER_S, _bound_ms,
                             _chain_cycles_per_step)
 
-    n_types, B = T + 2, 16
-    assert _chain_cycles_per_step(n_types) == n_cycles
-    ms, by = _bound_ms(1, T, A, B, n_types, 1, sm_clock_hz=1.98e9)
+    xo, yo = [x for x, _ in types], [y for _, y in types]
+    T, n_types, B = len(types), len(types) + 2, 16
+    assert _chain_cycles_per_step(xo, yo) == pytest.approx(n_cycles)
+    ms, by = _bound_ms(1, A, B, xo, yo, 1, sm_clock_hz=1.98e9)
     assert by == "latency"
     assert ms == pytest.approx((A + 2) * n_cycles / 1.98e9 * 1e3, rel=1e-12)
     nbytes = T * A * B * 4 + (A + 2) * 4 + 12 + 2 * n_types * 4 + (A + 2) * B * 6
     ops = 2 * (A + 2) * B * n_types
-    ms_rest, by_rest = _bound_ms(1, T, A, B, n_types, 1, sm_clock_hz=float("inf"))
+    ms_rest, by_rest = _bound_ms(1, A, B, xo, yo, 1, sm_clock_hz=float("inf"))
     assert by_rest == "bytes"
     assert ms_rest == pytest.approx(nbytes / H100_BYTES_PER_S * 1e3, rel=1e-12)
     assert ms_rest > ops / H100_FP32_OPS_PER_S * 1e3
-    assert ms > 50 * ms_rest
-    # a bucket of pairs runs side by side: the chain does not grow with P
-    assert _bound_ms(64, T, A, B, n_types, 1, sm_clock_hz=1.98e9)[0] == pytest.approx(ms)
+    assert ms > 20 * ms_rest
+    # a bucket of pairs runs side by side: the chain does not grow with P,
+    # the bytes do and take over in the end
+    assert _bound_ms(8, A, B, xo, yo, 1, sm_clock_hz=1.98e9) == (pytest.approx(ms), "latency")
+    ms_many, by_many = _bound_ms(1024, A, B, xo, yo, 1, sm_clock_hz=1.98e9)
+    assert by_many == "bytes" and ms_many > 2 * ms
+
+
+def test_chain_counts_only_the_types_that_read_the_last_row():
+    """A given type of span 1 joins the two deletions on the chain (three
+    candidates and the rest: still two levels; four: three levels); the
+    measured latencies replace the defaults."""
+    from chip_smoke import _chain_cycles_per_step
+
+    assert _chain_cycles_per_step([1, 2], [1, 1]) == pytest.approx(26 + 5.1 * 4)
+    assert _chain_cycles_per_step([1, 1], [1, 0]) == pytest.approx(26 + 5.1 * 4)
+    assert _chain_cycles_per_step([1, 0, 1], [0, 1, 1]) == pytest.approx(26 + 5.1 * 5)
+    assert _chain_cycles_per_step([1], [1], handover=30.0, alu=5.0) == 30 + 5 * 4
