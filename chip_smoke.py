@@ -6,14 +6,22 @@ Phases, in order; any failure exits non-zero:
    (one nvcc per source, all at once) and print the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card, in
-   every geometry its TPU original admits;
+   every geometry its original admits: the banded DP (both routes), the
+   dense DP and the dense walk on ragged buckets, the banded walk on every
+   banded case's planes, the rel-key attention;
 3. run the stage-5.4 CLI (``svecalign_tpu_torch.seg_align.align``) on a
    synthetic hour-scale plenary pair written from a seed: the launch
    counts show it went through the kernels, its output must equal a run
-   with the plain DP, and it must recover the planted 1-1 pairs;
+   with the plain DP, and it must recover the planted 1-1 pairs; then the
+   same CLI with ``--pair_batch 8`` on 16 such pairs of mixed sizes (the
+   batched aligner): launches are counted per bucket and level, not per
+   pair, no DP plane is pulled, every pair is covered in order with its
+   planted pairs recovered; and at library level a ``sampling="paired"``
+   bucket must equal one per-pair run per pair;
 4. time each kernel against its plain version and its bound at the main
-   path's shapes, and the stage-5.4 run by phase; the banded DP's bound is
-   its chain of dependent steps, at latencies that a probe
+   paths' shapes, both stage-5.4 runs by phase, and the traceback walks on
+   the card against pull + host walk in turns; the DPs' and walks' latency
+   bounds are chains of dependent steps, at latencies that a probe
    (``csrc/chain_latency_probe.cu``) measures on the card;
 5. run the stage-5.3 CLI (``svecalign_tpu_torch.seg_align.embed``) with the
    full-width 24-layer SONAR encoder (bf16, random weights from a seed) on
@@ -24,8 +32,8 @@ Phases, in order; any failure exits non-zero:
    each of the run's buckets against SDPA and its bound (and against its
    plain version at the modal bucket).
 
-``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 for the banded
-DP alone (no SONAR model is built) and prints its ``[time]`` lines;
+``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
+alone: no SONAR model is built) and prints their ``[time]`` lines;
 ``--profile`` profiles one warm stage-5.3 run instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
@@ -34,6 +42,7 @@ port, torch and numpy.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -58,6 +67,7 @@ ROW_HANDOVER_CYCLES = 26.0  # a row from the lanes that wrote it to those that r
 ALU_CYCLES = 5.1  # one dependent fp32 add, minimum or select
 DOC_SECONDS = 600  # the stage-5.3 document: 10 minutes of 16 kHz audio
 MIN_COSINE = 0.99  # kernel run vs plain-attention run, per .embed row
+MIN_RECALL = 0.95  # of a synthetic pair's planted 1-1 alignments
 
 
 # ---------------------------------------------------------------------------
@@ -80,14 +90,17 @@ def _plant_alignment(rng, n_src, n_tgt):
     return blocks
 
 
-def write_synthetic_pair(root, n_src=N_SRC, n_tgt=N_TGT, dim=1024, seed=0, n_ignore=0):
+def write_synthetic_pair(root, n_src=N_SRC, n_tgt=N_TGT, dim=1024, seed=0, n_ignore=0,
+                         stem=STEM):
     """Write one synthetic document pair in the stage-5.4 input layout:
     ``root/metadata.tsv``, ``segments/{lang}/``, ``cat_segs/{lang}/``
     (concat lines for overlaps up to 5, as ``-a 6`` reads), ``embeds/{lang}/``
     (stopes ``.embed``: fp16 .npy rows) and, when ``n_ignore`` > 0,
     ``ignore/{src}-{tgt}/`` untranslated-concat ids. Overlap embeddings
     are noisy sums of per-segment content vectors built from a planted
-    monotone alignment. Returns (paths dict, planted alignment)."""
+    monotone alignment. ``stem`` names the pair's files; the metadata file
+    is rewritten to hold this pair alone (``paths["audio"]`` is its line's
+    two entries). Returns (paths dict, planted alignment)."""
     from svecalign_tpu_torch.utils.embedding_utils import write_stopes_embedding
 
     max_overlaps, noise = 5, 0.5
@@ -105,7 +118,7 @@ def write_synthetic_pair(root, n_src=N_SRC, n_tgt=N_TGT, dim=1024, seed=0, n_ign
     paths = {"root": root, "metadata": root / "metadata.tsv"}
     audio = []
     for side, (lang, n) in enumerate(((SRC_LANG, n_src), (TGT_LANG, n_tgt))):
-        name = f"{STEM}_{lang}"
+        name = f"{stem}_{lang}"
         audio.append(f"raw_audios/{lang}/{name}.ogg")
         durs = rng.integers(16000, 200000, n)
         gaps = rng.integers(800, 16000, n)
@@ -134,10 +147,27 @@ def write_synthetic_pair(root, n_src=N_SRC, n_tgt=N_TGT, dim=1024, seed=0, n_ign
                 rng.integers(0, n - max_overlaps, n_ignore),
                 rng.integers(0, max_overlaps, n_ignore))})
             tag = "src" if side == 0 else "tgt"
-            (d / f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}.{tag}.txt").write_text(
+            (d / f"{stem}_{SRC_LANG}-{stem}_{TGT_LANG}.{tag}.txt").write_text(
                 "".join(f"{i} {j}\n" for i, j in ign), encoding="utf-8")
+    paths["audio"] = tuple(audio)
     paths["metadata"].write_text("\t".join(audio) + "\n", encoding="utf-8")
     return paths, blocks
+
+
+def write_synthetic_corpus(root, sizes, dim=1024, seed=100, n_ignore=0):
+    """Write one pair per (n_src, n_tgt) of ``sizes`` into one stage-5.4
+    input tree (stems ``{STEM}-00``, ``-01``, ...; seeds ``seed``,
+    ``seed + 1``, ...) and a metadata file that lists them all. Returns
+    (paths dict, [stem], [planted alignment])."""
+    stems, planted, lines = [], [], []
+    for k, (n_src, n_tgt) in enumerate(sizes):
+        stems.append(f"{STEM}-{k:02d}")
+        paths, blocks = write_synthetic_pair(root, n_src, n_tgt, dim, seed + k, n_ignore,
+                                             stem=stems[-1])
+        planted.append(blocks)
+        lines.append("\t".join(paths["audio"]) + "\n")
+    paths["metadata"].write_text("".join(lines), encoding="utf-8")
+    return paths, stems, planted
 
 
 def cli_argv(paths, out_dir, device, extra=()):
@@ -155,8 +185,8 @@ def cli_argv(paths, out_dir, device, extra=()):
     return argv + list(extra)
 
 
-def output_path(out_dir):
-    return Path(out_dir) / f"{SRC_LANG}-{TGT_LANG}" / f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}.txt"
+def output_path(out_dir, stem=STEM):
+    return Path(out_dir) / f"{SRC_LANG}-{TGT_LANG}" / f"{stem}_{SRC_LANG}-{stem}_{TGT_LANG}.txt"
 
 
 # ---------------------------------------------------------------------------
@@ -221,10 +251,11 @@ def _graph_time_ms(fn, reps=20, replays=5):
     return start.elapsed_time(stop) / (reps * replays)
 
 
-def _random_band_problem(rng, sizes, types, w2, device):
+def _random_band_problem(rng, sizes, types, w2, device, a_pad=0):
     """Batched banded-DP inputs for pairs of (n, m) sizes on random
-    monotone search paths, padded to one A as the batched driver pads
-    them; costs in quarter steps and pen = 0.5 force exact ties."""
+    monotone search paths, padded to one A (the longest path, or ``a_pad``
+    if that is longer) as the batched aligner pads them; costs in quarter
+    steps and pen = 0.5 force exact ties."""
     import torch
 
     from svecalign_tpu_torch.ops import costs as costs_ops
@@ -241,7 +272,7 @@ def _random_band_problem(rng, sizes, types, w2, device):
         cost = np.round(rng.uniform(0, 2, (T, len(b_off), B)) * 4) / 4
         probs.append((cost.astype(np.float32), b_off, n, m))
     P = len(sizes)
-    A = max(c.shape[1] for c, *_ in probs)
+    A = max(a_pad, max(c.shape[1] for c, *_ in probs))
     costs = np.full((P, T, A, B), np.inf, np.float32)
     boff_in = np.zeros((P, A), np.int32)
     boff_out = np.zeros((P, A + 2), np.int32)
@@ -497,6 +528,148 @@ def phase_kernel_checks(device):
             _log(f"[check] banded_dp {name}: P={P} T={T} A={A} B={B} K={K} {route} route"
                  + (f" ({smem} bytes of shared memory)" if route == "warp" else "")
                  + (" (forced)" if forced else "") + f" ok (max abs err {err})")
+        _check_banded_walk(name, got, args[2], args[6], args[7])
+    return max_err
+
+
+def _max_abs_diff(got, want):
+    """Largest |got - want| over the cells where ``want`` is finite."""
+    import torch
+
+    fin = torch.isfinite(want.double())
+    if not bool(fin.any()):
+        return 0.0
+    return float((got.double()[fin] - want.double()[fin]).abs().max())
+
+
+def _assert_all_equal(what, got, want):
+    """Every emitted array equal to the plain version's in dtype and value.
+    Returns the measured max abs difference over all of them (0.0 where it
+    does not raise)."""
+    import torch
+
+    err = max(_max_abs_diff(g, w) for g, w in zip(got, want))
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{what}: emitted array {k} differs from the plain version's "
+                                 f"(max abs difference over all arrays {err})")
+    return err
+
+
+def _check_banded_walk(name, planes, boff_out, x_sizes, y_sizes):
+    """The banded walk kernel on a banded DP's planes: every emitted array
+    equal to the plain walk's, and the alignments and scores rebuilt from
+    the path equal to the host walk's on the pulled planes."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dp as dp_ops
+    from svecalign_tpu_torch.ops import traceback_cuda
+    from svecalign_tpu_torch.vecalign.traceback import (
+        sparse_alignments_from_steps, sparse_traceback)
+
+    got = traceback_cuda.banded_traceback_walk_cuda(*planes, boff_out, x_sizes, y_sizes)
+    torch.cuda.synchronize()
+    want = dp_ops.banded_traceback_walk(*planes, boff_out, x_sizes, y_sizes)
+    _assert_all_equal(f"banded_traceback_walk {name}", got, want)
+    steps = [t.cpu().numpy() for t in got]
+    csum, xp, yp = (t.cpu().numpy() for t in planes)
+    for i in range(xp.shape[0]):
+        a_dev, s_dev = sparse_alignments_from_steps(*(t[i] for t in steps))
+        a_host, s_host = sparse_traceback(
+            csum[i].astype(np.float64), xp[i], yp[i], boff_out[i].cpu().numpy(),
+            int(x_sizes[i]), int(y_sizes[i]))
+        if a_dev != a_host or not np.array_equal(s_dev, s_host):
+            raise AssertionError(f"banded_traceback_walk {name}: pair {i} differs from the host walk")
+    _log(f"[check] banded_traceback_walk {name}: P={xp.shape[0]} steps={xp.shape[1]} "
+         f"{xp.dtype} pointers: five arrays equal, alignments and scores equal to the host walk's")
+
+
+P8_DENSE_SIZES = [(300 - 17 * k, 275 - 11 * ((5 * k) % 8)) for k in range(8)]
+# (name, pair sizes; the bucket is padded to the largest of each side):
+# the main path's 300 x 275, N != M either way, a side of 1, the smallest
+# pair, a side longer than a block has threads, a diagonal longer than a
+# block has threads (looped over), and a ragged bucket with distinct pens
+DENSE_CASES = [
+    ("300 x 275 (the main path's, P = 1)", [(300, 275)]),
+    ("N < M", [(40, 57)]),
+    ("N > M", [(130, 31)]),
+    ("N = 1", [(1, 30)]),
+    ("M = 1", [(30, 1)]),
+    ("(1, 1)", [(1, 1)]),
+    ("a side over the block's threads (1500 x 40)", [(1500, 40)]),
+    ("a diagonal over the block's threads (1100 x 1300)", [(1100, 1300)]),
+    ("P = 8, ragged sizes, distinct pens", P8_DENSE_SIZES),
+    ("P = 3 with an empty side and a (1, 1)", [(0, 7), (1, 1), (12, 9)]),
+]
+
+
+def _dense_problem(rng, sizes, device, ties=True, pad=(0, 0)):
+    """A bucket's dense-DP inputs: costs (P, N, M) padded to the largest
+    pair (or to ``pad`` where that is larger), distinct pens, sizes. Costs
+    in quarter steps and pens in eighths make exact ties common."""
+    import torch
+
+    P = len(sizes)
+    N, M = max(pad[0], max(n for n, _ in sizes)), max(pad[1], max(m for _, m in sizes))
+    costs = rng.uniform(0, 2, (P, N, M)).astype(np.float32)
+    pens = rng.uniform(0.2, 0.9, P).astype(np.float32)
+    if ties:
+        costs, pens = np.round(costs * 4) / 4, np.round(pens * 8) / 8
+    return (torch.from_numpy(costs).to(device), torch.from_numpy(pens).to(device),
+            torch.tensor([n for n, _ in sizes], dtype=torch.int32, device=device),
+            torch.tensor([m for _, m in sizes], dtype=torch.int32, device=device))
+
+
+def phase_dense_checks(device):
+    """The dense-DP kernel against dense_dp_batched in every case of
+    DENSE_CASES (bp and csum equal exactly, on each pair's rectangle and
+    outside it), then the dense walk kernel on those planes against the
+    plain walk and the host walk. Returns the measured max abs csum error
+    over the finite cells of all cases."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dense_dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import dp as dp_ops
+    from svecalign_tpu_torch.vecalign.traceback import dense_alignments_from_steps, dense_traceback
+
+    rng = np.random.default_rng(2468)
+    max_err = 0.0
+    for name, sizes in DENSE_CASES:
+        for ties in (True, False):
+            args = _dense_problem(rng, sizes, device, ties)
+            before = dense_dp_cuda.LAUNCHES["dense_dp"]
+            csum, bp = dense_dp_cuda.dense_dp_cuda(*args, with_csum=True)
+            none, bp_only = dense_dp_cuda.dense_dp_cuda(*args)
+            torch.cuda.synchronize()
+            if dense_dp_cuda.LAUNCHES["dense_dp"] != before + 2:
+                raise AssertionError("two launches expected")
+            want_csum, want_bp = dp_ops.dense_dp_batched(*args)
+            if none is not None or not torch.equal(bp_only, bp):
+                raise AssertionError(f"dense_dp {name}: the run without csum differs")
+            if not torch.equal(bp, want_bp):
+                raise AssertionError(f"dense_dp {name}: bp differs in "
+                                     f"{int((bp != want_bp).sum())} nodes")
+            err = _max_abs_diff(csum, want_csum)
+            max_err = max(max_err, err)
+            if not torch.equal(csum, want_csum):
+                raise AssertionError(f"dense_dp {name}: csum not bit-equal (max abs err {err})")
+            P, N, M = args[0].shape
+            _log(f"[check] dense_dp {name}{'' if ties else ', no ties'}: P={P} N={N} M={M} "
+                 f"{dense_dp_cuda.block_threads(N, M)} threads: bp and csum equal")
+
+            got = traceback_cuda.dense_traceback_walk_cuda(bp, args[2], args[3])
+            torch.cuda.synchronize()
+            _assert_all_equal(f"dense_traceback_walk {name}", got,
+                              dp_ops.dense_traceback_walk(bp, args[2], args[3]))
+            steps = [t.cpu().numpy() for t in got]
+            bp_h = bp.cpu().numpy()
+            for i, (n, m) in enumerate(sizes):
+                if (dense_alignments_from_steps(*(t[i] for t in steps))
+                        != dense_traceback(bp_h[i][:n + 1, :m + 1])):
+                    raise AssertionError(f"dense_traceback_walk {name}: pair {i} differs "
+                                         "from the host walk")
+        _log(f"[check] dense_traceback_walk {name}: three arrays equal, alignments equal to "
+             "the host walk's")
     return max_err
 
 
@@ -537,8 +710,9 @@ def read_output(path):
 
 
 def phase_main_path(workdir, n_src, n_tgt):
-    """Stage 5.4 through the CLI on the card; returns the plain-DP run's
-    stack (its level inputs feed the timings) and the launch counts."""
+    """Stage 5.4 through the CLI on the card, one pair at a time; returns
+    the plain-DP run's stack (its level inputs feed the timings), the
+    launch counts, the pair's paths and the warm wall time."""
     import torch
 
     from svecalign_tpu_torch.ops import dp_cuda
@@ -563,6 +737,8 @@ def phase_main_path(workdir, n_src, n_tgt):
         raise AssertionError(f"banded_dp launched {launches['banded_dp']} times, want {n_levels}")
     if launches["banded_dp_warp"] != n_levels or launches["banded_dp_block"] != 0:
         raise AssertionError(f"every banded level must take the warp route: {launches}")
+    if launches["dense_dp"] != 1:
+        raise AssertionError(f"dense_dp launched {launches['dense_dp']} times, want 1")
 
     spans, costs = read_output(output_path(workdir / "out"))
     stack = per_pair.align(**_align_kwargs(paths, "torch"))
@@ -578,18 +754,19 @@ def phase_main_path(workdir, n_src, n_tgt):
     one_one = {(str(x), str(y)) for x, y in planted if len(x) == len(y) == 1}
     recall = len(one_one & set(spans)) / len(one_one)
     _log(f"[main] recall of the {len(one_one)} planted 1-1 pairs: {recall:.4f}")
-    if recall < 0.95:
-        raise AssertionError(f"planted 1-1 recall {recall} < 0.95")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"planted 1-1 recall {recall} < {MIN_RECALL}")
 
     # a second CLI run: warm wall time and phases
     t0 = time.perf_counter()
     runtimes = stage.main(cli_argv(paths, workdir / "out2", "cuda"))
     torch.cuda.synchronize()
-    _log(f"[time] stage-5.4 CLI, warm: {time.perf_counter() - t0:.3f}s wall "
+    _log(f"[time] stage-5.4 CLI, one pair at a time, warm: {time.perf_counter() - t0:.3f}s wall "
          f"(first run {wall:.3f}s)")
+    warm = time.perf_counter() - t0
     for key, val in runtimes[0].items():
         _log(f"[time]    {key}: {val * 1e3:.3f} ms")
-    return stack, launches
+    return stack, launches, paths, warm
 
 
 def _chain_cycles_per_step(x_offsets, y_offsets, handover=ROW_HANDOVER_CYCLES,
@@ -649,8 +826,9 @@ def phase_chain_latencies(device):
     DP's step-to-step chain, from csrc/chain_latency_probe.cu: one dependent
     fp32 operation, a warp shuffle, and a shared-memory store, barrier and
     load. The least of five runs each (a chain cannot run faster than its
-    latency, only be disturbed). Returns (handover, alu): the cheaper way
-    to hand a row over, and the fp32 operation."""
+    latency, only be disturbed). Returns (handover, alu, smem): the cheaper
+    way to hand a row over, the fp32 operation, and the shared-memory round
+    trip."""
     import ctypes
 
     import torch
@@ -680,7 +858,7 @@ def phase_chain_latencies(device):
     _log(f"[probe] dependent chains of {PROBE_LINKS} links on this card, SM cycles per link: "
          f"fp32 add or minimum {alu:.2f}, warp shuffle {shuffle:.2f}, shared-memory store + "
          f"barrier + load {smem:.2f}")
-    return float(min(shuffle, smem)), float(alu)
+    return float(min(shuffle, smem)), float(alu), float(smem)
 
 
 def _sm_clock_hz():
@@ -714,13 +892,13 @@ def _level_args(lvl, device):
 def phase_times(stack, device):
     """Kernel vs plain version on each banded level's real inputs from the
     main path (the warp route the level takes and, in turns with it, the
-    block kernel forced on the same inputs), and the dense DP's plain loop
-    on its real inputs."""
+    block kernel forced on the same inputs). The totals carry the probe's
+    latencies and the SM clock for the other kernels' bounds."""
     from svecalign_tpu_torch.ops import dp as dp_ops
     from svecalign_tpu_torch.ops import dp_cuda
 
     clock = _sm_clock_hz()
-    handover, alu = phase_chain_latencies(device)
+    handover, alu, smem_trip = phase_chain_latencies(device)
     totals = {"ms": 0.0, "block_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "bytes_bound_ms": 0.0, "err": 0.0}
     bound_by = set()
@@ -754,13 +932,8 @@ def phase_times(stack, device):
          f"{totals['ms']:.4f} ms, block kernel {totals['block_ms']:.4f} ms, bound "
          f"{totals['bound_ms']:.6f} ms, kernel / bound {totals['ms'] / totals['bound_ms']:.2f}")
 
-    top = stack[max(stack)]
-    pen = np.float32(top["del_penalty"])
-    dense = _cuda_time_ms(lambda: dp_ops.dense_dp(top["costs_1to1"], pen), reps=3, warmup=1)
-    n, m = top["costs_1to1"].shape
-    _log(f"[time] dense_dp plain loop on the card ({n} x {m}, {n + m + 1} anti-diagonals): "
-         f"{dense:.3f} ms")
     totals["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "latency"
+    totals["probe"] = {"clock": clock, "alu": alu, "smem": smem_trip}
     return totals
 
 
@@ -802,6 +975,418 @@ def phase_route_times(device):
         if ms > block_ms:
             raise AssertionError(f"{label}: the warp route ({ms} ms) is slower than the block "
                                  f"route ({block_ms} ms)")
+
+
+# ---------------------------------------------------------------------------
+# Stage 5.4 in buckets: the batched aligner
+# ---------------------------------------------------------------------------
+
+PAIR_BATCH = 8
+# 16 hour-scale pairs, 900-1300 segments a side, two buckets of 8
+BUCKET_SIZES = [(900 + (97 * k) % 401, 900 + (131 * k + 50) % 401) for k in range(16)]
+PAIRED_GATE_PAIRS = 4  # equal-sized pairs of the library-level gate
+
+
+class _env:
+    """Set environment variables for a block, then put back what was there."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bucket_plan(sizes, pair_batch=PAIR_BATCH):
+    """The batched CLI's buckets for pairs of ``sizes``: sorted by n + m,
+    cut into runs of ``pair_batch``; per bucket (pair sizes, padded n,
+    padded m, pyramid depth) under the default shape grid."""
+    from svecalign_tpu_torch.vecalign import batch
+
+    order = sorted(sizes, key=lambda nm: nm[0] + nm[1])
+    plan = []
+    for k in range(0, len(order), pair_batch):
+        pairs = order[k:k + pair_batch]
+        n_pad = batch._grid_dim(max(n for n, _ in pairs))
+        m_pad = batch._grid_dim(max(m for _, m in pairs))
+        plan.append((pairs, n_pad, m_pad, _pyramid_depth(n_pad, m_pad)))
+    return plan
+
+
+def _run_batched_cli(paths, out_dir, pair_batch=PAIR_BATCH):
+    import torch
+
+    from svecalign_tpu_torch.seg_align import align as stage
+
+    t0 = time.perf_counter()
+    prof = stage.main(cli_argv(paths, out_dir, "cuda", ["--pair_batch", str(pair_batch)]))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, prof
+
+
+def _spans_cover(spans, n_src, n_tgt):
+    """Whether the alignment lines cover both documents exactly once, in order."""
+    xs = [i for x, _ in spans for i in json.loads(x)]
+    ys = [j for _, y in spans for j in json.loads(y)]
+    return xs == list(range(n_src)) and ys == list(range(n_tgt))
+
+
+def phase_bucket_path(workdir, single_paths, per_pair_warm):
+    """Stage 5.4 through the CLI with --pair_batch 8 on 16 hour-scale pairs:
+    the launch counts (per bucket, not per pair), no plane pulled, each
+    pair covered in order with its planted 1-1 pairs recovered; then the
+    walls, the aligner's phases, and the walks on against off in turns, on
+    the buckets and on a bucket of one pair. Returns (launches, plan)."""
+    from svecalign_tpu_torch.vecalign import batch
+
+    t0 = time.perf_counter()
+    paths, stems, planted = write_synthetic_corpus(workdir / "corpus", BUCKET_SIZES)
+    n_pairs = len(BUCKET_SIZES)
+    _log(f"[bucket] wrote {n_pairs} pairs of {min(min(s) for s in BUCKET_SIZES)}-"
+         f"{max(max(s) for s in BUCKET_SIZES)} segments a side (1024-d fp16 stopes rows) in "
+         f"{time.perf_counter() - t0:.1f}s")
+    plan = bucket_plan(BUCKET_SIZES)
+    for k, (pairs, n_pad, m_pad, depth) in enumerate(plan):
+        state = 2 * len(pairs) * 5 * 4 * 1024 * (n_pad + m_pad) / 2
+        _log(f"[bucket] bucket {k}: P={len(pairs)} padded to {n_pad} x {m_pad}, pyramid depth "
+             f"{depth} (dense level {n_pad >> depth} x {m_pad >> depth}), overlap tensors "
+             f"{state / 1e9:.3f} GB")
+    n_levels = sum(max(depth, 1) for *_, depth in plan)
+
+    _reset_launches()
+    wall, _ = _run_batched_cli(paths, workdir / "bout")
+    launches, pulls = _launches(), dict(batch.pull_stats)
+    _log(f"[bucket] stage-5.4 CLI, --pair_batch {PAIR_BATCH}, on the card: {wall:.3f}s wall (first "
+         f"run), launches {launches}, pulled {pulls}")
+    want = {"dense_dp": len(plan), "banded_dp": n_levels, "banded_dp_warp": n_levels,
+            "banded_dp_block": 0, "dense_traceback_walk": len(plan),
+            "banded_traceback_walk": n_levels}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{name} launched {launches[name]} times over {len(plan)} "
+                                 f"buckets and {n_levels} banded levels, want {count}")
+    if pulls["plane_bytes"] != 0 or pulls["step_bytes"] == 0:
+        raise AssertionError(f"with the walks on only paths are pulled, got {pulls}")
+    recalls = []
+    for stem, blocks, (n_src, n_tgt) in zip(stems, planted, BUCKET_SIZES):
+        spans, _ = read_output(output_path(workdir / "bout", stem))
+        if not _spans_cover(spans, n_src, n_tgt):
+            raise AssertionError(f"{stem}: the alignment does not cover both documents in order")
+        one_one = {(str(x), str(y)) for x, y in blocks if len(x) == len(y) == 1}
+        recalls.append(len(one_one & set(spans)) / len(one_one))
+        if recalls[-1] < MIN_RECALL:
+            raise AssertionError(f"{stem}: planted 1-1 recall {recalls[-1]} < {MIN_RECALL}")
+    _log(f"[bucket] {n_pairs} pairs covered exactly once in order; recall of the planted 1-1 "
+         f"pairs {min(recalls):.4f}-{max(recalls):.4f}")
+
+    warm, _ = _run_batched_cli(paths, workdir / "bout2")
+    _log(f"[time] stage-5.4 CLI, --pair_batch {PAIR_BATCH}, warm: {warm:.3f}s wall for {n_pairs} "
+         f"pairs, {warm / n_pairs:.4f}s a pair (first run {wall:.3f}s); one pair at a time, warm: "
+         f"{per_pair_warm:.4f}s a pair (a 1200 x 1100 pair)")
+    batch.phase_seconds.clear()
+    with _env(SVECALIGN_ALIGN_PROFILE="1"):
+        prof_wall, prof = _run_batched_cli(paths, workdir / "bout3")
+    _log(f"[time] batched aligner phases (a run with a device sync per phase, {prof_wall:.3f}s "
+         f"wall, {prof['buckets']} buckets): "
+         + " | ".join(f"{k} {prof[k]:.3f}s" for k in ("load", "stage", "pyramid", "write")))
+    _log("[time]    inside the pyramid: "
+         + " | ".join(f"{k} {v * 1e3:.1f} ms" for k, v in batch.phase_seconds.items()))
+
+    # the walks on the device against pull + host walk, end to end: eight
+    # warm CLI runs in turns (the host's speed moves the wall by ~10%
+    # between runs, so two runs a setting do not separate them)
+    for label, p, n in (("16 pairs in 2 buckets", paths, n_pairs),
+                        ("one 1200 x 1100 pair, a bucket of 1", single_paths, 1)):
+        runs = {"0": [], "1": []}
+        for k, setting in enumerate(("0", "1", "1", "0", "0", "1", "1", "0")):
+            batch.phase_seconds.clear()
+            with _env(SVECALIGN_DEVICE_TRACEBACK=setting, SVECALIGN_ALIGN_PROFILE="1"):
+                run_wall, run_prof = _run_batched_cli(p, workdir / f"tb{n}_{k}")
+            tb_s = batch.phase_seconds["dense traceback"] + batch.phase_seconds["banded traceback"]
+            runs[setting].append((run_wall, run_prof["pyramid"], tb_s))
+        for setting, name in (("1", "walks on the card"), ("0", "pull + host walk")):
+            wall_s, pyr_s, tb_s = np.mean(runs[setting], axis=0)
+            _log(f"[time] SVECALIGN_DEVICE_TRACEBACK={setting} ({name}) on {label}, four warm "
+                 f"CLI runs with a device sync per phase: wall {wall_s:.4f}s ("
+                 + ", ".join(f"{r[0]:.3f}" for r in runs[setting])
+                 + f"), pyramid {pyr_s:.4f}s, of it walks or pulls and the rebuilding of the "
+                 f"alignments {tb_s:.4f}s")
+    return launches, plan
+
+
+def _overlap_tensors(paths, stem):
+    """A written pair's two (5, n, 1024) fp16 overlap tensors."""
+    from svecalign_tpu_torch.utils.embedding_utils import make_doc_embedding, read_in_embeddings
+
+    root, out = paths["root"], []
+    for lang in (SRC_LANG, TGT_LANG):
+        name = f"{stem}_{lang}"
+        sent2id, rows = read_in_embeddings(
+            str(root / "cat_segs" / lang / f"{name}.txt"),
+            str(root / "embeds" / lang / f"{name}.embed"), use_stopes=True)
+        lines = (root / "segments" / lang / f"{name}.txt").read_text().splitlines(True)
+        out.append(make_doc_embedding(sent2id, rows, lines, 5, overlap_segments=True,
+                                      dtype=np.float16))
+    return tuple(out)
+
+
+def phase_paired_gate(workdir):
+    """Library level: a bucket of equal-sized pairs with the shape grid off
+    and sampling="paired" must give the alignments of one pyramid.vecalign
+    run per pair with the same seed, scores within 1e-5."""
+    from svecalign_tpu_torch.vecalign import batch, pyramid
+
+    paths, stems, _ = write_synthetic_corpus(
+        workdir / "equal", [(N_SRC, N_TGT)] * PAIRED_GATE_PAIRS, seed=300)
+    pairs = [_overlap_tensors(paths, stem) for stem in stems]
+    kw = dict(final_alignment_types=DEFAULT_TYPES, del_percentile_frac=0.2, width_over2=8,
+              max_size_full_dp=300, costs_sample_size=20000, num_samps_for_norm=100, seed=42)
+    with _env(SVECALIGN_SHAPE_GRID="off"):
+        got = batch.vecalign_batched(pairs, sampling="paired", device="cuda", **kw)
+    worst = 0.0
+    for i, ((v0, v1), (aligns, scores)) in enumerate(zip(pairs, got)):
+        stack = pyramid.vecalign(v0, v1, device="cuda", **kw)
+        want, want_scores = stack[0]["final_alignments"], stack[0]["alignment_scores"]
+        if aligns != want:
+            k = next((j for j, (a, b) in enumerate(zip(aligns, want)) if a != b),
+                     min(len(aligns), len(want)))
+            raise AssertionError(
+                f"paired bucket, pair {i}: alignment {k} differs from the per-pair run: "
+                f"{aligns[k:k + 2]} (costs {scores[k:k + 2]}) against {want[k:k + 2]} "
+                f"(costs {want_scores[k:k + 2]})")
+        worst = max(worst, float(np.abs(scores - want_scores).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"paired bucket: scores differ from the per-pair runs by {worst}")
+    _log(f"[bucket] sampling=\"paired\", grid off, {len(pairs)} pairs of {N_SRC} x {N_TGT}: "
+         f"alignments identical to {len(pairs)} pyramid.vecalign runs, max score difference "
+         f"{worst:.2e}")
+
+
+def _dense_bounds(sizes, P, N, M, probe):
+    """Least times for the dense DP of pairs of ``sizes`` in (N, M) planes:
+    bytes (each pair's costs read once, sizes and pens, the whole bp planes
+    written once) at the memory rate, operations (three adds and two
+    compares a cell) at the fp32 rate, and latency: the longest pair's
+    n + m + 1 dependent steps of one shared-memory round trip and three
+    fp32 operations (an add, two compare/selects) at the SM clock."""
+    cells = sum(n * m for n, m in sizes)
+    nbytes = 4 * cells + 12 * P + P * (N + 1) * (M + 1)
+    steps = max(n + m + 1 for n, m in sizes)
+    return {
+        "bytes": nbytes / H100_BYTES_PER_S * 1e3,
+        "operations": 5 * cells / H100_FP32_OPS_PER_S * 1e3,
+        "latency": steps * (probe["smem"] + 3 * probe["alu"]) / probe["clock"] * 1e3,
+    }
+
+
+def _walk_bounds(steps_taken, P, steps_emitted, read_bytes, write_bytes, probe):
+    """Least times for a walk: bytes (what the visited nodes hold read once,
+    the emitted arrays written once), operations (about four a step), and
+    latency: the longest walk's dependent steps at one shared-memory round
+    trip and two fp32-operation latencies each (what a walk over planes
+    held on chip would pay; a global load on the chain costs several times
+    that)."""
+    total = sum(steps_taken)
+    return {
+        "bytes": (total * read_bytes + P * steps_emitted * write_bytes) / H100_BYTES_PER_S * 1e3,
+        "operations": 4 * total / H100_FP32_OPS_PER_S * 1e3,
+        "latency": max(steps_taken) * (probe["smem"] + 2 * probe["alu"]) / probe["clock"] * 1e3,
+    }
+
+
+def _binding(bounds):
+    """(ms, name): the largest of the bytes, operations and latency bounds,
+    the least time the card could take for the work."""
+    by = max(bounds, key=bounds.get)
+    return bounds[by], by
+
+
+def _median_ms(fns, reps):
+    """Median wall ms of each of ``fns`` (which end on the host), called in
+    turns ``reps`` times with the device idle before each call. The median
+    sets aside the calls that the interpreter's collector or another
+    tenant of the host disturbed."""
+    import torch
+
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for k, fn in enumerate(fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out[k].append((time.perf_counter() - t0) * 1e3)
+    return [float(np.median(o)) for o in out]
+
+
+def _route_times(label, fetch_device, fetch_host, rebuild_device, rebuild_host):
+    """One level's traceback by both routes, in wall ms. Each route is a
+    fetch that ends with numpy arrays on the host (walk kernel + pull of the
+    path, or pull of the planes), timed 15 times in turns, and a rebuild in
+    Python (the alignments from the walked path, or the host walk over the
+    planes), timed 5 times in turns. Fails if the routes' alignments
+    differ. Returns (device route ms, host route ms)."""
+    if rebuild_device(fetch_device()) != rebuild_host(fetch_host()):
+        raise AssertionError(f"{label}: the two routes differ")
+    f_dev, f_host = _median_ms((fetch_device, fetch_host), reps=15)
+    steps, planes = fetch_device(), fetch_host()
+    r_dev, r_host = _median_ms((lambda: rebuild_device(steps), lambda: rebuild_host(planes)),
+                               reps=5)
+    _log(f"[time] routes of {label}, median host wall: walk on the card + path pull "
+         f"{f_dev:.3f} ms, rebuild {r_dev:.3f} ms, together {f_dev + r_dev:.3f} ms; plane pull "
+         f"{f_host:.3f} ms, host walk {r_host:.3f} ms, together {f_host + r_host:.3f} ms")
+    return f_dev + r_dev, f_host + r_host
+
+
+WALK_ROUTE_BUCKETS = (32, 64)  # synthetic buckets beyond the CLI run's, walk routes only
+
+
+def phase_slice_times(stack, plan, probe, device):
+    """The dense-DP and walk kernels at the main paths' shapes, P = 1 (the
+    per-pair run's own dense level and final banded level) and the last
+    bucket's (P = 8): kernel ms against the plain version and the bounds,
+    the measured difference from the plain version, each walk's route
+    (kernel, pull of the path, rebuilding the alignments) against the host
+    route (pull of the planes, host walk), the banded walk's also at
+    buckets of WALK_ROUTE_BUCKETS pairs, and the banded DP per bucket
+    launch at each of the bucket's levels. Returns the ``kernels`` line's
+    numbers for the three kernels: times at P = 8, the error over all."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import dp as dp_ops
+    from svecalign_tpu_torch.vecalign import traceback as tb
+    from svecalign_tpu_torch.vecalign.batch import _band_pad
+
+    rng = np.random.default_rng(8642)
+    pairs, n_pad, m_pad, depth = plan[-1]
+    P = len(pairs)
+    out = {}
+
+    # dense DP and dense walk
+    top = stack[max(stack)]
+    n1, m1 = top["costs_1to1"].shape
+    one = (top["costs_1to1"][None].contiguous(),
+           torch.tensor([top["del_penalty"]], dtype=torch.float32, device=device),
+           torch.tensor([n1], dtype=torch.int32, device=device),
+           torch.tensor([m1], dtype=torch.int32, device=device))
+    top_sizes = [(n >> depth, m >> depth) for n, m in pairs]
+    bucket = _dense_problem(rng, top_sizes, device, ties=False, pad=(n_pad >> depth, m_pad >> depth))
+    dense_err = walk_err = 0.0
+    for label, args, sizes in (("P=1, the per-pair run's level", one, [(n1, m1)]),
+                               (f"P={P}, the bucket's level", bucket, top_sizes)):
+        Pn, N, M = args[0].shape
+        csum, bp = dense_dp_cuda.dense_dp_cuda(*args, with_csum=True)
+        want_csum, want_bp = dp_ops.dense_dp_batched(*args)
+        err = max(_max_abs_diff(csum, want_csum), _max_abs_diff(bp, want_bp))
+        dense_err = max(dense_err, err)
+        if not (torch.equal(bp, want_bp) and torch.equal(csum, want_csum)):
+            raise AssertionError(f"dense_dp {label}: differs from the plain version's by {err}")
+        runs = [_cuda_time_ms(lambda: dense_dp_cuda.dense_dp_cuda(*args), reps=50) for _ in range(2)]
+        ms = float(np.mean(runs))
+        plain = _cuda_time_ms(lambda: dp_ops.dense_dp_batched(*args), reps=2, warmup=1)
+        bounds = _dense_bounds(sizes, Pn, N, M, probe)
+        _log(f"[time] dense_dp {label} ({Pn} x {N} x {M}, longest pair "
+             f"{max(n + m + 1 for n, m in sizes)} steps): kernel {ms:.4f} ms ({runs[0]:.4f}, "
+             f"{runs[1]:.4f}), plain loop {plain:.3f} ms, max abs difference {err}, bounds: bytes "
+             f"{bounds['bytes']:.6f}, operations {bounds['operations']:.6f}, latency "
+             f"{bounds['latency']:.6f} ms ({probe['smem']:.2f} + 3 x {probe['alu']:.2f} cycles a "
+             f"step at {probe['clock'] / 1e6:.0f} MHz); kernel / latency bound "
+             f"{ms / bounds['latency']:.2f}")
+        out["dense_dp"] = {"ms": ms, "plain_ms": plain, "bounds": bounds}
+
+        walk_args = (bp, args[2], args[3])
+        got = traceback_cuda.dense_traceback_walk_cuda(*walk_args)
+        err = _assert_all_equal(f"dense_traceback_walk {label}", got,
+                                dp_ops.dense_traceback_walk(*walk_args))
+        walk_err = max(walk_err, err)
+        taken = [int(((x != 0) | (y != 0)).sum()) + 1
+                 for x, y in zip(got[0].cpu().numpy(), got[1].cpu().numpy())]
+        wms = float(np.mean([_cuda_time_ms(
+            lambda: traceback_cuda.dense_traceback_walk_cuda(*walk_args), reps=50) for _ in range(2)]))
+        wplain = _cuda_time_ms(lambda: dp_ops.dense_traceback_walk(*walk_args), reps=2, warmup=1)
+        wbounds = _walk_bounds(taken, Pn, N + M + 1, 1, 9, probe)
+        _log(f"[time] dense_traceback_walk {label} ({N + M + 1} steps emitted, longest walk "
+             f"{max(taken)}): kernel {wms:.4f} ms, plain loop {wplain:.3f} ms, max abs difference "
+             f"{err}, bounds: bytes {wbounds['bytes']:.6f}, operations "
+             f"{wbounds['operations']:.6f}, latency {wbounds['latency']:.6f} ms")
+        _route_times(
+            f"the dense level, {label}",
+            lambda: [t.cpu().numpy() for t in traceback_cuda.dense_traceback_walk_cuda(*walk_args)],
+            lambda: bp.cpu().numpy(),
+            lambda steps: [tb.dense_alignments_from_steps(*(t[i] for t in steps))
+                           for i in range(Pn)],
+            lambda bp_h: [tb.dense_traceback(bp_h[i][:n + 1, :m + 1])
+                          for i, (n, m) in enumerate(sizes)])
+        out["dense_traceback_walk"] = {"ms": wms, "plain_ms": wplain, "bounds": wbounds}
+    out["dense_dp"]["err"], out["dense_traceback_walk"]["err"] = dense_err, walk_err
+
+    # banded walk: the per-pair run's final level, the bucket's, and larger buckets
+    a_pad = _band_pad(n_pad, m_pad)
+    cases = [("P=1, the per-pair run's final level", _level_args(stack[0], device)),
+             (f"P={P}, the bucket's final level",
+              _random_band_problem(rng, pairs, DEFAULT_TYPES, 8, device, a_pad=a_pad))]
+    cases += [(f"P={n}, the bucket's pairs {n // P} times over",
+               _random_band_problem(rng, pairs * (n // P), DEFAULT_TYPES, 8, device, a_pad=a_pad))
+              for n in WALK_ROUTE_BUCKETS]
+    walk_err, routes = 0.0, {}
+    for label, args in cases:
+        planes = dp_cuda.banded_dp_cuda_batched(*args)
+        walk_args = (*planes, args[2], args[6], args[7])
+        Pn, a2, B = planes[1].shape
+        got = traceback_cuda.banded_traceback_walk_cuda(*walk_args)
+        err = _assert_all_equal(f"banded_traceback_walk {label}", got,
+                                dp_ops.banded_traceback_walk(*walk_args))
+        walk_err = max(walk_err, err)
+        taken = [int(((x != 0) | (y != 0)).sum()) + 1
+                 for x, y in zip(got[0].cpu().numpy(), got[1].cpu().numpy())]
+        wms = float(np.mean([_cuda_time_ms(
+            lambda: traceback_cuda.banded_traceback_walk_cuda(*walk_args), reps=50)
+            for _ in range(2)]))
+        wplain = _cuda_time_ms(lambda: dp_ops.banded_traceback_walk(*walk_args), reps=2, warmup=1)
+        wbounds = _walk_bounds(taken, Pn, a2, 10, 14, probe)
+        _log(f"[time] banded_traceback_walk {label} (P={Pn}, {a2} steps emitted, B={B}, longest "
+             f"walk {max(taken)}): kernel {wms:.4f} ms, plain loop {wplain:.3f} ms, max abs "
+             f"difference {err}, bounds: bytes {wbounds['bytes']:.6f}, operations "
+             f"{wbounds['operations']:.6f}, latency {wbounds['latency']:.6f} ms")
+        x_sizes, y_sizes = args[6].tolist(), args[7].tolist()
+        boff_h = args[2].cpu().numpy()
+        routes[Pn] = _route_times(
+            f"the final banded level, {label}",
+            lambda: [t.cpu().numpy()
+                     for t in traceback_cuda.banded_traceback_walk_cuda(*walk_args)],
+            lambda: [t.cpu().numpy() for t in planes],
+            lambda steps: [tb.sparse_alignments_from_steps(*(t[i] for t in steps))[0]
+                           for i in range(Pn)],
+            lambda h: [tb.sparse_traceback(h[0][i].astype(np.float64), h[1][i], h[2][i], boff_h[i],
+                                           x_sizes[i], y_sizes[i])[0] for i in range(Pn)])
+        if Pn == P:
+            out["banded_traceback_walk"] = {"ms": wms, "plain_ms": wplain, "bounds": wbounds}
+    out["banded_traceback_walk"]["err"] = walk_err
+    _log("[time] final banded level, walk on the card against pull + host walk, ms (device "
+         "route / host route): "
+         + ", ".join(f"P={n}: {d:.3f} / {h:.3f}" for n, (d, h) in routes.items()))
+
+    for d in range(max(depth, 1)):
+        sizes = [(n >> d, m >> d) for n, m in pairs]
+        types = DEFAULT_TYPES if d == 0 else [(1, 1)]
+        args = _random_band_problem(rng, sizes, types, 8, device,
+                                    a_pad=_band_pad(n_pad >> d, m_pad >> d))
+        before = dict(dp_cuda.LAUNCHES)
+        dp_cuda.banded_dp_cuda_batched(*args)
+        route = _route_taken(dp_cuda, before)
+        ms = _cuda_time_ms(lambda: dp_cuda.banded_dp_cuda_batched(*args), reps=20)
+        Pn, T, A, B = args[0].shape
+        _log(f"[time] banded_dp per bucket launch, the bucket's level {d} (P={Pn} T={T} A={A} "
+             f"B={B}, {route} route): {ms:.4f} ms, {ms / Pn:.4f} ms a pair")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -881,17 +1466,20 @@ def embed_output(out_dir):
 
 def _reset_launches():
     from svecalign_tpu_torch.models import w2v_bert
-    from svecalign_tpu_torch.ops import attention_cuda, dp_cuda
+    from svecalign_tpu_torch.ops import attention_cuda, dense_dp_cuda, dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.vecalign import batch
 
-    for counts in (dp_cuda.LAUNCHES, attention_cuda.LAUNCHES, w2v_bert.ATTENTION_CALLS):
+    for counts in (dp_cuda.LAUNCHES, dense_dp_cuda.LAUNCHES, traceback_cuda.LAUNCHES,
+                   attention_cuda.LAUNCHES, w2v_bert.ATTENTION_CALLS, batch.pull_stats):
         for name in counts:
             counts[name] = 0
 
 
 def _launches():
-    from svecalign_tpu_torch.ops import attention_cuda, dp_cuda
+    from svecalign_tpu_torch.ops import attention_cuda, dense_dp_cuda, dp_cuda, traceback_cuda
 
-    return {**dp_cuda.LAUNCHES, **attention_cuda.LAUNCHES}
+    return {**dp_cuda.LAUNCHES, **dense_dp_cuda.LAUNCHES, **traceback_cuda.LAUNCHES,
+            **attention_cuda.LAUNCHES}
 
 
 def _bucket_plan(model, lines, n_samples):
@@ -1173,9 +1761,9 @@ def main(argv=None):
                       help="only build and hold each kernel against its plain version "
                            "(phases 1-2); prints no result line")
     mode.add_argument("--dp", action="store_true",
-                      help="only the banded DP: build, hold it against its plain version, "
-                           "run stage 5.4 and time the kernel (no SONAR model is built); "
-                           "prints no result line")
+                      help="only stage 5.4: build, hold the DP and walk kernels against "
+                           "their plain versions, run the stage per pair and in buckets and "
+                           "time the kernels (no SONAR model is built); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1192,17 +1780,21 @@ def main(argv=None):
         profile_embed(device)
         return 0
     check_err = phase_kernel_checks(device)
+    dense_err = phase_dense_checks(device)
     if not args.dp:
         attn_err = phase_attention_checks(device)
     if args.checks:
         _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
-        stack, launches = phase_main_path(Path(td), N_SRC, N_TGT)
+        stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
+        bucket_launches, plan = phase_bucket_path(Path(td), single_paths, per_pair_warm)
+        phase_paired_gate(Path(td))
     t = phase_times(stack, device)
     phase_route_times(device)
+    fused = phase_slice_times(stack, plan, t["probe"], device)
     if args.dp:
-        _log(f"[done] banded-DP phases passed in {time.perf_counter() - t_start:.1f}s")
+        _log(f"[done] stage-5.4 phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
         info, embed_launches = phase_embed_path(Path(td), device)
@@ -1225,9 +1817,28 @@ def main(argv=None):
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
     }]
+    for name, source, replaces in (
+            ("dense_dp", "dense_dp.cu", "svecalign_tpu/ops/dp.py:49"),
+            ("dense_traceback_walk", "traceback_walk.cu", "svecalign_tpu/ops/dp.py:215"),
+            ("banded_traceback_walk", "traceback_walk.cu", "svecalign_tpu/ops/dp.py:243")):
+        row = fused[name]
+        bound, by = _binding(row["bounds"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"svecalign_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": bucket_launches[name],
+            "max_abs_err": max(row["err"], dense_err) if name == "dense_dp" else row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": max(row["bounds"]["bytes"], row["bounds"]["operations"]),
+            "library_ms": None,
+        })
     _log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s. banded_dp: "
-         "times per stage-5.4 run (sum over its banded levels); no single PyTorch call "
-         "computes it, so library_ms is null. relkey_attention: device times per launch "
+         "times per stage-5.4 run of one pair (sum over its banded levels), launches of that "
+         f"run ({bucket_launches['banded_dp']} over the bucket run); no single PyTorch call "
+         "computes it, so library_ms is null. dense_dp and the two walks: launches of the "
+         f"--pair_batch {PAIR_BATCH} run of {len(BUCKET_SIZES)} pairs, times per launch at its "
+         "last bucket's shapes, max_abs_err measured there and at P = 1 against the plain "
+         "versions, bound_ms the largest of bytes, operations and the dependent steps' latency "
+         "(bytes_bound_ms: the larger of the first two). relkey_attention: device times per launch "
          "(CUDA-graph replay) at the stage-5.3 modal bucket (every bucket, and eager times, "
          "above); launches per stage-5.3 run")
     print(json.dumps({"kernels": kernels}))

@@ -27,8 +27,9 @@ NVCC_FLAGS = (
 
 # per-source flags, after NVCC_FLAGS
 SOURCE_FLAGS = {
-    # no FMA contraction: the DP must match its plain version bit for bit
+    # no FMA contraction: the DPs must match their plain versions bit for bit
     "banded_dp": ("--fmad=false",),
+    "dense_dp": ("--fmad=false",),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -6,9 +6,11 @@ kernels, reference svecalign/vecalign/dp_core.pyx:79-141 ``dense_dp`` and
 cell of an anti-diagonal computed at once:
 
 - :func:`dense_dp`: the 3-move (diag/left/up) DP over an (N, M) 1-1 cost
-  matrix, priority diag > left > up, returned in (N+1, M+1) node layout.
-  It has no kernel of its own yet, so it is also what the main path runs
-  on the card (one small launch group per anti-diagonal).
+  matrix, priority diag > left > up, returned in (N+1, M+1) node layout;
+  :func:`dense_dp_batched` runs it over a bucket of ragged pairs. This is
+  the yardstick of the CUDA kernel in
+  :mod:`svecalign_tpu_torch.ops.dense_dp_cuda` and the CPU path of its
+  wrapper.
 - :func:`banded_dp_batched` (one pair: :func:`run_banded_dp`): the banded
   DP along a search path in rotated coordinates (a, b) = (x + y, y - b_offset[a]).
   For a fixed anti-diagonal ``a`` and type (xo, yo), every band cell's
@@ -16,6 +18,12 @@ cell of an anti-diagonal computed at once:
   b_offset_out[a - xo - yo]``, so a row is a gather, an add and a
   first-minimum over types. This is the yardstick of the CUDA kernel in
   :mod:`svecalign_tpu_torch.ops.dp_cuda` and the CPU path of its wrapper.
+- :func:`dense_traceback_walk`, :func:`banded_traceback_walk`: follow the
+  backpointers from (x_size, y_size) to the origin for every pair of a
+  bucket at once and emit only the visited path; the yardsticks of the
+  kernels in :mod:`svecalign_tpu_torch.ops.traceback_cuda`.
+  :func:`device_traceback_enabled` says whether an aligner walks on the
+  device or pulls the planes and walks on the host.
 
 Each candidate is one fp32 add of the same two operands as in the JAX
 scan, the Pallas kernel and the CUDA kernel, and ties keep the first
@@ -23,6 +31,7 @@ minimum in type order (given types, then (0, 1), then (1, 0)), so all of
 them agree bit for bit.
 """
 
+import os
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +64,12 @@ def dense_dp(costs: torch.Tensor, pen) -> Tuple[torch.Tensor, torch.Tensor]:
     pen = torch.as_tensor(pen, dtype=torch.float32, device=dev)
 
     r = torch.arange(rmax, device=dev)
+    if n == 0 or m == 0:
+        # an empty side: only the boundary row or column exists
+        edge = (r[:, None] + torch.arange(cmax, device=dev)[None, :]).float() * pen
+        bp = torch.full((rmax, cmax), 1 if n == 0 else 2, dtype=torch.int8, device=dev)
+        bp[0, 0] = 4
+        return edge, bp
     d = torch.arange(n_diags, device=dev)[:, None]
     c = d - r  # (n_diags, rmax): column of node (r, d - r)
     cost_valid = (r >= 1) & (c >= 1) & (r - 1 < n) & (c - 1 < m)
@@ -98,6 +113,112 @@ def dense_dp(costs: torch.Tensor, pen) -> Tuple[torch.Tensor, torch.Tensor]:
     rr = torch.arange(rmax, device=dev)[:, None]
     cc = torch.arange(cmax, device=dev)[None, :]
     return vals[rr + cc + 2, rr + 1], bps[rr + cc, rr]
+
+
+def dense_dp_batched(
+    costs: torch.Tensor,  # (P, N, M) float32
+    pens: torch.Tensor,  # (P,) float32
+    x_sizes: torch.Tensor,  # (P,) int32
+    y_sizes: torch.Tensor,  # (P,) int32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense DP of a bucket of ragged pairs: pair p's DP runs over its own
+    costs[p, :x_sizes[p], :y_sizes[p]]. Returns (csum (P, N+1, M+1) float32,
+    bp (P, N+1, M+1) int8); nodes outside a pair's (x_size+1, y_size+1)
+    rectangle hold +inf and -1 (no node inside reads one outside, and the
+    traceback starts at (x_size, y_size))."""
+    P, N, M = costs.shape
+    csum = torch.full((P, N + 1, M + 1), INF, dtype=torch.float32, device=costs.device)
+    bp = torch.full((P, N + 1, M + 1), -1, dtype=torch.int8, device=costs.device)
+    for p, (n, m) in enumerate(zip(x_sizes.tolist(), y_sizes.tolist())):
+        n, m = min(max(n, 0), N), min(max(m, 0), M)
+        csum[p, :n + 1, :m + 1], bp[p, :n + 1, :m + 1] = dense_dp(costs[p, :n, :m], pens[p])
+    return csum, bp
+
+
+# ---------------------------------------------------------------------------
+# Traceback walks on the planes' device
+# ---------------------------------------------------------------------------
+
+
+def device_traceback_enabled(device=None) -> bool:
+    """Whether the batched aligner walks the backpointers on the device and
+    pulls only the visited path, or pulls the planes and walks on the host.
+    ``SVECALIGN_DEVICE_TRACEBACK={1,0,auto}``: ``1``/``0`` force either;
+    ``auto`` (the default) is on for a CUDA ``device`` and off on the CPU
+    (the pull is free there). Outputs are identical either way. The
+    per-pair pyramid does not ask: one pair's planes are small, and it
+    always walks on the host."""
+    v = os.environ.get("SVECALIGN_DEVICE_TRACEBACK", "auto").lower()
+    if v in ("1", "on", "true"):
+        return True
+    if v in ("0", "off", "false"):
+        return False
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def dense_traceback_walk(
+    bp: torch.Tensor,  # (P, N+1, M+1) int8, node layout
+    x_sizes: torch.Tensor,  # (P,) int32
+    y_sizes: torch.Tensor,  # (P,) int32
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk every pair's dense backpointers from (x_size, y_size) to the
+    origin. Returns (xs, ys (P, N+M+1) int32, vs (P, N+M+1) int8): the
+    visited node and its pointer per step; N + M + 1 steps bound any
+    unit-step path, and a walk that has reached the origin stays there
+    (its pointer is 4). The JAX package's ``dense_traceback_scan`` on node
+    layout."""
+    P, rmax, cmax = bp.shape
+    steps = rmax + cmax - 1
+    dev = bp.device
+    pair = torch.arange(P, device=dev)
+    xx = x_sizes.long().clamp(0, rmax - 1)
+    yy = y_sizes.long().clamp(0, cmax - 1)
+    xs = torch.empty((P, steps), dtype=torch.int32, device=dev)
+    ys = torch.empty((P, steps), dtype=torch.int32, device=dev)
+    vs = torch.empty((P, steps), dtype=torch.int8, device=dev)
+    for i in range(steps):
+        v = bp[pair, xx, yy]
+        xs[:, i], ys[:, i], vs[:, i] = xx, yy, v
+        moving = (xx != 0) | (yy != 0)
+        xx = (xx - (moving & ((v == 0) | (v == 2))).long()).clamp(min=0)
+        yy = (yy - (moving & ((v == 0) | (v == 1))).long()).clamp(min=0)
+    return xs, ys, vs
+
+
+def banded_traceback_walk(
+    csum: torch.Tensor,  # (P, A+2, B) float32
+    xp: torch.Tensor,  # (P, A+2, B) int8 or int32
+    yp: torch.Tensor,  # (P, A+2, B)
+    b_offset_out: torch.Tensor,  # (P, A+2) int32
+    x_sizes: torch.Tensor,  # (P,) int32
+    y_sizes: torch.Tensor,  # (P,) int32
+):
+    """Walk every pair's banded planes from (x_size, y_size) to the origin.
+    Returns (xs, ys (P, A+2) int32, xps, yps (P, A+2) in the planes' dtype,
+    cs (P, A+2) float32): the visited node, its two pointers and its
+    cumulative cost per step; a walk that has reached the origin stays
+    there. The JAX package's ``banded_traceback_scan``; plane indices are
+    clamped, so corrupt pointers give a path the host conversion rejects."""
+    P, a2, B = xp.shape
+    dev = xp.device
+    pair = torch.arange(P, device=dev)
+    boff = b_offset_out.long()
+    xx, yy = x_sizes.long(), y_sizes.long()
+    xs = torch.empty((P, a2), dtype=torch.int32, device=dev)
+    ys = torch.empty((P, a2), dtype=torch.int32, device=dev)
+    xps = torch.empty((P, a2), dtype=xp.dtype, device=dev)
+    yps = torch.empty((P, a2), dtype=yp.dtype, device=dev)
+    cs = torch.empty((P, a2), dtype=torch.float32, device=dev)
+    for i in range(a2):
+        aa = (xx + yy).clamp(0, a2 - 1)
+        bb = (yy - boff[pair, aa]).clamp(0, B - 1)
+        vx, vy = xp[pair, aa, bb], yp[pair, aa, bb]
+        xs[:, i], ys[:, i], xps[:, i], yps[:, i] = xx, yy, vx, vy
+        cs[:, i] = csum[pair, aa, bb]
+        moving = (xx != 0) | (yy != 0)
+        xx = torch.where(moving, xx - vx.long(), xx)
+        yy = torch.where(moving, yy - vy.long(), yy)
+    return xs, ys, xps, yps, cs
 
 
 # ---------------------------------------------------------------------------

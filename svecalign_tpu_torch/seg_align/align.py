@@ -1,10 +1,14 @@
-"""Stage 5.4 — per-pair alignment driver CLI.
+"""Stage 5.4 — alignment CLI, per pair or in buckets of pairs.
 
 Port of the JAX package's ``seg_align/align.py`` (reference
 svecalign/seg_align/align.py): validates that segments / concats / embeds
 (and optional ignore indices) exist for every pair, then aligns each pair
 with the coarse-to-fine DP aligner on the card, writing ``[x]:[y]:cost``
-lines to ``OUT/{src}-{tgt}/{srcstem}-{tgtstem}.txt``.
+lines to ``OUT/{src}-{tgt}/{srcstem}-{tgtstem}.txt``. With ``--pair_batch
+P`` (P > 1) the pairs are sorted by size and aligned P at a time by the
+batched pyramid (``vecalign/batch.py``): each bucket uploads its raw fp16
+(or int8 / int4) embedding rows once and gathers the overlap tensors on
+the device.
 
 CLI: ``python -m svecalign_tpu_torch.seg_align.align METADATA OUT_DIR
 --src_lang S --tgt_lang T --seg_dir D --concat_dir C --embed_dir E
@@ -14,12 +18,21 @@ CLI: ``python -m svecalign_tpu_torch.seg_align.align METADATA OUT_DIR
 The flags are the JAX CLI's. Those whose path is not ported yet exit with
 an error that names the ROADMAP item; ``--upload_quant`` acts on the
 batched path only, so at ``--pair_batch 1`` it is accepted, as the JAX CLI
-accepts it.
+accepts it. ``SVECALIGN_ALIGN_PROFILE=1`` logs the batched path's phases;
+``--profile_dir D`` writes a torch.profiler Chrome trace of the alignment
+loop to ``D/align_trace.json``.
 """
 
 import argparse
+import contextlib
+import math
+import os
+import time
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from svecalign_tpu_torch.utils.file_utils import check_exist, read_metadata
 from svecalign_tpu_torch.utils.log_utils import logging, my_tqdm
@@ -28,7 +41,6 @@ from svecalign_tpu_torch.vecalign.vecalign import align as vecalign_func
 
 logger = logging.getLogger(__name__)
 
-_BATCHED = "ROADMAP.md Queue 1 item 6 (the batched driver vecalign/batch.py)"
 _MULTI_GPU = "ROADMAP.md Queue 1 item 20 (multi-GPU, parallel/mesh.py)"
 _NATIVE = "ROADMAP.md Queue 1 item 7b (the native float64 backend)"
 
@@ -69,21 +81,27 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=42,
                         help="RNG seed (new; the reference is unseeded).")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help=f"not ported yet: {_BATCHED}.")
+                        help="if set, write a torch.profiler Chrome trace of the "
+                             "alignment loop into this directory.")
     parser.add_argument("--pair_batch", type=int, default=1,
-                        help=f"values above 1 are not ported yet: {_BATCHED}.")
+                        help="align this many document pairs per device program "
+                             "(batched pyramid; one launch per level and bucket).")
     parser.add_argument("--data_parallel", type=int, default=1,
                         help=f"values other than 1 are not ported yet: {_MULTI_GPU}.")
     parser.add_argument("--upload_quant", type=str, default="fp16",
                         choices=["fp16", "int8", "int4"],
                         help="embedding upload precision of the batched path "
-                             "(no effect at --pair_batch 1).")
+                             "(no effect at --pair_batch 1): int8 halves the "
+                             "host->device bytes (per-row scales; ~0.3%% cosine "
+                             "noise), int4 packs two codes per byte (quarter of "
+                             "fp16; ~2%% cosine noise).")
     parser.add_argument("--dp_backend", type=str, default="auto",
                         choices=["auto", "cuda", "torch", "pallas", "xla", "native"],
                         help="banded-DP kernel: the CUDA kernel (card), the plain "
                              "torch loop, or auto (cuda on the card, torch on the "
                              "CPU). pallas/xla are the JAX package's; native is "
-                             f"not ported yet: {_NATIVE}.")
+                             f"not ported yet: {_NATIVE} (with --pair_batch > 1 "
+                             "it is ignored with a warning, as in the JAX CLI).")
     parser.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                         help="run on the card (default) or, when asked, on the CPU.")
     return parser.parse_args(argv)
@@ -96,18 +114,14 @@ def check_ported(args) -> None:
     ``pipeline --fused``, which is not ported: ROADMAP.md Queue 1 items 11
     and 19.)"""
     unported = []
-    if args.pair_batch > 1:
-        unported.append(f"--pair_batch {args.pair_batch}: {_BATCHED}")
     if args.data_parallel != 1:
         unported.append(f"--data_parallel {args.data_parallel}: {_MULTI_GPU}")
-    if args.profile_dir:
-        unported.append(f"--profile_dir: {_BATCHED}")
     if args.dp_backend in ("pallas", "xla"):
         unported.append(
             f"--dp_backend {args.dp_backend}: a JAX backend; this package has "
-            "cuda and torch (ROADMAP.md Queue 2 item 1)"
+            "cuda and torch (ROADMAP.md Queue 2 item 2)"
         )
-    if args.dp_backend == "native":
+    if args.dp_backend == "native" and args.pair_batch <= 1:
         unported.append(f"--dp_backend native: {_NATIVE}")
     if unported:
         raise SystemExit("not ported yet:\n  " + "\n  ".join(unported))
@@ -179,13 +193,34 @@ def collect_pair_tasks(
     return tasks
 
 
+@contextlib.contextmanager
+def _profile_trace(profile_dir: Optional[str], device):
+    """Trace the enclosed block with torch.profiler (CPU and, on the card,
+    CUDA activity) into ``profile_dir/align_trace.json``; nothing when
+    ``profile_dir`` is unset."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(Path(profile_dir) / "align_trace.json"))
+
+
 def main(argv=None):
     """Run the stage on ``argv`` (default: the command line). Returns each
-    aligned pair's phase wall times (the pyramid's ``runtimes``)."""
+    aligned pair's phase wall times (the pyramid's ``runtimes``) or, with
+    ``--pair_batch`` > 1, the batched path's phase wall times (one dict:
+    load, stage, pyramid, write, buckets)."""
     args = parse_args(argv)
     logger.info(args)
     check_ported(args)
-    resolve_device(args.device)  # no card and no --device cpu: raise here
+    device = resolve_device(args.device)  # no card and no --device cpu: raise here
 
     src_lang, tgt_lang = args.src_lang, args.tgt_lang
     out_dir = Path(args.out_dir) / f"{src_lang}-{tgt_lang}"
@@ -208,7 +243,122 @@ def main(argv=None):
         out_dir,
         ign_indices_dir,
     )
-    return _run_pairs(args, valid_pairs)
+    with _profile_trace(args.profile_dir, device):
+        if args.pair_batch > 1:
+            if args.dp_backend == "native":
+                logger.warning(
+                    "--dp_backend native is ignored with --pair_batch > 1: "
+                    "the batched pyramid runs on the device (cuda/torch)."
+                )
+            return _run_pairs_batched(args, valid_pairs)
+        return _run_pairs(args, valid_pairs)
+
+
+def _run_pairs_batched(args, valid_pairs):
+    """Batched path: bucket pairs by size and run the batched pyramid."""
+    from svecalign_tpu_torch.utils.embedding_utils import make_doc_ids, read_in_embeddings
+    from svecalign_tpu_torch.vecalign.batch import run_staged, stage_rows_upload
+    from svecalign_tpu_torch.vecalign.vecalign import (
+        load_ignore_index_file,
+        make_alignment_types,
+        print_alignments,
+    )
+
+    types = make_alignment_types(args.alignment_max_size)
+    width_over2 = math.ceil((args.alignment_max_size - 1) / 2.0) + args.search_buffer_size
+
+    # SVECALIGN_ALIGN_PROFILE=1: log the wall time of this function's phases
+    # (pair loading, per-bucket staging / pyramid / write)
+    profile = os.environ.get("SVECALIGN_ALIGN_PROFILE") == "1"
+    prof = {"load": 0.0, "stage": 0.0, "pyramid": 0.0, "write": 0.0}
+    t_phase = time.perf_counter()
+
+    loaded = []
+    for pair in valid_pairs:
+        seg_lines = []
+        for p in pair.segs:
+            with open(p, encoding="utf-8") as fp:
+                seg_lines.append(fp.readlines())
+        sent2id, embs = [], []
+        for concat_p, embed_p in zip(pair.concats, pair.embeds):
+            s2i, emb = read_in_embeddings(
+                concat_p, embed_p, args.is_stopes_embed, args.fp16_embed,
+            )
+            sent2id.append(s2i)
+            embs.append(emb.astype(np.float16))
+        # raw fp16 rows + index maps: the overlap tensor is gathered on
+        # device (uploading it materialized repeats every row ~n_overlaps x)
+        ids = [
+            make_doc_ids(
+                sent2id[side], embs[side].shape[0], seg_lines[side],
+                args.alignment_max_size - 1,
+                ignore_indices=load_ignore_index_file(pair.ignores[side])
+                if pair.ignores[side] else None,
+                overlap_segments=True,
+            )
+            for side in (0, 1)
+        ]
+        loaded.append((pair, embs[0], ids[0], embs[1], ids[1]))
+    prof["load"] = time.perf_counter() - t_phase
+
+    kwargs = dict(
+        final_alignment_types=types,
+        del_percentile_frac=args.del_percentile_frac,
+        width_over2=width_over2,
+        max_size_full_dp=args.max_size_full_dp,
+        costs_sample_size=args.costs_sample_size,
+        num_samps_for_norm=args.num_samps_for_norm,
+        seed=args.seed,
+        dp_backend=args.dp_backend if args.dp_backend != "native" else "auto",
+    )
+
+    # bucket by size so padding stays modest
+    loaded.sort(key=lambda it: it[2].shape[1] + it[4].shape[1])
+    buckets = [
+        loaded[s0: s0 + args.pair_batch] for s0 in range(0, len(loaded), args.pair_batch)
+    ]
+
+    def stage(bucket):
+        return stage_rows_upload(
+            [(e0, i0, e1, i1) for _, e0, i0, e1, i1 in bucket],
+            quantize=args.upload_quant, device=args.device,
+        )
+
+    # bucket i + 1 is staged after bucket i's pyramid, on the same thread:
+    # the stage time is logged so that overlapping the two can be judged
+    for bi in my_tqdm(range(len(buckets))):
+        bucket = buckets[bi]
+        t0 = time.perf_counter()
+        handle = stage(bucket)
+        if handle[0].is_cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results = run_staged(handle, **kwargs)
+        t2 = time.perf_counter()
+        for (pair, *_), (aligns, scores) in zip(bucket, results):
+            with open(pair.out_path, mode="w") as fp:
+                print_alignments(aligns, scores=scores, ofile=fp)
+        t3 = time.perf_counter()
+        prof["stage"] += t1 - t0
+        prof["pyramid"] += t2 - t1
+        prof["write"] += t3 - t2
+        if profile:
+            v0 = handle[0]
+            logger.info(
+                f"align profile: bucket {bi} P={v0.shape[0]} "
+                f"n={v0.shape[2]} m={handle[1].shape[2]} "
+                f"stage={t1 - t0:.3f}s pyramid={t2 - t1:.3f}s "
+                f"write={t3 - t2:.3f}s"
+            )
+    prof["buckets"] = len(buckets)
+    if profile:
+        logger.info(
+            "align profile: load=%.3fs stage=%.3fs pyramid=%.3fs "
+            "write=%.3fs (%d buckets)"
+            % (prof["load"], prof["stage"], prof["pyramid"], prof["write"],
+               len(buckets))
+        )
+    return prof
 
 
 def _run_pairs(args, valid_pairs):

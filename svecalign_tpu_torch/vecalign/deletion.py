@@ -8,6 +8,7 @@ package from the same seed.
 """
 
 import numpy as np
+import torch
 
 from svecalign_tpu_torch.ops.costs import score_pairs
 from svecalign_tpu_torch.utils.log_utils import logging
@@ -49,6 +50,37 @@ class DeletionKnob:
 
     def percentile_frac_to_del_penalty(self, knob_val: float) -> float:
         return float(np.interp([knob_val], self.x, self.y)[0])
+
+
+def device_del_penalty(
+    counts: torch.Tensor, smax: torch.Tensor, frac: float, valid: torch.Tensor
+) -> torch.Tensor:
+    """Deletion penalties for a batch, on the tensors' device.
+
+    counts: (P, NUM_BINS) sampled-cost histograms (int); smax: (P,) sample
+    maxima; valid: (P,) bool — invalid pairs get the 0.5 placeholder.
+    Mirrors :class:`DeletionKnob` built from a histogram and
+    ``percentile_frac_to_del_penalty`` (cdf -> 27 interior interpolation
+    points -> linear interpolation), so no histogram leaves the device.
+    float32 against the host's float64 can shift a bin boundary
+    (~res_max / 1000)."""
+    dev = counts.device
+    p = counts.shape[0]
+    res_max = torch.where(smax > 0, smax, 1e-4).float()
+    total = counts.sum(dim=1, keepdim=True).clamp(min=1)
+    cdf = counts.cumsum(dim=1) / total.float()
+    knots = torch.linspace(0.0, 1.0, 29, device=dev)
+    kvs = knots[1:-1]  # 27 interior knob points
+    idx = torch.searchsorted(cdf, kvs.expand(p, -1).contiguous())  # (P, 27)
+    cdf_val = idx.float() / NUM_BINS * res_max[:, None]
+    y = torch.cat([torch.zeros((p, 1), device=dev), cdf_val, res_max[:, None]], dim=1)
+    # linear interpolation of (knots, y) at frac, written out
+    x = torch.tensor(frac, dtype=torch.float32, device=dev)
+    i = torch.searchsorted(knots, x, right=True).clamp(1, knots.shape[0] - 1)
+    dx = knots[i] - knots[i - 1]
+    pen = y[:, i - 1] + (x - knots[i - 1]) / dx * (y[:, i] - y[:, i - 1])
+    pen = torch.where(x <= knots[0], y[:, 0], torch.where(x >= knots[-1], y[:, -1], pen))
+    return torch.where(valid, pen, 0.5)
 
 
 def make_del_knob(

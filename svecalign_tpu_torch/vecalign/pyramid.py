@@ -8,11 +8,12 @@ then refine level by level with a banded DP along the upsampled path.
 
 Device/host split:
 - normalisation, downsampling, margin normalizers, dense and banded cost
-  tensors, the dense DP and the banded DP run on ``device``; the banded
-  DP is the CUDA kernel on the card (``dp_backend="cuda"``) or the plain
-  torch loop (``"torch"``);
+  tensors, the dense DP and the banded DP run on ``device``; on the card
+  both DPs are CUDA kernels (the banded one unless ``dp_backend="torch"``
+  asks for the plain torch loop), on the CPU the plain torch loops;
 - path bookkeeping (upsample / extend / slant) and the tracebacks are
-  tiny, irregular host code: each level pulls its planes once.
+  tiny, irregular host code: each level pulls its planes once (one
+  pair's planes are small; the walk kernels serve the batched aligner).
 
 Every random draw comes from one numpy ``default_rng(seed)`` in the JAX
 package's order, so both packages see the same samples.
@@ -27,7 +28,7 @@ import torch
 
 from svecalign_tpu_torch.ops import costs as costs_ops
 from svecalign_tpu_torch.ops import dp as dp_ops
-from svecalign_tpu_torch.ops import dp_cuda
+from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda
 from svecalign_tpu_torch.utils.log_utils import logging
 from svecalign_tpu_torch.utils.torch_setup import resolve_device
 from svecalign_tpu_torch.vecalign.deletion import make_del_knob
@@ -288,8 +289,13 @@ def vecalign(
     runtimes["Full DP make features"] = perf_counter() - t0
 
     t0 = perf_counter()
-    _, bp = dp_ops.dense_dp(top["costs_1to1"], np.float32(top["del_penalty"]))
-    top["x_y_tb"] = bp.cpu().numpy()
+    _, bp = dense_dp_cuda.dense_dp_cuda(
+        top["costs_1to1"][None].contiguous(),
+        torch.tensor([top["del_penalty"]], dtype=torch.float32).to(dev),
+        torch.tensor([top["size0"]], dtype=torch.int32).to(dev),
+        torch.tensor([top["size1"]], dtype=torch.int32).to(dev),
+    )
+    top["x_y_tb"] = bp[0].cpu().numpy()
     runtimes["Full DP"] = perf_counter() - t0
     t0 = perf_counter()
     top["alignments"] = dense_traceback(top["x_y_tb"])

@@ -1,9 +1,10 @@
 """Host-side tracebacks and score post-processing.
 
-Copied from the JAX package's ``vecalign/traceback.py`` (the host walks
-only; the device walks belong to the batched driver). Traceback is
-sequential and irregular, so it stays on the host: the DP kernels emit
-compact backpointer planes, one pull per level. Semantics match reference
+Copied from the JAX package's ``vecalign/traceback.py``. The host walks
+(:func:`sparse_traceback`, :func:`dense_traceback`) read the whole
+backpointer planes, one pull per level; ``*_alignments_from_steps`` rebuild
+the same alignments from a path that was walked on the device
+(:mod:`svecalign_tpu_torch.ops.traceback_cuda`). Semantics match reference
 svecalign/vecalign/dp_utils.py:105-174.
 """
 
@@ -68,6 +69,66 @@ def sparse_traceback(
     costs = np.array(cum_costs[1:]) - np.array(cum_costs[:-1])
     scores = process_scores(costs, alignments)
     return alignments, scores
+
+
+def sparse_alignments_from_steps(
+    xs: np.ndarray,
+    ys: np.ndarray,
+    xps: np.ndarray,
+    yps: np.ndarray,
+    cs: np.ndarray,
+) -> Tuple[List[Alignment], np.ndarray]:
+    """Rebuild alignments + scores from a device-walked banded path
+    (ops.dp.banded_traceback_walk). Same order of operations as
+    :func:`sparse_traceback`: the cumulative cost is recorded BEFORE the
+    origin check, so the (0, 0) node's csum is included."""
+    alignments: List[Alignment] = []
+    cum_costs = []
+    for xx, yy, xp, yp, cc in zip(xs, ys, xps, yps, cs):
+        xx, yy = int(xx), int(yy)
+        cum_costs.append(np.float64(cc))
+        if xx == yy == 0:
+            break
+        if xx < 0 or yy < 0:
+            raise Exception("traceback bug")
+        alignments.append(
+            (list(range(xx - int(xp), xx)), list(range(yy - int(yp), yy)))
+        )
+    else:
+        # the device walk emits exactly A+2 >= x0+y0+1 steps, enough for
+        # any unit-step path; not reaching (0, 0) means corrupt pointers
+        raise Exception("traceback bug")
+
+    alignments.reverse()
+    cum_costs.reverse()
+    costs = np.array(cum_costs[1:]) - np.array(cum_costs[:-1])
+    scores = process_scores(costs, alignments)
+    return alignments, scores
+
+
+def dense_alignments_from_steps(
+    xs: np.ndarray, ys: np.ndarray, vs: np.ndarray
+) -> List[Alignment]:
+    """Rebuild alignments from a device-walked dense path
+    (ops.dp.dense_traceback_walk); semantics of :func:`dense_traceback`."""
+    alignments: List[Alignment] = []
+    for xx, yy, v in zip(xs, ys, vs):
+        xx, yy = int(xx), int(yy)
+        if xx == yy == 0:
+            break
+        if v == 0:
+            alignments.append(([xx - 1], [yy - 1]))
+        elif v == 1:
+            alignments.append(([], [yy - 1]))
+        elif v == 2:
+            alignments.append(([xx - 1], []))
+        else:
+            raise Exception("got unknown value")
+    else:
+        raise Exception("traceback bug")
+
+    alignments.reverse()
+    return alignments
 
 
 def dense_traceback(x_y_tb: np.ndarray) -> List[Alignment]:

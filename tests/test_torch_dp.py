@@ -150,6 +150,40 @@ def test_dense_dp_matches_jax(seed, shape, ties):
     np.testing.assert_allclose(csum.numpy(), np.asarray(want_csum), rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(0, 7), (5, 0), (0, 0)])
+def test_dense_dp_with_an_empty_side(shape):
+    """Only the boundary row or column exists: insertions along row 0,
+    deletions along column 0, the origin marked 4."""
+    csum, bp = tdp.dense_dp(torch.zeros(shape), 0.25)
+    n, m = shape
+    assert csum.shape == bp.shape == (n + 1, m + 1)
+    assert bp[0, 0] == 4 and (bp.flatten()[1:] == (1 if n == 0 else 2)).all()
+    np.testing.assert_array_equal(csum.flatten().numpy(), 0.25 * np.arange(n + m + 1))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_dp_batched_is_dense_dp_per_pair(seed):
+    """The bucket's plain version: each pair's own dense_dp on its own
+    rectangle, -1 / +inf outside; the per-pair pyramid's P = 1 call with
+    full sizes equals dense_dp."""
+    rng = np.random.default_rng(seed)
+    sizes = [(9, 12), (14, 3), (1, 1), (0, 4)]
+    costs = torch.from_numpy(np.round(rng.uniform(0, 1, (4, 14, 12)) * 4).astype(np.float32) / 4)
+    pens = torch.tensor([0.25, 0.5, 0.125, 0.375])
+    xs = torch.tensor([n for n, _ in sizes], dtype=torch.int32)
+    ys = torch.tensor([m for _, m in sizes], dtype=torch.int32)
+    csum, bp = tdp.dense_dp_batched(costs, pens, xs, ys)
+    for p, (n, m) in enumerate(sizes):
+        want_csum, want_bp = tdp.dense_dp(costs[p, :n, :m], pens[p])
+        assert torch.equal(bp[p, :n + 1, :m + 1], want_bp)
+        assert torch.equal(csum[p, :n + 1, :m + 1], want_csum)
+        assert int((bp[p] != -1).sum()) == (n + 1) * (m + 1)
+    full = tdp.dense_dp_batched(costs[:1], pens[:1], torch.tensor([14], dtype=torch.int32),
+                                torch.tensor([12], dtype=torch.int32))
+    one = tdp.dense_dp(costs[0], pens[0])
+    assert torch.equal(full[0][0], one[0]) and torch.equal(full[1][0], one[1])
+
+
 def test_extend_band_offsets_matches_jax():
     b = np.array([-3, -3, -2, -1, -1, 0], np.int32)
     np.testing.assert_array_equal(tdp.extend_band_offsets(b), jdp.extend_band_offsets(b))

@@ -28,9 +28,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "svecalign_tpu_torch.ops.dp_cuda" in res["imported"]
     assert "svecalign_tpu_torch.seg_align.align" in res["imported"]
-    for name in ("ops.attention_cuda", "models.sonar_encoder", "seg_align.embed"):
+    for name in ("ops.attention_cuda", "models.sonar_encoder", "seg_align.embed",
+                 "ops.dense_dp_cuda", "ops.traceback_cuda", "vecalign.batch"):
         assert f"svecalign_tpu_torch.{name}" in res["imported"]
     mods = res["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib"]
     # mind the prefix: svecalign_tpu_torch starts with "svecalign_tpu"
     assert not [m for m in mods if m == "svecalign_tpu" or m.startswith("svecalign_tpu.")]
+    # and nothing of the JAX package's C++ backend (native/)
+    assert not [m for m in mods if m == "native" or m.startswith("native.")]
