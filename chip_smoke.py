@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, in
    every geometry its original admits: the banded DP (both routes), the
    dense DP and the dense walk on ragged buckets, the banded walk on every
-   banded case's planes, the rel-key attention;
+   banded case's planes, the rel-key attention (up to T = 3000);
 3. run the stage-5.4 CLI (``svecalign_tpu_torch.seg_align.align``) on a
    synthetic hour-scale plenary pair written from a seed: the launch
    counts show it went through the kernels, its output must equal a run
@@ -32,9 +32,30 @@ Phases, in order; any failure exits non-zero:
    each of the run's buckets against SDPA and its bound (and against its
    plain version at the modal bucket).
 
+6. run the stage-5.3 CLI with the full-width SpeechLASER encoder, the
+   pipeline's default (bf16, random weights from a seed), on the same
+   document: one fp16 ``.npy`` row per window, all finite, a sample of
+   every bucket's windows against an fp32 forward of the same weights,
+   device window assembly against host slicing with fp32 uploads; walls,
+   phases and the share of the bf16 peak;
+7. the post-align chain through the port's CLIs: LASER stage 5.3 on a
+   second document, stage 5.4 over the pair, stages 6.1, 6.3 (at the
+   pipeline's settings: chains of up to 3 contiguous alignments, gaps of
+   1 s or less, 20 s or less on both sides) and 6.4 (1 s or more on both
+   sides), then stage 6.5 with LASER and with SONAR on 6.4's output; again
+   from 6.3 with chains of up to 6 alignments, which stage 6.5 must embed
+   (coverage): every tsv line at its stage-5.3 row or at a finite row of
+   the 6.5 file that equals encode_spans of its span; SONAR's runs launch
+   the rel-key kernel 24 times per chunk and the plain attention never;
+8. kernel coverage beyond the chain: SONAR's encode_spans at the long
+   buckets (25-60 s spans, T = 1500-3000), which stage 6.5 meets only
+   where one alignment is that long, against the plain attention path,
+   and the kernel timed there against SDPA and its bound.
+
 ``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
 alone: no SONAR model is built) and prints their ``[time]`` lines;
-``--profile`` profiles one warm stage-5.3 run instead.
+``--laser`` runs phases 1, 2 and 6-8; ``--profile`` profiles one warm
+stage-5.3 run with each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -367,8 +388,11 @@ _ARNG = np.random.default_rng(77)
 # padding-only rows, chunks of the main path's 700-, 1400- and 2000-frame
 # buckets (T = 350, 700 and 1000 after stacking), the 200-frame bucket with
 # short rows, a T that is no multiple of a tile with the last batch row
-# ragged, lengths that are whole key tiles, and the asymmetric clip with
-# lengths
+# ragged, lengths that are whole key tiles, the asymmetric clip with
+# lengths, and the long buckets (3000, 4500 and 6000 frames: T = 1500,
+# 2250 and 3000; spans of 20-60 s) with ragged lengths and a length-0
+# row, at few batch rows (the plain version's fp32 scores are
+# B x H x T^2)
 ATTN_CASES = [
     ("test geometry B=2 H=4 T=200", 2, 4, 200, (200, 150), 64, 8),
     ("test geometry B=1 H=2 T=128", 1, 2, 128, (128,), 64, 8),
@@ -383,6 +407,10 @@ ATTN_CASES = [
     ("T=130, last batch row ragged", 3, 4, 130, (130, 130, 77), 64, 8),
     ("lengths of whole key tiles (128, 256)", 2, 4, 300, (128, 256), 64, 8),
     ("clip (16, 4), C=21, with lengths", 2, 4, 200, (200, 133), 16, 4),
+    ("long bucket B=2 H=16 T=1500", 2, 16, 1500, _ragged(_ARNG, 2, 1000, 1500), 64, 8),
+    ("long bucket B=2 H=16 T=2250", 2, 16, 2250, _ragged(_ARNG, 2, 1500, 2250), 64, 8),
+    ("long bucket B=3 H=16 T=3000 with a length-0 row", 3, 16, 3000,
+     _ragged(_ARNG, 2, 2000, 3000) + (0,), 64, 8),
 ]
 # |kernel - plain| <= atol + rtol |plain| on valid rows. fp32: the tests'
 # tolerance (summation order and FMA only). bf16: about one bf16 step of
@@ -1421,11 +1449,14 @@ def concat_windows(segs, max_run=5, max_dur_s=20.0, sr=16000):
     return sorted(lines)
 
 
-def write_synthetic_document(root, seconds, seed=0):
-    """One stage-5.3 input tree: ``root/metadata.tsv``, a 16 kHz PCM16 WAV
-    (speech-like tones in noise over VAD-like segments, near silence
-    between them) written by the port's writer, and its concat windows
-    ``cat_segs/en/{stem}.txt``. Returns (paths dict, window lines)."""
+def write_synthetic_document(root, seconds, seed=0, lang=SRC_LANG):
+    """One side of a stage-5.3 input tree: a 16 kHz PCM16 WAV
+    ``raw_audios/{lang}/{STEM}_{lang}.wav`` (speech-like tones in noise over
+    VAD-like segments, near silence between them) written by the port's
+    writer, its segments ``segments/{lang}/`` and concat windows
+    ``cat_segs/{lang}/`` (``{STEM}_{lang}.txt``), and ``root/metadata.tsv``,
+    which names the pair's two WAVs whichever side is written. Returns
+    (paths dict, window lines)."""
     from svecalign_tpu_torch.utils import audio_io
 
     sr = 16000
@@ -1439,29 +1470,32 @@ def write_synthetic_document(root, seconds, seed=0):
         voiced = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3)) / h for h in (1, 2, 3))
         amp = rng.uniform(0.05, 0.3) * np.hanning(e - s).astype(np.float32) ** 0.2
         wave[s:e] += amp * (0.6 * voiced + 0.4 * rng.standard_normal(e - s)).astype(np.float32)
-    name = f"{STEM}_{SRC_LANG}"
-    wav = root / "raw_audios" / SRC_LANG / f"{name}.wav"
+    name = f"{STEM}_{lang}"
+    wav = root / "raw_audios" / lang / f"{name}.wav"
     wav.parent.mkdir(parents=True, exist_ok=True)
     audio_io.write(str(wav), np.clip(wave, -1.0, 1.0), sr)
     lines = concat_windows(segs)
-    cat = root / "cat_segs" / SRC_LANG
-    cat.mkdir(parents=True, exist_ok=True)
-    (cat / f"{name}.txt").write_text("".join(x + "\n" for x in lines), encoding="utf-8")
-    tgt = root / "raw_audios" / TGT_LANG / f"{STEM}_{TGT_LANG}.wav"
-    (root / "metadata.tsv").write_text(f"{wav}\t{tgt}\n", encoding="utf-8")
+    for kind, text in (("cat_segs", "".join(x + "\n" for x in lines)),
+                       ("segments", "".join(f"{s} {e}\n" for s, e in segs))):
+        d = root / kind / lang
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{name}.txt").write_text(text, encoding="utf-8")
+    src, tgt = (root / "raw_audios" / x / f"{STEM}_{x}.wav" for x in (SRC_LANG, TGT_LANG))
+    (root / "metadata.tsv").write_text(f"{src}\t{tgt}\n", encoding="utf-8")
     return {"root": root, "metadata": root / "metadata.tsv", "wav": wav,
-            "n_segments": len(segs)}, lines
+            "n_segments": len(segs), "segments": segs}, lines
 
 
-def embed_argv(paths, out_dir, device="cuda", extra=()):
-    """argv of the stage-5.3 CLI (SONAR, defaults otherwise) for a document
-    written by write_synthetic_document."""
+def embed_argv(paths, out_dir, device="cuda", extra=(), kind="sonar", lang=SRC_LANG):
+    """argv of the stage-5.3 CLI (the ``kind`` encoder, defaults otherwise)
+    for the ``lang`` side of a document written by write_synthetic_document."""
     return [str(paths["metadata"]), str(out_dir), "--concat_dir", str(paths["root"] / "cat_segs"),
-            "--lang", SRC_LANG, "--embed_model_type", "sonar", "--device", device, *extra]
+            "--lang", lang, "--embed_model_type", kind, "--device", device,
+            *(["--use_tgt"] if lang == TGT_LANG else []), *extra]
 
 
-def embed_output(out_dir):
-    return Path(out_dir) / SRC_LANG / f"{STEM}_{SRC_LANG}.embed"
+def embed_output(out_dir, lang=SRC_LANG):
+    return Path(out_dir) / lang / f"{STEM}_{lang}.embed"
 
 
 def _reset_launches():
@@ -1483,7 +1517,8 @@ def _launches():
 
 
 def _bucket_plan(model, lines, n_samples):
-    """{bucket: [n_frames of each window]} as the encoder buckets them."""
+    """{bucket: [length of each window]} as the encoder buckets them, in
+    its units (SONAR: 10 ms frames; SpeechLASER: samples)."""
     plan = {}
     for line in lines:
         s, e = map(int, line.split())
@@ -1492,11 +1527,11 @@ def _bucket_plan(model, lines, n_samples):
     return plan
 
 
-def _run_embed(stage, paths, out_dir):
+def _run_embed(stage, paths, out_dir, **kw):
     import torch
 
     t0 = time.perf_counter()
-    stage.main(embed_argv(paths, out_dir))
+    stage.main(embed_argv(paths, out_dir, **kw))
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -1646,47 +1681,13 @@ def phase_attention_times(info, device):
     B, H = info["batch_size"], info["n_heads"]
     rows, modal = [], None
     for bucket in sorted(info["plan"]):
-        T = bucket // 2
         frames = list(info["plan"][bucket][:B]) + [0] * max(0, B - len(info["plan"][bucket]))
         lens = tuple(min(f, bucket) // 2 for f in frames)
-        rng = np.random.default_rng(99 + bucket)
-        q, k, v, table, lengths = attention_inputs(rng, B, H, T, lens, 64, 8, torch.bfloat16, device)
-        got = attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
-        want = attention.relkey_attention(q, k, v, table, lengths)
-        err = compare_attention(got, want, lengths, "bfloat16")
-        sdpa = _sdpa_args(q, k, v, table, lengths)
-        lib = F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3]).permute(0, 2, 1, 3)
-        lib_err = float((lib.float() - want.float())[
-            (torch.arange(T, device=device)[None, :] < lengths[:, None])].abs().max())
-
-        def kernel():
-            return attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
-
-        def library():
-            return F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3])
-
-        g = [_graph_time_ms(f) for f in (kernel, library, library, kernel)]
-        e = [_cuda_time_ms(f, reps=20) for f in (kernel, library, library, kernel)]
-        ms, library_ms = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
-        bound, by = _attention_bound_ms(B, T, H, lens)
-        row = {"T": T, "launches": info["n_layers"] * info["chunks"][bucket], "ms": ms,
-               "library_ms": library_ms, "eager_ms": (e[0] + e[3]) / 2,
-               "library_eager_ms": (e[1] + e[2]) / 2, "bound_ms": bound, "bound_by": by,
-               "err": err, "lengths": (min(lens), max(lens))}
-        if bucket == info["modal_bucket"]:
-            row["plain_ms"] = _cuda_time_ms(
-                lambda: attention.relkey_attention(q, k, v, table, lengths), reps=5, warmup=1)
+        row = _time_attention_bucket(bucket, lens, H, info["n_layers"] * info["chunks"][bucket],
+                                     device, with_plain=bucket == info["modal_bucket"])
+        if "plain_ms" in row:
             modal = row
         rows.append(row)
-        del q, k, v, table, lengths, got, want, sdpa, lib
-        _log(f"[time] relkey_attention bucket {bucket} frames (B={B} H={H} T={T} bf16, lengths "
-             f"{min(lens)}-{max(lens)}, {row['launches']} launches per run): kernel {ms:.4f} ms "
-             f"({g[0]:.4f}, {g[3]:.4f}; eager {row['eager_ms']:.4f}), SDPA with a materialised "
-             f"bias {library_ms:.4f} ms ({g[1]:.4f}, {g[2]:.4f}; eager "
-             f"{row['library_eager_ms']:.4f}; its max abs diff to plain {lib_err:.3e}), bound "
-             f"{bound:.6f} ms ({by}), kernel / SDPA {ms / library_ms:.3f}, kernel / bound "
-             f"{ms / bound:.2f}, err {err:.3e}"
-             + (f", plain {row['plain_ms']:.4f} ms (modal bucket)" if "plain_ms" in row else ""))
     per_run = sum(r["launches"] * r["ms"] for r in rows)
     _log(f"[time] relkey_attention per stage-5.3 run, sum of launches x kernel ms (graph) over "
          f"the buckets: {per_run:.3f} ms")
@@ -1694,10 +1695,528 @@ def phase_attention_times(info, device):
     return modal, rows
 
 
+PLAIN_ROWS_LONG_T = 2  # batch rows held against the plain version past T = 1000
+
+
+def _time_attention_bucket(bucket, lens, H, launches, device, with_plain=False):
+    """One bucket's row of phase_attention_times: q, k, v at (B, T = bucket
+    / 2, H, 64) bf16 with ``lens``, the kernel held against the plain
+    version (on the first PLAIN_ROWS_LONG_T batch rows past T = 1000, where
+    the plain version's fp32 scores would take tens of GB), timed against
+    SDPA in turns by graph replay and eagerly, its bound; the plain version
+    timed when ``with_plain``."""
+    import torch
+    import torch.nn.functional as F
+
+    from svecalign_tpu_torch.ops import attention, attention_cuda
+
+    B, T = len(lens), bucket // 2
+    rng = np.random.default_rng(99 + bucket)
+    q, k, v, table, lengths = attention_inputs(rng, B, H, T, lens, 64, 8, torch.bfloat16, device)
+    got = attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
+    n = B if T <= 1000 else PLAIN_ROWS_LONG_T
+    want = attention.relkey_attention(q[:n], k[:n], v[:n], table, lengths[:n])
+    err = compare_attention(got[:n], want, lengths[:n], "bfloat16")
+    sdpa = _sdpa_args(q, k, v, table, lengths)
+    lib = F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3]).permute(0, 2, 1, 3)
+    lib_err = float((lib[:n].float() - want.float())[
+        (torch.arange(T, device=device)[None, :] < lengths[:n, None])].abs().max())
+
+    def kernel():
+        return attention_cuda.relkey_attention_cuda(q, k, v, table, lengths)
+
+    def library():
+        return F.scaled_dot_product_attention(*sdpa[:3], attn_mask=sdpa[3])
+
+    g = [_graph_time_ms(f) for f in (kernel, library, library, kernel)]
+    e = [_cuda_time_ms(f, reps=20) for f in (kernel, library, library, kernel)]
+    ms, library_ms = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
+    bound, by = _attention_bound_ms(B, T, H, lens)
+    row = {"T": T, "launches": launches, "ms": ms,
+           "library_ms": library_ms, "eager_ms": (e[0] + e[3]) / 2,
+           "library_eager_ms": (e[1] + e[2]) / 2, "bound_ms": bound, "bound_by": by,
+           "err": err, "lengths": (min(lens), max(lens))}
+    if with_plain:
+        row["plain_ms"] = _cuda_time_ms(
+            lambda: attention.relkey_attention(q, k, v, table, lengths), reps=5, warmup=1)
+    del q, k, v, table, lengths, got, want, sdpa, lib
+    torch.cuda.empty_cache()
+    _log(f"[time] relkey_attention bucket {bucket} frames (B={B} H={H} T={T} bf16, lengths "
+         f"{min(lens)}-{max(lens)}, {launches} launches per run): kernel {ms:.4f} ms "
+         f"({g[0]:.4f}, {g[3]:.4f}; eager {row['eager_ms']:.4f}), SDPA with a materialised "
+         f"bias {library_ms:.4f} ms ({g[1]:.4f}, {g[2]:.4f}; eager "
+         f"{row['library_eager_ms']:.4f}; its max abs diff to plain {lib_err:.3e}), bound "
+         f"{bound:.6f} ms ({by}), kernel / SDPA {ms / library_ms:.3f}, kernel / bound "
+         f"{ms / bound:.2f}, err {err:.3e} (first {n} rows)"
+         + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else ""))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Stage 5.3 with SpeechLASER, and the chain 5.3 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5
+# ---------------------------------------------------------------------------
+
+SPAN_MIN_COSINE = 0.999  # a stage-6.5 row against encode_spans of its span
+UPLOAD_MIN_COSINE = 0.9999  # fp32 upload: device against host window assembly
+LASER_SAMPLES_PER_BUCKET = 4  # windows per bucket held against the fp32 forward
+MISS_SAMPLES = 8  # stage-6.5 rows held against encode_spans, per run
+# stages 6.3 and 6.4 at the pipeline's settings; a second run of 6.3 at
+# --max_num_align 6 gives stage 6.5 spans to embed (coverage, see phase_chain)
+CONCAT_ARGS = ("--max_sil", "1.0", "--max_dur", "20.0", "--apply_dur_cond_to_both_sides")
+CHAIN_TRAFFIC = (("pipeline settings", 3), ("coverage", 6))  # (label, --max_num_align)
+MIN_DUR_S = 1.0
+KEEP_SHARE = 0.8  # share of the non-deletions under stage 6.1's cost limit
+LONG_SPAN_SECONDS = (25, 35, 50, 60)  # SONAR spans of the 3000-6000-frame buckets
+
+
+def _row_cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1),
+                                       1e-30)
+
+
+def laser_row_flops(cfg, width):
+    """Operations (two per multiply-add) of one row of ``width`` samples
+    through the LASER encoder, by part: the conv extractor, the projection
+    and positional conv, the trunk's dense layers, attention's two
+    products over the padded frames."""
+    n, c_in, ext = width, 1, 0.0
+    for dim, k, stride in cfg.conv_layers:
+        n = (n - k) // stride + 1
+        ext += 2.0 * n * dim * c_in * k
+        c_in = dim
+    d, f = cfg.encoder_dim, cfg.encoder_ffn_dim
+    return {
+        "extractor": ext,
+        "projection + positional conv": 2.0 * n * c_in * d
+        + 2.0 * n * d * (d // cfg.conv_pos_groups) * cfg.conv_pos_kernel,
+        "trunk dense": cfg.encoder_layers * 2.0 * n * (4 * d * d + 2 * d * f),
+        "attention": cfg.encoder_layers * 4.0 * n * n * d,
+    }
+
+
+def _laser_fp32_reference(model):
+    """An fp32-compute LaserSpeechEncoder holding the bf16 model's weights."""
+    import dataclasses
+
+    import torch
+
+    from svecalign_tpu_torch.models.laser_encoder import LaserSpeechEncoder
+
+    with torch.device("meta"):
+        ref = LaserSpeechEncoder(dataclasses.replace(model.config, dtype="float32"))
+    ref.load_state_dict({k: v.float() for k, v in model.model.state_dict().items()}, assign=True)
+    return ref.eval().requires_grad_(False)
+
+
+def _read_rows(path, kind, dim=1024):
+    """A stage-5.3/6.5 ``.embed`` file as fp32 rows: a stopes .npy for
+    SpeechLASER, headerless fp16 for SONAR."""
+    if kind == "speech_laser":
+        return np.load(path).astype(np.float32)
+    return np.fromfile(path, dtype=np.float16).reshape(-1, dim).astype(np.float32)
+
+
+def phase_laser_path(workdir, device):
+    """Stage 5.3 through the CLI on the card with the full-width SpeechLASER
+    encoder, the pipeline's default (bf16, random weights from numpy seed
+    0), on the 10-minute document: one fp16 .npy row per window, all
+    finite; a sample of every bucket's windows against an fp32 forward of
+    the same weights; with fp32 uploads, device window assembly against
+    host slicing; walls, phases and the share of the bf16 peak. Returns
+    what the chain needs."""
+    import torch
+
+    from svecalign_tpu_torch.models import encode_common
+    from svecalign_tpu_torch.seg_align import embed as stage
+    from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.audio_utils import load_waveform
+
+    dev = device.type
+    t0 = time.perf_counter()
+    paths, lines = write_synthetic_document(workdir, DOC_SECONDS, seed=0)
+    n_samples = DOC_SECONDS * 16000
+    _log(f"[laser] wrote a {DOC_SECONDS} s 16 kHz document: {paths['n_segments']} VAD-like "
+         f"segments, {len(lines)} concat windows, in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    model = embed_model_utils.load_embed_model("speech_laser", max_tokens=150 * 16000,
+                                               device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.model.parameters())
+    _log(f"[laser] weight init (numpy seed 0, {n_params} parameters, config {cfg}): {init_s:.3f}s")
+
+    plan = _bucket_plan(model, lines, n_samples)  # {bucket: [samples of each window]}
+    rows_of = {b: model._rows_per_chunk(b) for b in plan}
+    chunks = {b: -(-len(v) // rows_of[b]) for b, v in plan.items()}
+    parts = {}
+    for b in plan:
+        for key, val in laser_row_flops(cfg, b).items():
+            parts[key] = parts.get(key, 0.0) + chunks[b] * rows_of[b] * val
+    flops = sum(parts.values())
+    padded_s = sum(chunks[b] * rows_of[b] * b for b in plan) / 16000
+    audio_s = sum(sum(v) for v in plan.values()) / 16000
+    for b in sorted(plan):
+        _log(f"[laser] bucket {b // 16000} s: {len(plan[b])} windows, {chunks[b]} chunks of "
+             f"{rows_of[b]} rows, mean {np.mean(plan[b]) / 16000:.2f} s")
+    _log(f"[laser] {len(lines)} windows, {audio_s:.1f} s of audio, {padded_s:.1f} s as padded "
+         f"chunks (padding rows included), {sum(chunks.values())} chunks; {flops / 1e15:.4f} "
+         "PFLOP: " + ", ".join(f"{k} {v / 1e12:.1f} TFLOP" for k, v in parts.items()))
+
+    out = workdir / "emb"
+    wall = _run_embed(stage, paths, out, kind="speech_laser", device=dev)
+    rows = np.load(embed_output(out))
+    if rows.dtype != np.float16 or rows.shape != (len(lines), cfg.encoder_dim):
+        raise AssertionError(f".embed holds {rows.dtype} {rows.shape}, want float16 "
+                             f"({len(lines)}, {cfg.encoder_dim})")
+    rows = rows.astype(np.float32)
+    if not np.isfinite(rows).all():
+        raise AssertionError(".embed has non-finite values")
+    norms = np.linalg.norm(rows, axis=1)
+    _log(f"[laser] stage-5.3 CLI (--embed_model_type speech_laser, defaults) on the card: "
+         f"{wall:.3f}s wall (first run); .embed: a stopes .npy of {rows.shape[0]} x "
+         f"{rows.shape[1]} fp16 rows, all finite, row norms {norms.min():.3f}-{norms.max():.3f}")
+
+    wall_warm = _run_embed(stage, paths, workdir / "emb_warm", kind="speech_laser", device=dev)
+    prof = encode_common.start_encode_profile()
+    wall_prof = _run_embed(stage, paths, workdir / "emb_prof", kind="speech_laser", device=dev)
+    encode_common.stop_encode_profile()
+    audio_min = DOC_SECONDS / 60
+    _log(f"[time] LASER stage-5.3 CLI, warm: {wall_warm:.3f}s wall, {wall_warm / audio_min:.3f}s "
+         f"per minute of audio (first run {wall:.3f}s, {wall / audio_min:.3f}s per minute); "
+         f"{flops / wall_warm / 1e12:.1f} TFLOP/s over the warm wall, "
+         f"{100 * flops / wall_warm / H100_BF16_OPS_PER_S:.1f}% of the bf16 dense peak")
+    host_io = prof["file_s"] - sum(prof[k] for k in encode_common.PROFILE_KEYS)
+    _log(f"[time] LASER stage-5.3 phases (a run with a device sync per phase, {wall_prof:.3f}s "
+         f"wall): weight init {init_s:.3f}s (once per process) | "
+         + " | ".join(f"{k[:-2]} {prof[k]:.3f}s" for k in encode_common.PROFILE_KEYS)
+         + f" | wav read {prof['read_s']:.3f}s | other host work and .embed write "
+         f"{host_io - prof['read_s']:.3f}s | {prof['chunks']} chunks; trunk at "
+         f"{(parts['trunk dense'] + parts['attention']) / max(prof['trunk_s'], 1e-9) / 1e12:.1f} "
+         f"TFLOP/s, extractor at {parts['extractor'] / max(prof['frontend_s'], 1e-9) / 1e12:.1f}")
+
+    # a sample of every bucket's windows against an fp32 forward of the
+    # same weights, padded to the same bucket
+    waveform = load_waveform(str(paths["wav"]), sr=16000)
+    spans = [tuple(map(int, line.split())) for line in lines]
+    by_bucket = {}
+    for i, (s, e) in enumerate(spans):
+        by_bucket.setdefault(model._bucket(min(e, n_samples) - s), []).append(i)
+    ref = _laser_fp32_reference(model)
+    worst = 1.0
+    for b, ids in sorted(by_bucket.items()):
+        pick = ids[:: max(1, len(ids) // LASER_SAMPLES_PER_BUCKET)][:LASER_SAMPLES_PER_BUCKET]
+        wav = np.zeros((len(pick), b), np.float32)
+        lengths = np.zeros(len(pick), np.int32)
+        for r, i in enumerate(pick):
+            w = waveform[spans[i][0]:spans[i][1]][:b]
+            wav[r, :len(w)], lengths[r] = w, len(w)
+        with torch.inference_mode():
+            want = ref(torch.from_numpy(wav).to(device), torch.from_numpy(lengths).to(device))
+        cos = _row_cosines(rows[pick], want.cpu().numpy())
+        worst = min(worst, float(cos.min()))
+        _log(f"[laser] bucket {b // 16000} s: {len(pick)} windows against an fp32 forward of the "
+             f"same weights, per-row cosine min {cos.min():.6f}")
+    del ref
+    torch.cuda.empty_cache()
+    if worst < MIN_COSINE:
+        raise AssertionError(f"LASER rows against the fp32 forward: min cosine {worst} < "
+                             f"{MIN_COSINE}")
+
+    # fp32 uploads: device window assembly against host slicing
+    model.upload_dtype = "fp32"
+    try:
+        on_dev = model.encode_spans(waveform, spans)
+        on_host = model.encode([waveform[s:e] for s, e in spans])
+    finally:
+        model.upload_dtype = "int16"
+    cos = _row_cosines(on_dev, on_host)
+    _log(f"[laser] --upload_precision fp32: --window_assembly device against host, per-row "
+         f"cosine min {cos.min():.8f}, max abs difference {np.abs(on_dev - on_host).max():.3e}"
+         f"{' (bit-equal)' if np.array_equal(on_dev, on_host) else ''}")
+    if cos.min() < UPLOAD_MIN_COSINE:
+        raise AssertionError(f"device and host assembly: min cosine {cos.min()} < "
+                             f"{UPLOAD_MIN_COSINE}")
+    return {"paths": paths, "lines": lines, "waveform": waveform, "emb_dir": out}
+
+
+def _span_chunks(model, spans, n_samples):
+    """{bucket: chunks} of ``model``'s encode_spans over ``spans``."""
+    counts = {}
+    for s, e in spans:
+        bucket = model._span_plan(s, max(min(e, n_samples) - s, 0))[0]
+        counts[bucket] = counts.get(bucket, 0) + 1
+    return {b: -(-n // model._rows_per_chunk(b)) for b, n in counts.items()}
+
+
+def _stage_6_5(kind, model, root, adir, emb_dir, spans, laser, dev):
+    """Stage 6.5 through its CLI on the source side of ``adir``'s
+    alignments (source spans ``spans``) with the ``kind`` encoder and its
+    stage-5.3 rows in ``emb_dir``; the checks of phase_chain. Returns (wall,
+    hits, misses, chunks by bucket, log text)."""
+    import torch
+
+    from svecalign_tpu_torch.models import w2v_bert
+    from svecalign_tpu_torch.postprocess import embed_align
+
+    hit_file = embed_output(emb_dir)
+    n_hit_rows = _read_rows(hit_file, kind).shape[0]
+    out = root / f"ea_{kind}_{adir.name}"
+    _reset_launches()
+    t0 = time.perf_counter()
+    embed_align.main([str(laser["paths"]["metadata"]), str(out), "--align_dir", str(adir),
+                      "--seg_dir", str(root / "segments"),
+                      "--concat_seg_dir", str(root / "cat_segs"),
+                      "--concat_seg_embed_dir", str(emb_dir), "--embed_model_type", kind,
+                      "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG, "--device", dev])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = _launches(), dict(w2v_bert.ATTENTION_CALLS)
+    name = f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}.src"
+    tsv = (out / f"{SRC_LANG}-{TGT_LANG}" / f"{name}.tsv").read_text().splitlines()
+    if len(tsv) != len(spans):
+        raise AssertionError(f"6.5 {kind}: {len(tsv)} tsv lines for {len(spans)} alignments")
+    miss_file = out / f"{SRC_LANG}-{TGT_LANG}" / f"{name}.embed"
+    hits, misses = 0, []
+    for i, line in enumerate(tsv):
+        path, row = line.split("\t")
+        row = int(row)
+        if path == hit_file.as_posix():
+            if not (0 <= row < n_hit_rows and laser["lines"][row] == "%d %d" % spans[i]):
+                raise AssertionError(f"6.5 {kind}: line {i} points at stage-5.3 row {row}, "
+                                     "which is not its span")
+            hits += 1
+        elif path == miss_file.as_posix():
+            misses.append((i, row))
+        else:
+            raise AssertionError(f"6.5 {kind}: line {i} points at {path}")
+    msg = ""
+    if misses:
+        got = _read_rows(miss_file, kind)
+        if max(r for _, r in misses) >= len(got) or not np.isfinite(got).all():
+            raise AssertionError(f"6.5 {kind}: a miss row is out of its file ({len(got)} rows) "
+                                 "or not finite")
+        longest = max(misses, key=lambda m: spans[m[0]][1] - spans[m[0]][0])
+        sample = sorted(set(misses[:: max(1, len(misses) // MISS_SAMPLES)][:MISS_SAMPLES - 1]
+                            + [longest]))
+        want = model.encode_spans(laser["waveform"], [spans[i] for i, _ in sample],
+                                  fp16_pull=True)
+        cos = _row_cosines(got[[r for _, r in sample]], want.astype(np.float32))
+        if cos.min() < SPAN_MIN_COSINE:
+            raise AssertionError(f"6.5 {kind}: miss rows against encode_spans, min cosine "
+                                 f"{cos.min()} < {SPAN_MIN_COSINE}")
+        secs = [(spans[i][1] - spans[i][0]) / 16000 for i, _ in misses]
+        msg = (f"; miss spans {min(secs):.2f}-{max(secs):.2f} s, {len(got)} finite rows, "
+               f"{len(sample)} against encode_spans: cosine min {cos.min():.6f}")
+    chunks = _span_chunks(model, [spans[i] for i, _ in misses], DOC_SECONDS * 16000)
+    if kind == "sonar":
+        want_launches = model.config.n_layers * sum(chunks.values())
+        if launches["relkey_attention"] != want_launches or calls["torch"] != 0:
+            raise AssertionError(f"6.5 sonar: relkey_attention launched "
+                                 f"{launches['relkey_attention']} times, want {want_launches}; "
+                                 f"plain attention {calls['torch']}")
+        msg += (f"; relkey_attention launches {launches['relkey_attention']}, plain attention "
+                f"calls {calls['torch']}")
+    return wall, hits, len(misses), chunks, msg
+
+
+def phase_chain(workdir, device, laser):
+    """The post-align chain on the card, every stage through its CLI:
+    stage 5.3 with SpeechLASER on a second document (the target side, seed
+    1), stage 5.4 over both, stage 6.1 at the cost that keeps
+    ``KEEP_SHARE`` of the non-deletions (random weights make the costs
+    meaningless), then for each of ``CHAIN_TRAFFIC`` stage 6.3
+    (``CONCAT_ARGS``), stage 6.4 (``MIN_DUR_S``) and stage 6.5 on 6.4's
+    output with SpeechLASER and with SONAR (whose stage 5.3 runs on the
+    source side first). Stage 6.2 (untranslated segments) is not ported:
+    6.3 reads 6.1's output.
+
+    The first traffic is the pipeline's (chains of up to 3 alignments).
+    With random weights stage 5.4 aligns one segment to one, so such a
+    chain covers at most 3 segments and is a concat window (runs of up to
+    5 segments within 20 s): stage 6.5 finds every span among the
+    stage-5.3 rows. The second (chains of up to 6) is coverage: its chains
+    of 6 segments within 20 s are no window, so stage 6.5 embeds them.
+    Checks: 6.1 keeps no deletion and no cost over the limit; 6.3's chains
+    are contiguous and within 20 s on both sides; 6.4 keeps only spans of
+    ``MIN_DUR_S`` or more; each 6.5 tsv has one line per alignment, hits
+    pointing at the stage-5.3 row of the same span, misses into the 6.5
+    file's finite rows, of which a sample equals encode_spans of the same
+    spans (the coverage traffic must have misses); the SONAR runs launch
+    the rel-key kernel 24 times per chunk and the plain attention never.
+    Returns {(traffic, encoder): (6.5 wall, hits, misses, chunks)}."""
+    import torch
+
+    from svecalign_tpu_torch.postprocess import concat_aligns, filter_by_cost, filter_by_dur
+    from svecalign_tpu_torch.seg_align import align
+    from svecalign_tpu_torch.seg_align import embed as stage
+    from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.file_utils import (
+        alignments_to_timestamps, read_alignments, read_alignments_with_score, read_segments)
+
+    dev, root, paths = device.type, Path(workdir), laser["paths"]
+    tgt_paths, tgt_lines = write_synthetic_document(root, DOC_SECONDS, seed=1, lang=TGT_LANG)
+    wall = _run_embed(stage, tgt_paths, laser["emb_dir"], kind="speech_laser", lang=TGT_LANG,
+                      device=dev)
+    tgt_rows = np.load(embed_output(laser["emb_dir"], TGT_LANG))
+    if tgt_rows.shape[0] != len(tgt_lines) or not np.isfinite(tgt_rows.astype(np.float32)).all():
+        raise AssertionError(f"target .embed: {tgt_rows.shape}, want {len(tgt_lines)} finite rows")
+    n_src, n_tgt = paths["n_segments"], tgt_paths["n_segments"]
+    _log(f"[chain] target side: {n_tgt} segments, {len(tgt_lines)} windows, LASER stage 5.3 "
+         f"{wall:.3f}s wall; source side: {n_src} segments, {len(laser['lines'])} windows")
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    align.main([str(paths["metadata"]), str(root / "align"), "--src_lang", SRC_LANG,
+                "--tgt_lang", TGT_LANG, "--seg_dir", str(root / "segments"),
+                "--concat_dir", str(root / "cat_segs"), "--embed_dir", str(laser["emb_dir"]),
+                "--is_stopes_embed", "-a", "6", "--device", dev])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans, costs = read_output(output_path(root / "align"))
+    if not _spans_cover(spans, n_src, n_tgt):
+        raise AssertionError("stage 5.4 does not cover both documents in order")
+    kept_costs = [c for (x, y), c in zip(spans, costs) if x != "[]" and y != "[]"]
+    max_cost = float(np.quantile(kept_costs, KEEP_SHARE))
+    _log(f"[chain] stage 5.4 (-a 6, LASER stopes rows): {wall:.3f}s wall, launches "
+         f"{_launches()}, {len(spans)} alignments, {len(spans) - len(kept_costs)} deletions, "
+         f"costs {min(kept_costs):.4f}-{max(kept_costs):.4f}")
+
+    langs = ["--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG]
+    seg_args = ["--seg_dir", str(root / "segments")]
+    t0 = time.perf_counter()
+    filter_by_cost.main([str(paths["metadata"]), str(root / "align_f"), "--align_dir",
+                         str(root / "align"), "--max_cost", repr(max_cost)] + langs)
+    wall = time.perf_counter() - t0
+    kept = read_alignments_with_score(output_path(root / "align_f"))
+    if not kept or any(not x or not y or c > max_cost for x, y, c in kept):
+        raise AssertionError("stage 6.1 kept a deletion or a cost over its limit, or nothing")
+    _log(f"[chain] stage 6.1 at --max_cost {max_cost:.6f} (the {KEEP_SHARE} quantile of the "
+         f"non-deletion costs): kept {len(kept)} of {len(spans)}, no deletion, no cost over "
+         f"the limit, {wall:.3f}s wall")
+    src_segs = read_segments(root / "segments" / SRC_LANG / f"{STEM}_{SRC_LANG}.txt")
+    tgt_segs = read_segments(root / "segments" / TGT_LANG / f"{STEM}_{TGT_LANG}.txt")
+    anchors = {(tuple(a), tuple(b)) for a, b, _ in kept}
+
+    def secs(segs, ids):
+        return (segs[ids[-1]][1] - segs[ids[0]][0]) / 16000
+
+    sonar_emb = root / "emb_sonar"
+    wall = _run_embed(stage, paths, sonar_emb, kind="sonar", device=dev)
+    _log(f"[chain] SONAR stage 5.3 on the source side: {wall:.3f}s wall")
+    models = {kind: embed_model_utils.load_embed_model(kind, max_tokens=150 * 16000,
+                                                       device=device)
+              for kind in ("speech_laser", "sonar")}
+
+    result = {}
+    for label, max_num in CHAIN_TRAFFIC:
+        cdir, ddir = root / f"align_c{max_num}", root / f"align_d{max_num}"
+        t0 = time.perf_counter()
+        concat_aligns.main([str(paths["metadata"]), str(cdir), "--max_num_align", str(max_num),
+                            *CONCAT_ARGS, "--align_dir", str(root / "align_f")]
+                           + seg_args + langs)
+        host = {"6.3": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        filter_by_dur.main([str(paths["metadata"]), str(ddir), "--align_dir", str(cdir),
+                            "--min_dur", str(MIN_DUR_S)] + seg_args + langs)
+        host["6.4"] = time.perf_counter() - t0
+        chained = read_alignments(output_path(cdir))
+        final = read_alignments(output_path(ddir))
+        for x, y in chained:
+            if x != list(range(x[0], x[-1] + 1)) or y != list(range(y[0], y[-1] + 1)):
+                raise AssertionError(f"stage 6.3 wrote a chain that is not contiguous: {x}:{y}")
+        longer = [(x, y) for x, y in chained if (tuple(x), tuple(y)) not in anchors]
+        if any(max(secs(src_segs, x), secs(tgt_segs, y)) > 20.0 for x, y in longer):
+            raise AssertionError("stage 6.3 chained past 20 s")
+        if not final or any(min(secs(src_segs, x), secs(tgt_segs, y)) < MIN_DUR_S
+                            for x, y in final):
+            raise AssertionError("stage 6.4 kept a span under its floor, or nothing")
+        durs = [secs(src_segs, x) for x, _ in final]
+        n_segs = [len(x) for x, _ in final]
+        _log(f"[chain] {label}: stage 6.3 (--max_num_align {max_num} {' '.join(CONCAT_ARGS)}) "
+             f"{len(chained)} alignments, {len(longer)} of them chains; stage 6.4 (--min_dur "
+             f"{MIN_DUR_S}) kept {len(final)}, source spans {min(durs):.2f}-{max(durs):.2f} s "
+             f"of {min(n_segs)}-{max(n_segs)} segments; host walls "
+             + ", ".join(f"{k} {v:.3f}s" for k, v in host.items()))
+        src_spans = alignments_to_timestamps(final, src_segs, tgt_segs, ignore_empty=False)[0]
+        for kind, emb_dir in (("speech_laser", laser["emb_dir"]), ("sonar", sonar_emb)):
+            wall, hits, misses, chunks, msg = _stage_6_5(kind, models[kind], root, ddir,
+                                                         emb_dir, src_spans, laser, dev)
+            if label == "coverage" and not misses:
+                raise AssertionError(f"6.5 {kind} on the coverage traffic embedded nothing")
+            result[label, kind] = (wall, hits, misses, chunks)
+            _log(f"[chain] {label}: stage 6.5 {kind} on the 6.4 output: {wall:.3f}s wall, "
+                 f"{len(final)} tsv lines: {hits} hits at their stage-5.3 rows, {misses} misses "
+                 f"in {sum(chunks.values())} chunks {dict(sorted(chunks.items()))}" + msg)
+    return result
+
+
+def phase_sonar_long_spans(device, waveform):
+    """SONAR's encode_spans over spans of LONG_SPAN_SECONDS (the 3000,
+    4500 and 6000-frame buckets, T = 1500-3000 in the trunk), twice: the
+    rel-key kernel 24 times per chunk, then the plain attention path at 4
+    rows a chunk; rows per-row cosine >= MIN_COSINE. Kernel coverage: the
+    pipeline's stage 6.3 chains stop at 20 s, so stage 6.5 reaches these
+    buckets only where one alignment is that long. Returns the kernel
+    run's chunks by bucket."""
+    import torch
+
+    from svecalign_tpu_torch.models import w2v_bert
+    from svecalign_tpu_torch.utils import embed_model_utils
+
+    model = embed_model_utils.load_embed_model("sonar", max_tokens=150 * 16000, device=device)
+    spans = [(k * 70 * 16000, (k * 70 + sec) * 16000)
+             for k, sec in enumerate(LONG_SPAN_SECONDS * 2)]
+    chunks = _span_chunks(model, spans, len(waveform))
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = model.encode_spans(waveform, spans)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launches()["relkey_attention"]
+    if n != model.config.n_layers * sum(chunks.values()) or w2v_bert.ATTENTION_CALLS["torch"]:
+        raise AssertionError(f"long spans: relkey_attention launched {n} times for chunks "
+                             f"{chunks}; plain {w2v_bert.ATTENTION_CALLS['torch']}")
+    batch_size = model.batch_size
+    model.model.trunk.set_attention_backend("torch")
+    model.batch_size = 4
+    try:
+        plain = model.encode_spans(waveform, spans)
+    finally:
+        model.model.trunk.set_attention_backend("auto")
+        model.batch_size = batch_size
+    cos = _row_cosines(got, plain)
+    _log(f"[long] SONAR encode_spans over {len(spans)} spans of {sorted(set(LONG_SPAN_SECONDS))} s "
+         f"(chunks by frame bucket {dict(sorted(chunks.items()))}): {wall:.3f}s wall, "
+         f"relkey_attention launches {n}; against the plain attention path per-row cosine min "
+         f"{cos.min():.6f}, all finite {bool(np.isfinite(got).all())}")
+    if cos.min() < MIN_COSINE or not np.isfinite(got).all():
+        raise AssertionError(f"long spans: min cosine {cos.min()} < {MIN_COSINE}")
+    return chunks
+
+
+LONG_BUCKETS = (3000, 4500, 6000)  # SONAR frame buckets of spans of 20-60 s
+
+
+def phase_long_attention_times(device, chunks, n_layers=24, batch=16, heads=16):
+    """The kernel against SDPA and its bound at the long buckets, B = 16
+    rows of ragged lengths (half to all of T); launches are those of the
+    long-span run (``phase_sonar_long_spans``)."""
+    rng = np.random.default_rng(5)
+    for bucket in LONG_BUCKETS:
+        T = bucket // 2
+        lens = tuple(int(x) for x in rng.integers(T // 2, T + 1, batch))
+        _time_attention_bucket(bucket, lens, heads, n_layers * chunks.get(bucket, 0), device)
+
+
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
     ("relkey_attention kernel", ("relkey_attention",)),
+    ("SDPA attention (LASER)", ("fmha", "flash", "attention")),
+    # cuDNN's implicit-GEMM convolutions are named fprop
+    ("convolutions (SONAR's depthwise, LASER's extractor and positional)", ("conv", "fprop")),
     ("matmul (cuBLAS/CUTLASS)", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
-    ("depthwise conv", ("conv",)),
     ("fft", ("fft", "radix")),
     ("reductions and softmax", ("reduce", "softmax", "norm")),
     # dtype casts are copy kernels; "nocast" in a name is not one
@@ -1705,11 +2224,11 @@ KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match w
 )
 
 
-def profile_embed(device):
-    """``--profile``: one warm stage-5.3 run of the 10-minute document under
-    torch.profiler. Prints the device time by kernel class and the top
-    kernels, and the device's busy share of the run's wall time (the
-    profiler's own overhead included in that wall)."""
+def profile_embed(device, kind="sonar"):
+    """``--profile``: one warm stage-5.3 run of the 10-minute document with
+    the ``kind`` encoder under torch.profiler. Prints the device time by
+    kernel class and the top kernels, and the device's busy share of the
+    run's wall time (the profiler's own overhead included in that wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1718,10 +2237,10 @@ def profile_embed(device):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as td:
         paths, lines = write_synthetic_document(Path(td) / "doc", DOC_SECONDS)
-        embed_model_utils.load_embed_model("sonar", max_tokens=150 * 16000, device=device)
-        _run_embed(stage, paths, Path(td) / "warm")
+        embed_model_utils.load_embed_model(kind, max_tokens=150 * 16000, device=device)
+        _run_embed(stage, paths, Path(td) / "warm", kind=kind)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = _run_embed(stage, paths, Path(td) / "prof")
+            wall = _run_embed(stage, paths, Path(td) / "prof", kind=kind)
     kernels = {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -1739,7 +2258,7 @@ def profile_embed(device):
         cls = next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)),
                    "other elementwise")
         classes[cls] = classes.get(cls, 0.0) + us / 1e6
-    _log(f"[profile] stage-5.3 warm run under torch.profiler: {wall:.3f}s wall, {len(lines)} "
+    _log(f"[profile] {kind} stage-5.3 warm run under torch.profiler: {wall:.3f}s wall, {len(lines)} "
          f"windows; device busy {total_s:.3f}s ({100 * total_s / wall:.1f}% of the wall)")
     for cls, sec in sorted(classes.items(), key=lambda kv: -kv[1]):
         _log(f"[profile]   {cls}: {sec:.3f}s ({100 * sec / total_s:.1f}% of device time)")
@@ -1755,8 +2274,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--profile", action="store_true",
-                      help="only build and profile one warm stage-5.3 run (device time "
-                           "by kernel) instead of the phases above")
+                      help="only build and profile one warm stage-5.3 run with each "
+                           "encoder (device time by kernel) instead of the phases above")
     mode.add_argument("--checks", action="store_true",
                       help="only build and hold each kernel against its plain version "
                            "(phases 1-2); prints no result line")
@@ -1764,6 +2283,10 @@ def main(argv=None):
                       help="only stage 5.4: build, hold the DP and walk kernels against "
                            "their plain versions, run the stage per pair and in buckets and "
                            "time the kernels (no SONAR model is built); prints no result line")
+    mode.add_argument("--laser", action="store_true",
+                      help="only build, the kernel checks, LASER stage 5.3, the post-align "
+                           "chain, SONAR's long spans and the attention kernel at the long "
+                           "buckets (phases 1, 2, 6-8); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1777,7 +2300,8 @@ def main(argv=None):
     card = _card_line()
     _log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.profile:
-        profile_embed(device)
+        for kind in ("sonar", "speech_laser"):
+            profile_embed(device, kind)
         return 0
     check_err = phase_kernel_checks(device)
     dense_err = phase_dense_checks(device)
@@ -1786,19 +2310,28 @@ def main(argv=None):
     if args.checks:
         _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
         return 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
-        stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
-        bucket_launches, plan = phase_bucket_path(Path(td), single_paths, per_pair_warm)
-        phase_paired_gate(Path(td))
-    t = phase_times(stack, device)
-    phase_route_times(device)
-    fused = phase_slice_times(stack, plan, t["probe"], device)
-    if args.dp:
-        _log(f"[done] stage-5.4 phases passed in {time.perf_counter() - t_start:.1f}s")
+    if not args.laser:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+            stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
+            bucket_launches, plan = phase_bucket_path(Path(td), single_paths, per_pair_warm)
+            phase_paired_gate(Path(td))
+        t = phase_times(stack, device)
+        phase_route_times(device)
+        fused = phase_slice_times(stack, plan, t["probe"], device)
+        if args.dp:
+            _log(f"[done] stage-5.4 phases passed in {time.perf_counter() - t_start:.1f}s")
+            return 0
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
+            info, embed_launches = phase_embed_path(Path(td), device)
+        a, _ = phase_attention_times(info, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as td:
+        laser = phase_laser_path(Path(td), device)
+        phase_chain(Path(td), device, laser)
+        long_chunks = phase_sonar_long_spans(device, laser["waveform"])
+    phase_long_attention_times(device, long_chunks)
+    if args.laser:
+        _log(f"[done] LASER and chain phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
-        info, embed_launches = phase_embed_path(Path(td), device)
-    a, _ = phase_attention_times(info, device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",

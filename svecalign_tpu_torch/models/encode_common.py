@@ -77,6 +77,26 @@ def phase_clock(device: torch.device) -> Callable[[str], None]:
     return tick
 
 
+def stage_rows(pieces, rows: int, width: int, fp32: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """The host staging of ``encode()``: ``pieces`` (1-D fp32 waveforms,
+    each cut to ``width``) padded into (rows, width) fp32 or int16 and
+    their (rows,) scales. int16 scales each row to its own peak, rounded
+    half to even (``np.rint``), exactly the JAX package's staging; padding
+    rows are zeros with scale 1."""
+    padded = np.zeros((rows, width), dtype=np.float32 if fp32 else np.int16)
+    scales = np.ones((rows,), dtype=np.float32)
+    for row, w in enumerate(pieces):
+        w = w[:width]
+        if fp32:
+            padded[row, : len(w)] = w
+        else:
+            peak = float(np.max(np.abs(w))) if len(w) else 0.0
+            s = peak / 32767.0 if peak > 0 else 1.0
+            padded[row, : len(w)] = np.rint(w / s).astype(np.int16)
+            scales[row] = s
+    return padded, scales
+
+
 def pull_rows(pending: Sequence[Tuple[List[int], torch.Tensor]], n: int, dim: int,
               fp16: bool, device: torch.device) -> np.ndarray:
     """Scatter each chunk's device rows into one (n, dim) host array

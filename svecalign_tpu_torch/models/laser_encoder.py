@@ -1,0 +1,386 @@
+"""SpeechLASER speech encoder in PyTorch: the stage-5.3 default embedder.
+
+Port of the JAX package's ``models/laser_encoder.py``: a wav2vec2-large
+family encoder (``feat_extract_norm="layer"``, ``do_stable_layer_norm``):
+
+  raw 16 kHz waveform -> strided conv feature extractor (320x) ->
+  post_extract_norm + post_extract_proj -> + GELU(positional conv) ->
+  pre-norm transformer layers -> encoder_norm -> masked max pool over time
+
+one ``encoder_dim`` vector per waveform, written by the embed stage as a
+stopes ``.npy``. Module and attribute names are the flax module names, so
+a flax parameter path maps to a ``state_dict`` key by ``/`` -> ``.``
+(``models/param_utils.py``).
+
+Numerics follow the flax modules:
+
+- convs and Dense layers compute in the compute dtype (bf16 on the main
+  path); every LayerNorm (epsilon 1e-6, flax's fast variance) computes and
+  returns fp32; the extractor casts back to the compute dtype before its
+  GELU; the residual stream is in the compute dtype;
+- GELU is the tanh approximation below 32 bits and exact erf in fp32;
+- attention scales the query by 1/sqrt(head size) and masks padded keys.
+  The JAX package runs it as plain XLA (its Pallas kernel was measured
+  slower there), so the port runs ``F.scaled_dot_product_attention`` with
+  the key mask: there is no TPU kernel on this path;
+- the masked max pool is fp32.
+
+The positional conv mixes padded frames into valid ones, so a row's
+embedding depends on its bucket's width: the buckets are the JAX ones.
+
+``SpeechLaserModel`` is the host wrapper. Weights come from a JAX ``.npz``
+(``save_params_npz``) or, without one, from the JAX package's numpy init
+for ``seed``, so both packages hold the same random weights. Left out, as
+in the SONAR port: the mesh/data-parallel branch (ROADMAP Queue 1 item
+20), ``keep_device`` (items 11, 11a), buffer donation and the staging
+thread.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from svecalign_tpu_torch.models import encode_common
+from svecalign_tpu_torch.models.encode_common import SpanEncoderMixin
+from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
+from svecalign_tpu_torch.models.w2v_bert import FlaxLayerNorm, compute_dtype, dense
+from svecalign_tpu_torch.utils.log_utils import logging
+from svecalign_tpu_torch.utils.torch_setup import resolve_device
+
+logger = logging.getLogger(__name__)
+
+FLAX_EPS = 1e-6  # flax LayerNorm / GroupNorm default epsilon
+
+
+@dataclasses.dataclass(frozen=True)
+class LaserEncoderConfig:
+    # conv feature extractor: (dim, kernel, stride) per layer; 320x total
+    conv_layers: tuple = (
+        (512, 10, 5),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 2, 2),
+        (512, 2, 2),
+    )
+    # "layer" = per-layer LayerNorm (wav2vec2-large / XLSR / SpeechLASER);
+    # "group" = GroupNorm on layer 0 only (wav2vec2-base)
+    extractor_mode: str = "layer"
+    conv_bias: bool = True
+    encoder_dim: int = 1024
+    encoder_layers: int = 24
+    encoder_heads: int = 16
+    encoder_ffn_dim: int = 4096
+    conv_pos_kernel: int = 128
+    conv_pos_groups: int = 16
+    dtype: str = "bfloat16"  # compute dtype; params are fp32 or stored in it
+
+    def receptive_field(self):
+        """(samples per frame, hop in samples) of the VALID conv stack."""
+        size, hop = 1, 1
+        for _, k, s in reversed(self.conv_layers):
+            size = (size - 1) * s + k
+        for _, _, s in self.conv_layers:
+            hop *= s
+        return size, hop
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_gelu``: tanh approximation below 32 bits, exact
+    erf in fp32."""
+    if x.dtype.itemsize < 4:
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+class HeadsDense(nn.Linear):
+    """A flax ``DenseGeneral`` of attention, stored as a plain Linear:
+    ``side="in"`` is a query/key/value projection (kernel (d, heads, dh),
+    bias (heads, dh)); ``side="out"`` the output projection (kernel
+    (heads, dh, d), bias (d,)). ``models/param_utils.py`` maps the leaves."""
+
+    def __init__(self, d: int, heads: int, side: str):
+        super().__init__(d, d)
+        self.flax_heads = heads
+        self.flax_leaves = ({"weight": ("kernel", "heads_in"), "bias": ("bias", "heads_bias")}
+                            if side == "in" else
+                            {"weight": ("kernel", "heads_out"), "bias": ("bias", "plain")})
+
+
+class ConvFeatureExtractor(nn.Module):
+    """(B, samples) fp32 -> (B, frames, conv_dim) in the compute dtype."""
+
+    def __init__(self, cfg: LaserEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer_mode = cfg.extractor_mode == "layer"
+        in_dim = 1
+        for i, (dim, kernel, stride) in enumerate(cfg.conv_layers):
+            self.add_module(f"conv_{i}", nn.Conv1d(
+                in_dim, dim, kernel, stride=stride,
+                bias=cfg.conv_bias if self.layer_mode else False))
+            if self.layer_mode:
+                self.add_module(f"layer_norm_{i}", FlaxLayerNorm(dim, FLAX_EPS, axis=1,
+                                                                 channel_axis=1))
+            in_dim = dim
+        if not self.layer_mode:
+            # GroupNorm(num_groups=channels): each channel over the padded length
+            self.group_norm = FlaxLayerNorm(cfg.conv_layers[0][0], FLAX_EPS, axis=2,
+                                            channel_axis=1)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.cfg)
+        x = wav[:, None, :]  # (B, 1, T): torch convs are channels-first
+        for i, (_, _, stride) in enumerate(self.cfg.conv_layers):
+            conv = getattr(self, f"conv_{i}")
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            x = F.conv1d(x.to(dt), conv.weight.to(dt), bias, stride=stride)
+            if self.layer_mode:
+                x = getattr(self, f"layer_norm_{i}")(x)
+            elif i == 0:
+                x = self.group_norm(x)
+            # back to the compute dtype before the activation, as in JAX
+            x = gelu(x.to(dt))
+        return x.transpose(1, 2)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` (self-attention, key mask) by
+    ``F.scaled_dot_product_attention``."""
+
+    def __init__(self, cfg: LaserEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.encoder_dim, cfg.encoder_heads
+        self.query = HeadsDense(d, h, "in")
+        self.key = HeadsDense(d, h, "in")
+        self.value = HeadsDense(d, h, "in")
+        self.out = HeadsDense(d, h, "out")
+
+    def forward(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """y: (B, T, d); mask: (B, T) bool, True = valid key."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        b, t, d = y.shape
+        h = cfg.encoder_heads
+        q, k, v = (dense(m, y, dt).view(b, t, h, d // h).transpose(1, 2)
+                   for m in (self.query, self.key, self.value))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :])
+        return dense(self.out, out.transpose(1, 2).reshape(b, t, d), dt)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-norm ("stable layer norm") transformer layer, wav2vec2-large style."""
+
+    def __init__(self, cfg: LaserEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.encoder_dim
+        self.attn_norm = FlaxLayerNorm(d, FLAX_EPS)
+        self.attn = MultiHeadAttention(cfg)
+        self.ffn_norm = FlaxLayerNorm(d, FLAX_EPS)
+        self.ffn_in = nn.Linear(d, cfg.encoder_ffn_dim)
+        self.ffn_out = nn.Linear(cfg.encoder_ffn_dim, d)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.cfg)
+        x = x + self.attn(self.attn_norm(x), mask)
+        y = gelu(dense(self.ffn_in, self.ffn_norm(x), dt))
+        return x + dense(self.ffn_out, y, dt)
+
+
+def frame_mask(cfg: LaserEncoderConfig, lengths: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """(B, n_frames) bool validity from (B,) sample lengths: frames whose
+    whole receptive field is inside the length, at least one per row
+    (floor division, as in JAX, also for length-0 padding rows)."""
+    size, hop = cfg.receptive_field()
+    frame_len = torch.div(lengths.long() - size, hop, rounding_mode="floor") + 1
+    frame_len = torch.clamp(frame_len, min=1)
+    return torch.arange(n_frames, device=lengths.device)[None, :] < frame_len[:, None]
+
+
+def masked_max_pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """LASER pooling: max over valid frames, fp32."""
+    neg = torch.finfo(torch.float32).min
+    return torch.where(mask[:, :, None], x.float(), neg).amax(dim=1)
+
+
+class LaserSpeechEncoder(nn.Module):
+    """wav2vec2-large-style encoder with LASER max pooling."""
+
+    def __init__(self, cfg: LaserEncoderConfig = LaserEncoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        compute_dtype(cfg)
+        d, c = cfg.encoder_dim, cfg.conv_layers[-1][0]
+        self.feature_extractor = ConvFeatureExtractor(cfg)
+        self.post_extract_norm = FlaxLayerNorm(c, FLAX_EPS)
+        self.post_extract_proj = nn.Linear(c, d)
+        self.pos_conv = nn.Conv1d(d, d, cfg.conv_pos_kernel, padding=cfg.conv_pos_kernel // 2,
+                                  groups=cfg.conv_pos_groups)
+        for i in range(cfg.encoder_layers):  # flax names: layer_0, layer_1, ...
+            self.add_module(f"layer_{i}", TransformerLayer(cfg))
+        self.encoder_norm = FlaxLayerNorm(d, FLAX_EPS)
+
+    def trunk(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """(B, frames, conv_dim) extractor output -> (B, frames, d) fp32
+        hidden states (after encoder_norm)."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        x = dense(self.post_extract_proj, self.post_extract_norm(feats), dt)
+        pc = self.pos_conv
+        # same-padded; the trailing frame of the even kernel is dropped
+        pos = F.conv1d(x.transpose(1, 2), pc.weight.to(dt), pc.bias.to(dt),
+                       padding=cfg.conv_pos_kernel // 2, groups=cfg.conv_pos_groups)
+        x = x + gelu(pos[:, :, : x.shape[1]].transpose(1, 2))
+        for i in range(cfg.encoder_layers):
+            x = getattr(self, f"layer_{i}")(x, mask)
+        return self.encoder_norm(x)
+
+    def forward(self, wav: torch.Tensor, lengths: torch.Tensor, return_hidden: bool = False):
+        """wav: (B, samples) fp32 at 16 kHz; lengths: (B,) valid samples.
+        Returns (B, encoder_dim) fp32 embeddings, or ((B, frames, d) hidden
+        states, (B, frames) mask) when ``return_hidden``."""
+        feats = self.feature_extractor(wav)
+        mask = frame_mask(self.cfg, lengths.to(feats.device), feats.shape[1])
+        x = self.trunk(feats, mask)
+        if return_hidden:
+            return x, mask
+        return masked_max_pool(x, mask)
+
+
+class SpeechLaserModel(SpanEncoderMixin):
+    """Host wrapper: bucketed batched forward on the device."""
+
+    supports_spans = True
+    WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
+
+    # length buckets in samples at 16 kHz, the JAX package's: 8 and 14 s fill
+    # the gaps where overlap windows fall; 45/60 s exist for embed_align
+    # spans. Longer inputs truncate, loudly.
+    BUCKETS = (4 * 16000, 8 * 16000, 14 * 16000, 20 * 16000, 30 * 16000,
+               45 * 16000, 60 * 16000)
+
+    def __init__(
+        self,
+        config: LaserEncoderConfig = LaserEncoderConfig(),
+        ckpt_path: Optional[str] = None,
+        max_tokens: int = 150 * 16000,
+        seed: int = 0,
+        upload_dtype: str = "int16",
+        device="cuda",
+    ):
+        if upload_dtype not in ("int16", "fp32"):
+            raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
+        self.config = config
+        self.max_tokens = max_tokens
+        self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
+        self.device = resolve_device(device)
+
+        with torch.device("meta"):
+            model = LaserSpeechEncoder(config)
+        flat = load_params_npz(ckpt_path) if ckpt_path else {}
+        state = params_from_jax(flat, model, seed=seed, source=ckpt_path or "random init")
+        model.load_state_dict(state, assign=True)
+        if ckpt_path:
+            logger.info(f"Loaded encoder params from {ckpt_path}")
+        else:
+            logger.warning("Encoder initialized with RANDOM weights (no --ckpt given); "
+                           "embeddings are not meaningful for mining.")
+        # conv and Dense weights are stored in the compute dtype once (the
+        # same rounding as flax's per-call cast); the LayerNorms stay fp32
+        dt = compute_dtype(config)
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                mod.to(dt)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.BUCKETS:
+            if n <= b:
+                return b
+        return self.BUCKETS[-1]
+
+    def _rows_for_bucket(self, bucket: int) -> int:
+        return max(1, self.max_tokens // bucket)
+
+    # --- SpanEncoderMixin hooks (units: samples at 16 kHz) ---
+
+    def _span_buckets(self):
+        return self.BUCKETS
+
+    def _bucket_width(self, bucket: int) -> int:
+        return bucket
+
+    def _rows_per_chunk(self, bucket: int) -> int:
+        return self._rows_for_bucket(bucket)
+
+    def _span_plan(self, start: int, ln: int):
+        bucket = self._bucket(ln)
+        return bucket, (start, ln, min(ln, bucket)), ln > self.BUCKETS[-1]
+
+    @torch.inference_mode()
+    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+        """(rows, bucket) int16 or fp32 waveforms, (rows,) scales and
+        sample lengths on the device -> (rows, encoder_dim) fp32."""
+        tick = encode_common.phase_clock(self.device)
+        wav = rows_q.float() * row_scales[:, None]
+        feats = self.model.feature_extractor(wav)
+        tick("frontend_s")
+        mask = frame_mask(self.config, lengths, feats.shape[1])
+        x = self.model.trunk(feats, mask)
+        tick("trunk_s")
+        out = masked_max_pool(x, mask)
+        tick("pooler_s")
+        return out
+
+    @property
+    def _embed_dim(self) -> int:
+        return self.config.encoder_dim
+
+    @property
+    def _trunc_unit(self) -> str:
+        return f"{self.BUCKETS[-1] // 16000} s"
+
+    def encode(self, waveforms, fp16_pull: bool = False) -> np.ndarray:
+        """Encode waveforms -> (N, encoder_dim) float32 (float16 under
+        ``fp16_pull``: cast on the device, bit-equal to the writer's host
+        fp32 -> fp16 cast). Each bucket's chunks are padded to a fixed
+        (rows, bucket) shape; padding rows have length 0 and are dropped."""
+        by_bucket: dict = {}
+        n_truncated = 0
+        for i, w in enumerate(waveforms):
+            w = np.asarray(w, dtype=np.float32)
+            if w.ndim == 2:
+                w = w[:, 0]  # channel 0, as slice_segments/encode_spans
+            n_truncated += len(w) > self.BUCKETS[-1]
+            by_bucket.setdefault(self._bucket(len(w)), []).append((i, w))
+        if n_truncated:
+            logger.warning(
+                f"{n_truncated}/{len(waveforms)} inputs exceed the largest "
+                f"length bucket ({self._trunc_unit}) and are TRUNCATED to it "
+                "-- their embeddings cover only the prefix"
+            )
+
+        fp32 = self.upload_dtype == "fp32"
+        pending = []
+        for bucket, items in sorted(by_bucket.items()):
+            rows = self._rows_for_bucket(bucket)
+            for c0 in range(0, len(items), rows):
+                chunk = items[c0:c0 + rows]
+                padded, scales = encode_common.stage_rows([w for _, w in chunk], rows, bucket,
+                                                          fp32)
+                lengths = np.zeros((rows,), dtype=np.int32)
+                lengths[: len(chunk)] = [min(len(w), bucket) for _, w in chunk]
+                emb = self._span_forward(
+                    torch.from_numpy(padded).to(self.device),
+                    torch.from_numpy(scales).to(self.device),
+                    torch.from_numpy(lengths).to(self.device), bucket)
+                pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
+        return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
+                                       self.device)

@@ -6,9 +6,14 @@ mirror the flax module names, so a flax path maps to a ``state_dict`` key
 mechanically (``/`` -> ``.``), and each leaf by its layer kind:
 
 - Dense ``kernel`` (in, out)            -> ``Linear.weight`` (out, in)
-- depthwise Conv ``kernel`` (k, 1, h)   -> ``Conv1d.weight`` (h, 1, k)
-- LayerNorm ``scale`` / ``bias``        -> ``weight`` / ``bias``
-- Dense ``bias`` and bare parameters (``distance_embedding``, the
+- Conv ``kernel`` (k, in / groups, out) -> ``Conv1d.weight`` (out, in / groups, k):
+  depthwise (k, 1, h), strided (10, 1, 512), grouped (128, 64, 1024)
+- attention ``DenseGeneral`` kernels, on a module that names its flax
+  leaves (``flax_leaves``, ``flax_heads``): query/key/value (d, heads, dh)
+  -> ``Linear.weight`` (heads dh, d), their biases (heads, dh) -> (heads dh,);
+  out (heads, dh, d) -> (d, heads dh)
+- LayerNorm / GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
+- Dense and Conv ``bias`` and bare parameters (``distance_embedding``, the
   pooler's ``query``)                   -> as they are
 
 Random weights follow the JAX package's numpy init exactly: leaves in the
@@ -46,23 +51,42 @@ def load_params_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: np.asarray(v) for k, v in data.items()}
 
 
-def _leaf_map(module: nn.Module) -> List[Tuple[Tuple[str, ...], str, str]]:
-    """(flax path, state_dict key, kind) of every parameter of ``module``,
-    in JAX's flattening order. kind: dense, conv or plain."""
+def _flax_shape(shape: Tuple[int, ...], kind: str, heads: int) -> Tuple[int, ...]:
+    """The flax leaf shape of a torch parameter of ``shape``."""
+    if kind in ("dense", "conv"):
+        return shape[::-1]  # (out, in) -> (in, out); (out, in, k) -> (k, in, out)
+    if kind == "heads_in":
+        return (shape[1], heads, shape[0] // heads)
+    if kind == "heads_bias":
+        return (heads, shape[0] // heads)
+    if kind == "heads_out":
+        return (heads, shape[1] // heads, shape[0])
+    return shape
+
+
+def _leaf_map(module: nn.Module) -> List[Tuple[Tuple[str, ...], str, str, Tuple[int, ...]]]:
+    """(flax path, state_dict key, kind, flax shape) of every parameter of
+    ``module``, in JAX's flattening order. kind: dense, conv, heads_in,
+    heads_bias, heads_out or plain."""
     out = []
     for mod_name, mod in module.named_modules():
         prefix = tuple(mod_name.split(".")) if mod_name else ()
-        for pname, _ in mod.named_parameters(recurse=False):
-            if isinstance(mod, nn.Linear):
-                leaf, kind = ("kernel", "dense") if pname == "weight" else (pname, "plain")
-            elif isinstance(mod, nn.Conv1d):
-                leaf, kind = "kernel", "conv"
+        named = getattr(mod, "flax_leaves", None)
+        for pname, param in mod.named_parameters(recurse=False):
+            if named is not None:
+                leaf, kind = named[pname]
+            elif isinstance(mod, (nn.Linear, nn.Conv1d)):
+                if pname == "bias":
+                    leaf, kind = "bias", "plain"
+                else:
+                    leaf, kind = "kernel", ("dense" if isinstance(mod, nn.Linear) else "conv")
             elif isinstance(mod, FlaxLayerNorm):
                 leaf, kind = ("scale" if pname == "weight" else pname), "plain"
             else:
                 leaf, kind = pname, "plain"
             key = f"{mod_name}.{pname}" if mod_name else pname
-            out.append((prefix + (leaf,), key, kind))
+            shape = _flax_shape(tuple(param.shape), kind, getattr(mod, "flax_heads", 1))
+            out.append((prefix + (leaf,), key, kind, shape))
     return sorted(out)
 
 
@@ -70,7 +94,13 @@ def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense":
         return arr.T  # (in, out) -> (out, in)
     if kind == "conv":
-        return arr.transpose(2, 1, 0)  # (k, 1, h) -> (h, 1, k)
+        return arr.transpose(2, 1, 0)  # (k, in / groups, out) -> (out, in / groups, k)
+    if kind == "heads_in":
+        return arr.reshape(arr.shape[0], -1).T  # (d, heads, dh) -> (heads dh, d)
+    if kind == "heads_bias":
+        return arr.reshape(-1)  # (heads, dh) -> (heads dh,)
+    if kind == "heads_out":
+        return arr.reshape(-1, arr.shape[-1]).T  # (heads, dh, d) -> (d, heads dh)
     return arr
 
 
@@ -83,27 +113,23 @@ def params_from_jax(
     the JAX package's random init for ``seed``) and, when ``flat`` is not
     empty, logged with a warning."""
     leaves = _leaf_map(module)
-    want = {"/".join(path) for path, _, _ in leaves}
+    want = {"/".join(path) for path, *_ in leaves}
     extra = sorted(k for k in flat if k not in want)
     if extra:
         raise KeyError(f"{source}: {len(extra)} unknown parameter paths, e.g. {extra[0]} "
                        "-- wrong architecture/config?")
-    shapes = dict(module.state_dict().items())
     rng = np.random.default_rng(seed)
     state, missing = {}, []
-    for path, key, kind in leaves:
-        torch_shape = tuple(shapes[key].shape)
+    for path, key, kind, flax_shape in leaves:
         name = "/".join(path)
         if name in flat:
             arr = np.asarray(flat[name], np.float32)
+            if arr.shape != flax_shape:
+                raise ValueError(f"{source}: shape mismatch at {name}: {arr.shape}, want "
+                                 f"{flax_shape}")
             got = _to_torch(arr, kind)
-            if tuple(got.shape) != torch_shape:
-                raise ValueError(f"{source}: shape mismatch at {name}: {arr.shape} does not "
-                                 f"map to {torch_shape}")
         else:
             missing.append(name)
-            # dense and conv kernels are the torch layout reversed
-            flax_shape = torch_shape if kind == "plain" else torch_shape[::-1]
             got = _to_torch(numpy_init_leaf(path, flax_shape, rng), kind)
         state[key] = torch.from_numpy(np.ascontiguousarray(got))
     if missing and flat:

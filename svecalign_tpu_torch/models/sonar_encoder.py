@@ -264,22 +264,11 @@ class SonarSpeechModel(SpanEncoderMixin):
             samples = self._bucket_width(bucket)
             for c0 in range(0, len(items), self.batch_size):
                 chunk = items[c0:c0 + self.batch_size]
-                # fixed (batch_size, samples) chunks; padding rows have
-                # length 0. int16: per-row peak scaling, rounded half to
-                # even (np.rint), exactly the JAX package's host staging
-                padded = np.zeros((self.batch_size, samples), dtype=np.float32 if fp32 else np.int16)
-                scales = np.ones((self.batch_size,), dtype=np.float32)
+                # fixed (batch_size, samples) chunks; padding rows have length 0
+                padded, scales = encode_common.stage_rows(
+                    [w for _, w, _ in chunk], self.batch_size, samples, fp32)
                 lengths = np.zeros((self.batch_size,), dtype=np.int32)
-                for row, (_, w, n_frames) in enumerate(chunk):
-                    w = w[:samples]
-                    if fp32:
-                        padded[row, : len(w)] = w
-                    else:
-                        peak = float(np.max(np.abs(w))) if len(w) else 0.0
-                        s = peak / 32767.0 if peak > 0 else 1.0
-                        padded[row, : len(w)] = np.rint(w / s).astype(np.int16)
-                        scales[row] = s
-                    lengths[row] = min(n_frames, bucket)
+                lengths[: len(chunk)] = [min(n_frames, bucket) for *_, n_frames in chunk]
                 emb = self._span_forward(
                     torch.from_numpy(padded).to(self.device),
                     torch.from_numpy(scales).to(self.device),

@@ -87,19 +87,29 @@ def compute_dtype(cfg) -> torch.dtype:
 class FlaxLayerNorm(nn.Module):
     """flax ``LayerNorm(dtype=float32)``: fp32 statistics with the fast
     variance E[x^2] - E[x]^2 (clipped at 0), fp32 output. ``weight`` is
-    flax's ``scale``."""
+    flax's ``scale``.
 
-    def __init__(self, dim: int, eps: float):
+    The statistics run over ``axis`` and the scale and bias lie along
+    ``channel_axis``; both are the last axis by default. On a channels-first
+    (B, C, T) tensor, ``axis=1, channel_axis=1`` is a LayerNorm over the
+    channels and ``axis=2, channel_axis=1`` a flax ``GroupNorm`` with one
+    group per channel (each channel over the whole length)."""
+
+    def __init__(self, dim: int, eps: float, axis: int = -1, channel_axis: int = -1):
         super().__init__()
         self.eps = eps
+        self.axis, self.channel_axis = axis, channel_axis
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        mu = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
-        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        mu = x.mean(self.axis, keepdim=True)
+        var = torch.clamp((x * x).mean(self.axis, keepdim=True) - mu * mu, min=0.0)
+        shape = [1] * x.dim()
+        shape[self.channel_axis] = -1
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight.float().view(shape)) \
+            + self.bias.float().view(shape)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -2,21 +2,24 @@
 
 Port of the JAX package's ``seg_align/embed.py``. For each audio: read its
 concat-segment windows, embed them in bucketed batches on the card, write
-``OUT/{lang}/{stem}.embed`` (SONAR: headerless raw fp16 rows, fp32 with
-``--embed_fp32``). Sharding (``--rank/--n_shard`` over the sorted inputs),
+``OUT/{lang}/{stem}.embed``: fp16 rows (fp32 with ``--embed_fp32``), a
+stopes ``.npy`` for SpeechLASER (the default), headerless raw rows for
+SONAR. Sharding (``--rank/--n_shard`` over the sorted inputs),
 skip-existing and the atomic rename (``{stem}.tmp.embed`` -> ``{stem}.embed``)
 behave as in JAX.
 
 CLI: ``python -m svecalign_tpu_torch.seg_align.embed METADATA OUT_DIR
 --concat_dir C --lang L [--use_tgt] [--rank/--n_shard]
---embed_model_type sonar [--sonar_name W.npz] [--batch_size 16]
+[--embed_model_type speech_laser|sonar] [--sl_ckpt_dir D --sl_ckpt_name W.npz]
+[--max_tokens 2400000] [--sonar_name W.npz] [--batch_size 16]
 [--upload_precision int16|fp32] [--window_assembly device|host]
 [--embed_fp32] [--device {cuda,cpu}]``
 
 The flags are the JAX CLI's plus ``--device``: the stage runs on the card
 unless ``--device cpu`` is given, and raises without a card.
-``--embed_model_type speech_laser`` exits naming its ROADMAP item.
-``SVECALIGN_EMBED_PROFILE=1`` logs per-file phase times.
+``SVECALIGN_EMBED_PROFILE=1`` logs per-file phase times (``frontend_s``:
+SONAR's fbank or LASER's conv extractor; ``trunk_s``; ``pooler_s``: the
+attention pooler or the masked max pool).
 """
 
 import argparse

@@ -5,10 +5,11 @@ flags (``add_embed_args``), the memoised model loader and the per-file
 embed-and-write. Segments are sliced in memory, or gathered on the device
 from one upload of the waveform (``--window_assembly device``).
 
-Ported: the SONAR model (``--embed_model_type sonar``), whose ``.embed``
-files are headerless raw fp16 (default) or fp32 rows of ``pool_dim``
-values, one row per segment line. The SpeechLASER model is not ported yet
-and exits naming its ROADMAP item.
+Both models are ported. SpeechLASER (``--embed_model_type speech_laser``,
+the default) writes stopes ``.embed`` files: a standard ``.npy`` of fp16
+(default) or fp32 rows. SONAR (``--embed_model_type sonar``) writes
+headerless raw fp16 or fp32 rows of ``pool_dim`` values. One row per
+segment line either way.
 """
 
 import argparse
@@ -18,19 +19,17 @@ from typing import List, Tuple
 import numpy as np
 
 from svecalign_tpu_torch.utils.audio_utils import SAMPLE_RATE, load_waveform
-from svecalign_tpu_torch.utils.embedding_utils import write_np_embeddings
+from svecalign_tpu_torch.utils.embedding_utils import write_np_embeddings, write_stopes_embedding
 from svecalign_tpu_torch.utils.log_utils import logging
 
 EMBED_MODEL_TYPES = ["speech_laser", "sonar"]
-LASER_TODO = "ROADMAP.md Queue 1 item 15 (the LASER wav2vec2 encoder)"
 
 logger = logging.getLogger(__name__)
 
 
 def add_embed_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--embed_model_type", choices=EMBED_MODEL_TYPES,
-                        default="speech_laser",
-                        help=f"speech_laser is not ported yet: {LASER_TODO}.")
+                        default="speech_laser")
     parser.add_argument("--embed_fp32", action="store_true", default=False,
                         help="whether to save the embeddings in fp32. default is fp16.")
     # SpeechLASER setups
@@ -81,8 +80,6 @@ def load_embed_model(
     upload_precision: str = "int16",
     device="cuda",
 ):
-    if embed_model_type == "speech_laser":
-        raise SystemExit(f"--embed_model_type speech_laser is not ported yet: {LASER_TODO}")
     key = (embed_model_type, sl_ckpt_dir, sl_ckpt_name, max_tokens,
            sonar_name, sonar_fp16, compile_sonar, batch_size,
            upload_precision, str(device))
@@ -109,6 +106,20 @@ def _build_embed_model(
     upload_precision: str = "int16",
     device="cuda",
 ):
+    if embed_model_type == "speech_laser":
+        from svecalign_tpu_torch.models.laser_encoder import SpeechLaserModel
+
+        ckpt = None
+        if sl_ckpt_dir and sl_ckpt_name:
+            candidate = Path(sl_ckpt_dir) / sl_ckpt_name
+            if candidate.exists():
+                ckpt = str(candidate)
+            else:
+                logger.warning(f"{candidate} not found; using random weights.")
+        return SpeechLaserModel(
+            ckpt_path=ckpt, max_tokens=max_tokens or 150 * SAMPLE_RATE,
+            upload_dtype=upload_precision, device=device,
+        )
     if embed_model_type == "sonar":
         from svecalign_tpu_torch.models.sonar_encoder import SonarSpeechModel
 
@@ -138,8 +149,9 @@ def embed_segments_to_file(
     window_assembly: str = "device",
     waveform: np.ndarray = None,
 ) -> np.ndarray:
-    """Embed all segments of one audio and write the .embed file: headerless
-    raw fp16 (``fp16``) or fp32 rows, one per segment.
+    """Embed all segments of one audio and write the .embed file, one row
+    per segment, fp16 (``fp16``) or fp32: a stopes ``.npy`` for
+    SpeechLASER, headerless raw rows for SONAR.
 
     ``window_assembly="device"``: upload the waveform once and gather the
     overlap windows on the device (``encode_spans``); "host" slices and
@@ -152,5 +164,8 @@ def embed_segments_to_file(
         emb = embed_model.encode_spans(waveform, segments, fp16_pull=fp16)
     else:
         emb = embed_model.encode(slice_segments(wave_path, segments), fp16_pull=fp16)
-    write_np_embeddings(emb, out_path, fp16=fp16)
+    if embed_model_type == "speech_laser":
+        write_stopes_embedding(emb, out_path, fp16=fp16)
+    else:
+        write_np_embeddings(emb, out_path, fp16=fp16)
     return emb

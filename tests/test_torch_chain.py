@@ -1,0 +1,91 @@
+"""``chip_smoke.py``'s stage-5.3 LASER phase and post-align chain
+(5.3 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5) rehearsed on the CPU: the same phase functions
+at a tiny width on a 2-minute document, so that their control flow,
+file layout and checks run before the card sees them. The encoders are
+2-layer, 128-wide (LASER keeps the full conv geometry: 400-sample frames
+every 320); the rel-key "kernel" is its plain version, counted as a
+launch, since the CUDA kernel runs only on the card. Also the smoke's
+operation count.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from svecalign_tpu_torch.models import laser_encoder as tlaser
+from svecalign_tpu_torch.models import sonar_encoder as tsonar
+from svecalign_tpu_torch.models import w2v_bert
+from svecalign_tpu_torch.ops import attention, attention_cuda
+from svecalign_tpu_torch.utils import embed_model_utils as temu
+
+torch.set_num_threads(2)
+
+LASER_TINY = tlaser.LaserEncoderConfig(
+    conv_layers=tuple((32, k, s) for _, k, s in tlaser.LaserEncoderConfig().conv_layers),
+    encoder_dim=128, encoder_layers=2, encoder_heads=2, encoder_ffn_dim=256,
+    conv_pos_kernel=16, conv_pos_groups=4)
+SONAR_TINY = tsonar.SonarEncoderConfig(model_dim=128, n_layers=2, n_heads=2, ffn_dim=256,
+                                       pool_dim=1024)
+
+
+@pytest.fixture
+def tiny_card(monkeypatch):
+    """Tiny encoders from the loaders; the plain rel-key attention counted
+    as a kernel launch; no device to synchronise."""
+    build = temu._build_embed_model
+
+    def tiny(*args, **kwargs):
+        p = inspect.signature(build).bind(*args, **kwargs)
+        p.apply_defaults()
+        p = p.arguments
+        if p["embed_model_type"] == "speech_laser":
+            return tlaser.SpeechLaserModel(LASER_TINY, max_tokens=p["max_tokens"],
+                                           upload_dtype=p["upload_precision"],
+                                           device=p["device"])
+        return tsonar.SonarSpeechModel(SONAR_TINY, batch_size=4,
+                                       upload_dtype=p["upload_precision"], device=p["device"])
+
+    def plain_kernel(q, k, v, table, lengths=None, left=64, right=8):
+        attention_cuda.LAUNCHES["relkey_attention"] += 1
+        return attention.relkey_attention(q, k, v, table, lengths, left, right)
+
+    monkeypatch.setattr(temu, "_build_embed_model", tiny)
+    monkeypatch.setattr(w2v_bert._SelfAttention, "_use_kernel",
+                        lambda self, x: self.attention_backend == "auto")
+    monkeypatch.setattr(attention_cuda, "relkey_attention_cuda", plain_kernel)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "DOC_SECONDS", 120)
+    temu._model_memo.clear()
+    yield
+    temu._model_memo.clear()
+
+
+def test_laser_phase_and_chain_rehearsal(tiny_card, tmp_path, capsys):
+    device = torch.device("cpu")
+    laser = cs.phase_laser_path(tmp_path, device)
+    result = cs.phase_chain(tmp_path, device, laser)
+    out = capsys.readouterr().out
+    assert "[laser] --upload_precision fp32" in out and "(bit-equal)" in out
+    assert "stage 6.3 (--max_num_align 3 --max_sil 1.0 --max_dur 20.0" in out
+    assert out.count("stage 6.5") == 4
+    assert set(result) == {(label, kind) for label, _ in cs.CHAIN_TRAFFIC
+                           for kind in ("speech_laser", "sonar")}
+    # the coverage chains are no concat window: stage 6.5 embeds them, and
+    # the SONAR run goes through the (counted) rel-key kernel
+    for kind in ("speech_laser", "sonar"):
+        _, hits, misses, chunks = result["coverage", kind]
+        assert misses > 0 and sum(chunks.values()) > 0
+
+
+def test_laser_row_flops_at_full_width():
+    """~38 GFLOP per second of padded audio at the 8-s bucket: trunk dense
+    30.2, extractor 4.9, attention 2.0, projection + positional conv 0.9."""
+    parts = cs.laser_row_flops(tlaser.LaserEncoderConfig(), 8 * 16000)
+    per_s = {k: v / 8 / 1e9 for k, v in parts.items()}
+    np.testing.assert_allclose(per_s["trunk dense"], 30.2, rtol=0.01)
+    np.testing.assert_allclose(per_s["extractor"], 4.9, rtol=0.03)
+    np.testing.assert_allclose(per_s["attention"], 2.0, rtol=0.03)
+    np.testing.assert_allclose(per_s["projection + positional conv"], 0.89, rtol=0.03)

@@ -1,13 +1,15 @@
 """The port's stage-5.3 CLI (svecalign_tpu_torch.seg_align.embed --device
 cpu) against the JAX CLI (svecalign_tpu.seg_align.embed) on a synthetic
-WAV written by the port's writer, both with the SONAR model of a small
-config loaded from one npz (each package's ``_build_embed_model`` is
-patched to build it; the loaders' memos are cleared around each run).
+WAV written by the port's writer, both with the SONAR or the SpeechLASER
+model of a small config loaded from one npz (each package's
+``_build_embed_model`` is patched to build it; the loaders' memos are
+cleared around each run).
 
-The ``.embed`` files hold headerless fp16 rows; port and JAX rows agree
-to one fp16 step (the fp32 encoders differ by ~1e-5 relative before the
-cast). Also: the port's WAV reader equals the JAX package's native reader
-bit for bit, and its writer writes the same bytes.
+The SONAR ``.embed`` files hold headerless fp16 rows, the SpeechLASER ones
+a stopes ``.npy`` of fp16 rows; port and JAX rows agree to one fp16 step
+at the rows' magnitude (the fp32 encoders differ by ~1e-5 relative before
+the cast). Also: the port's WAV reader equals the JAX package's native
+reader bit for bit, and its writer writes the same bytes.
 """
 
 import sys
@@ -19,11 +21,13 @@ import torch
 
 import jax.numpy as jnp
 
+from svecalign_tpu.models import laser_encoder as jlaser
 from svecalign_tpu.models import param_utils as jparams
 from svecalign_tpu.models import sonar_encoder as jsonar
 from svecalign_tpu.seg_align import embed as jembed
 from svecalign_tpu.utils import audio_io as jaudio
 from svecalign_tpu.utils import embed_model_utils as jemu
+from svecalign_tpu_torch.models import laser_encoder as tlaser
 from svecalign_tpu_torch.models import sonar_encoder as tsonar
 from svecalign_tpu_torch.seg_align import embed as tembed
 from svecalign_tpu_torch.utils import audio_io as taudio
@@ -33,6 +37,9 @@ torch.set_num_threads(2)
 
 SMALL = dict(n_mels=80, model_dim=128, n_layers=2, n_heads=2, ffn_dim=256,
              conv_kernel=31, pool_dim=128)
+LASER_SMALL = dict(conv_layers=((32, 10, 5), (32, 3, 2), (32, 2, 2)), encoder_dim=128,
+                   encoder_layers=2, encoder_heads=2, encoder_ffn_dim=256, conv_pos_kernel=16,
+                   conv_pos_groups=4, dtype="float32")
 STEM = "doc_en"
 # one fp16 step at the rows' magnitude (|x| < 2), plus the fp32 difference
 FP16_ATOL = 2.0**-9
@@ -65,18 +72,25 @@ def corpus(tmp_path_factory):
     params = jparams.numpy_init(model, (jnp.zeros((1, 50, 160)), jnp.ones((1, 50), bool)), seed=4)
     npz = root / "small.npz"
     jparams.save_params_npz(params, str(npz))
-    return dict(root=root, wav=wav, npz=str(npz), n_rows=len(spans))
+    laser = jlaser.LaserSpeechEncoder(jlaser.LaserEncoderConfig(**LASER_SMALL))
+    params = jparams.numpy_init(laser, (jnp.zeros((1, 4000)), jnp.zeros((1,), jnp.int32)), seed=4)
+    laser_npz = root / "laser.npz"
+    jparams.save_params_npz(params, str(laser_npz))
+    return dict(root=root, wav=wav, npz=str(npz), laser_npz=str(laser_npz), n_rows=len(spans))
 
 
-def _argv(corpus, out, upload, assembly):
+def _argv(corpus, out, upload, assembly, kind="sonar"):
     root = corpus["root"]
     return [str(root / "metadata.tsv"), str(out), "--concat_dir", str(root / "cat"),
-            "--lang", "en", "--embed_model_type", "sonar", "--batch_size", "4",
+            "--lang", "en", "--embed_model_type", kind, "--batch_size", "4",
             "--upload_precision", upload, "--window_assembly", assembly]
 
 
 def _small(model):
-    model.BUCKET_FRAMES = (100, 250, 700)
+    if hasattr(model, "BUCKETS"):  # SpeechLASER, in samples
+        model.BUCKETS = (16000, 32000, 80000)
+    else:
+        model.BUCKET_FRAMES = (100, 250, 700)
     model.WAVE_BUCKETS_S = (30,)
     return model
 
@@ -85,12 +99,20 @@ def _small(model):
 def patched_loaders(corpus, monkeypatch):
     def jbuild(embed_model_type, *args, **kwargs):
         upload = kwargs.get("upload_precision", args[7] if len(args) > 7 else "int16")
+        if embed_model_type == "speech_laser":
+            return _small(jlaser.SpeechLaserModel(
+                jlaser.LaserEncoderConfig(**LASER_SMALL), ckpt_path=corpus["laser_npz"],
+                max_tokens=64000, upload_dtype=upload))
         return _small(jsonar.SonarSpeechModel(
             jsonar.SonarEncoderConfig(**SMALL, dtype="float32", attention_backend="xla"),
             ckpt_path=corpus["npz"], batch_size=4, upload_dtype=upload))
 
     def tbuild(embed_model_type, *args, **kwargs):
         upload = kwargs.get("upload_precision", args[7] if len(args) > 7 else "int16")
+        if embed_model_type == "speech_laser":
+            return _small(tlaser.SpeechLaserModel(
+                tlaser.LaserEncoderConfig(**LASER_SMALL), ckpt_path=corpus["laser_npz"],
+                max_tokens=64000, upload_dtype=upload, device="cpu"))
         return _small(tsonar.SonarSpeechModel(
             tsonar.SonarEncoderConfig(**SMALL, dtype="float32"),
             ckpt_path=corpus["npz"], batch_size=4, upload_dtype=upload, device="cpu"))
@@ -145,11 +167,47 @@ def test_default_device_raises_without_card(corpus, tmp_path, monkeypatch):
         tembed.main(_argv(corpus, tmp_path, "int16", "device"))
 
 
-def test_speech_laser_exits_naming_roadmap(corpus, tmp_path):
+@pytest.mark.parametrize("upload", ["fp32", "int16"])
+@pytest.mark.parametrize("assembly", ["device", "host"])
+def test_laser_cli_matches_jax_cli(corpus, patched_loaders, tmp_path, monkeypatch, upload,
+                                   assembly):
+    """SpeechLASER writes a stopes .npy of fp16 rows, one per window line,
+    within one fp16 step of the JAX CLI's at the rows' magnitude."""
+    argv = lambda out: _argv(corpus, out, upload, assembly, kind="speech_laser")
+    tembed.main(argv(tmp_path / "torch") + ["--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["embed"] + argv(tmp_path / "jax"))
+    jembed.main()
+
+    got_path = tmp_path / "torch" / "en" / f"{STEM}.embed"
+    assert got_path.read_bytes()[:6] == b"\x93NUMPY"
+    got = np.load(got_path)
+    want = np.load(tmp_path / "jax" / "en" / f"{STEM}.embed")
+    assert got.dtype == want.dtype == np.float16
+    assert got.shape == (corpus["n_rows"], 128) and np.isfinite(got).all()
+    assert not list((tmp_path / "torch" / "en").glob("*.tmp.embed"))
+    step = float(np.spacing(np.float16(np.abs(want).max())))
+    np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32), rtol=0,
+                               atol=step)
+
+
+def test_laser_is_the_default_and_raises_without_card(corpus, tmp_path, monkeypatch):
+    """With no --embed_model_type the stage runs SpeechLASER; with no
+    --device on a machine without CUDA it raises."""
     argv = _argv(corpus, tmp_path, "int16", "device")
-    argv[argv.index("sonar")] = "speech_laser"
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 15"):
-        tembed.main(argv + ["--device", "cpu"])
+    i = argv.index("--embed_model_type")
+    del argv[i:i + 2]
+    assert tembed.parse_args(argv).embed_model_type == "speech_laser"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tembed.main(argv)
+
+
+def test_laser_fp32_rows(corpus, patched_loaders, tmp_path):
+    """--embed_fp32 writes a .npy of fp32 rows."""
+    tembed.main(_argv(corpus, tmp_path, "fp32", "device", kind="speech_laser")
+                + ["--device", "cpu", "--embed_fp32"])
+    rows = np.load(tmp_path / "en" / f"{STEM}.embed")
+    assert rows.dtype == np.float32 and rows.shape == (corpus["n_rows"], 128)
 
 
 # --- WAV IO ----------------------------------------------------------------------

@@ -29,7 +29,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "svecalign_tpu_torch.ops.dp_cuda" in res["imported"]
     assert "svecalign_tpu_torch.seg_align.align" in res["imported"]
     for name in ("ops.attention_cuda", "models.sonar_encoder", "seg_align.embed",
-                 "ops.dense_dp_cuda", "ops.traceback_cuda", "vecalign.batch"):
+                 "ops.dense_dp_cuda", "ops.traceback_cuda", "vecalign.batch",
+                 "models.laser_encoder", "postprocess.filter_by_cost",
+                 "postprocess.concat_aligns", "postprocess.filter_by_dur",
+                 "postprocess.embed_align"):
         assert f"svecalign_tpu_torch.{name}" in res["imported"]
     mods = res["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib"]
