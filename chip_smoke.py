@@ -50,12 +50,26 @@ Phases, in order; any failure exits non-zero:
 8. kernel coverage beyond the chain: SONAR's encode_spans at the long
    buckets (25-60 s spans, T = 1500-3000), which stage 6.5 meets only
    where one alignment is that long, against the plain attention path,
-   and the kernel timed there against SDPA and its bound.
+   and the kernel timed there against SDPA and its bound;
+9. mining at a corpus size users run: stages 6.6 and 6.7 through their
+   CLIs on a synthetic corpus of 100 pairs and 2^18 rows a language
+   (planted pairs), the Flat tier searched tiled: the index file against
+   the normalized rows, sampled margins against float64 on the card, the
+   planted pairs over margin 1; first and warm walls, the search split
+   into products, top-k and merge against its fp32 bound, peak memory;
+   coverage on 2^15 rows: IVF at the full probe against Flat and at the
+   default probe, k-means reproducible bit for bit, the int8 corpus and
+   fp16 query uploads within tolerance of fp32.
+
+Phase 7 begins with the windows of both documents written by the
+stage-5.1 CLI and stage 5.2, and ends in the mined tsv: stages 6.6-6.10
+on the pipeline-settings traffic.
 
 ``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
 alone: no SONAR model is built) and prints their ``[time]`` lines;
-``--laser`` runs phases 1, 2 and 6-8; ``--profile`` profiles one warm
-stage-5.3 run with each encoder instead.
+``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 (no
+encoder is built); ``--profile`` profiles one warm stage-5.3 run with
+each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -1435,9 +1449,10 @@ def vad_segments(rng, seconds, sr=16000):
 
 
 def concat_windows(segs, max_run=5, max_dur_s=20.0, sr=16000):
-    """The concat stage's rule (seg_align/concat_segs.py): every run of up
-    to ``max_run`` consecutive segments from each anchor, stopping at the
-    first whose extent passes ``max_dur_s``; lines sorted as strings."""
+    """The concat stage's rule, written out plainly (every run of up to
+    ``max_run`` consecutive segments from each anchor, stopping at the
+    first whose extent passes ``max_dur_s``; lines sorted as strings): the
+    check of the windows that the stage-5.1 CLI writes."""
     cap = int(max_dur_s * sr)
     lines = []
     for k in range(len(segs)):
@@ -1453,10 +1468,13 @@ def write_synthetic_document(root, seconds, seed=0, lang=SRC_LANG):
     """One side of a stage-5.3 input tree: a 16 kHz PCM16 WAV
     ``raw_audios/{lang}/{STEM}_{lang}.wav`` (speech-like tones in noise over
     VAD-like segments, near silence between them) written by the port's
-    writer, its segments ``segments/{lang}/`` and concat windows
-    ``cat_segs/{lang}/`` (``{STEM}_{lang}.txt``), and ``root/metadata.tsv``,
-    which names the pair's two WAVs whichever side is written. Returns
-    (paths dict, window lines)."""
+    writer, its segments ``segments/{lang}/``, and ``root/metadata.tsv``,
+    which names the pair's two WAVs whichever side is written; then the
+    port's stage-5.1 CLI (``seg_align.concat_segs``, its defaults: runs of
+    up to 5 segments within 20 s) writes the concat windows
+    ``cat_segs/{lang}/`` (``{STEM}_{lang}.txt``), which must equal
+    :func:`concat_windows`. Returns (paths dict, window lines)."""
+    from svecalign_tpu_torch.seg_align import concat_segs
     from svecalign_tpu_torch.utils import audio_io
 
     sr = 16000
@@ -1474,14 +1492,18 @@ def write_synthetic_document(root, seconds, seed=0, lang=SRC_LANG):
     wav = root / "raw_audios" / lang / f"{name}.wav"
     wav.parent.mkdir(parents=True, exist_ok=True)
     audio_io.write(str(wav), np.clip(wave, -1.0, 1.0), sr)
-    lines = concat_windows(segs)
-    for kind, text in (("cat_segs", "".join(x + "\n" for x in lines)),
-                       ("segments", "".join(f"{s} {e}\n" for s, e in segs))):
-        d = root / kind / lang
-        d.mkdir(parents=True, exist_ok=True)
-        (d / f"{name}.txt").write_text(text, encoding="utf-8")
+    d = root / "segments" / lang
+    d.mkdir(parents=True, exist_ok=True)
+    (d / f"{name}.txt").write_text("".join(f"{s} {e}\n" for s, e in segs), encoding="utf-8")
     src, tgt = (root / "raw_audios" / x / f"{STEM}_{x}.wav" for x in (SRC_LANG, TGT_LANG))
     (root / "metadata.tsv").write_text(f"{src}\t{tgt}\n", encoding="utf-8")
+    concat_segs.main([str(root / "metadata.tsv"), str(root / "cat_segs"), "--seg_dir",
+                      str(root / "segments"), "--lang", lang,
+                      *(["--use_tgt"] if lang == TGT_LANG else [])])
+    lines = (root / "cat_segs" / lang / f"{name}.txt").read_text(encoding="utf-8").splitlines()
+    if lines != concat_windows(segs):
+        raise AssertionError(f"stage 5.1 wrote {len(lines)} windows for {name}, which differ "
+                             f"from the {len(concat_windows(segs))} of the rule")
     return {"root": root, "metadata": root / "metadata.tsv", "wav": wav,
             "n_segments": len(segs), "segments": segs}, lines
 
@@ -1764,6 +1786,8 @@ MISS_SAMPLES = 8  # stage-6.5 rows held against encode_spans, per run
 # --max_num_align 6 gives stage 6.5 spans to embed (coverage, see phase_chain)
 CONCAT_ARGS = ("--max_sil", "1.0", "--max_dur", "20.0", "--apply_dur_cond_to_both_sides")
 CHAIN_TRAFFIC = (("pipeline settings", 3), ("coverage", 6))  # (label, --max_num_align)
+# stage 6.9 at svecalign_tpu/pipeline.py's settings
+OVERLAP_ARGS = ("--min_audio_length", "2000", "--mining_threshold", "0.0", "--max_overlap", "0.8")
 MIN_DUR_S = 1.0
 KEEP_SHARE = 0.8  # share of the non-deletions under stage 6.1's cost limit
 LONG_SPAN_SECONDS = (25, 35, 50, 60)  # SONAR spans of the 3000-6000-frame buckets
@@ -2025,13 +2049,17 @@ def _stage_6_5(kind, model, root, adir, emb_dir, spans, laser, dev):
 def phase_chain(workdir, device, laser):
     """The post-align chain on the card, every stage through its CLI:
     stage 5.3 with SpeechLASER on a second document (the target side, seed
-    1), stage 5.4 over both, stage 6.1 at the cost that keeps
+    1; both documents' windows written by the stage-5.1 CLI), stage 5.2 on
+    a stage-4.2 output of "no untranslated segment" (stage 4.2 waits on
+    ROADMAP item 12), stage 5.4 over both, stage 6.1 at the cost that keeps
     ``KEEP_SHARE`` of the non-deletions (random weights make the costs
     meaningless), then for each of ``CHAIN_TRAFFIC`` stage 6.3
     (``CONCAT_ARGS``), stage 6.4 (``MIN_DUR_S``) and stage 6.5 on 6.4's
     output with SpeechLASER and with SONAR (whose stage 5.3 runs on the
     source side first). Stage 6.2 (untranslated segments) is not ported:
-    6.3 reads 6.1's output.
+    6.3 reads 6.1's output. On the first traffic the chain then runs to the
+    mined tsv (:func:`_chain_mining`): stage 6.5 on the target side, 6.6,
+    6.7, 6.8, 6.9 and 6.10 at the pipeline's settings.
 
     The first traffic is the pipeline's (chains of up to 3 alignments).
     With random weights stage 5.4 aligns one segment to one, so such a
@@ -2050,7 +2078,7 @@ def phase_chain(workdir, device, laser):
     import torch
 
     from svecalign_tpu_torch.postprocess import concat_aligns, filter_by_cost, filter_by_dur
-    from svecalign_tpu_torch.seg_align import align
+    from svecalign_tpu_torch.seg_align import align, detect_untranslate_concats
     from svecalign_tpu_torch.seg_align import embed as stage
     from svecalign_tpu_torch.utils import embed_model_utils
     from svecalign_tpu_torch.utils.file_utils import (
@@ -2067,12 +2095,31 @@ def phase_chain(workdir, device, laser):
     _log(f"[chain] target side: {n_tgt} segments, {len(tgt_lines)} windows, LASER stage 5.3 "
          f"{wall:.3f}s wall; source side: {n_src} segments, {len(laser['lines'])} windows")
 
+    langs = ["--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG]
+    pair = f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}"
+    flags = root / "untrans_segs" / f"{SRC_LANG}-{TGT_LANG}"
+    flags.mkdir(parents=True, exist_ok=True)
+    for side in ("src", "tgt"):
+        (flags / f"{pair}.{side}.txt").write_text("")
+    t0 = time.perf_counter()
+    detect_untranslate_concats.main([str(paths["metadata"]), str(root / "untrans_cats"),
+                                     "--seg_dir", str(root / "segments"),
+                                     "--identical_seg_dir", str(root / "untrans_segs")] + langs)
+    wall = time.perf_counter() - t0
+    ign = [root / "untrans_cats" / f"{SRC_LANG}-{TGT_LANG}" / f"{pair}.{side}.txt"
+           for side in ("src", "tgt")]
+    if any(p.read_text() for p in ign):
+        raise AssertionError("stage 5.2 flagged windows with no untranslated segment")
+    _log(f"[chain] stage 5.2 on a stage-4.2 output of no untranslated segment: empty ignore "
+         f"files for both sides, {wall:.3f}s wall")
+
     _reset_launches()
     t0 = time.perf_counter()
     align.main([str(paths["metadata"]), str(root / "align"), "--src_lang", SRC_LANG,
                 "--tgt_lang", TGT_LANG, "--seg_dir", str(root / "segments"),
                 "--concat_dir", str(root / "cat_segs"), "--embed_dir", str(laser["emb_dir"]),
-                "--is_stopes_embed", "-a", "6", "--device", dev])
+                "--is_stopes_embed", "-a", "6", "--ign_indices_dir", str(root / "untrans_cats"),
+                "--device", dev])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans, costs = read_output(output_path(root / "align"))
@@ -2084,7 +2131,6 @@ def phase_chain(workdir, device, laser):
          f"{_launches()}, {len(spans)} alignments, {len(spans) - len(kept_costs)} deletions, "
          f"costs {min(kept_costs):.4f}-{max(kept_costs):.4f}")
 
-    langs = ["--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG]
     seg_args = ["--seg_dir", str(root / "segments")]
     t0 = time.perf_counter()
     filter_by_cost.main([str(paths["metadata"]), str(root / "align_f"), "--align_dir",
@@ -2150,7 +2196,84 @@ def phase_chain(workdir, device, laser):
             _log(f"[chain] {label}: stage 6.5 {kind} on the 6.4 output: {wall:.3f}s wall, "
                  f"{len(final)} tsv lines: {hits} hits at their stage-5.3 rows, {misses} misses "
                  f"in {sum(chunks.values())} chunks {dict(sorted(chunks.items()))}" + msg)
+        if label == CHAIN_TRAFFIC[0][0]:
+            _chain_mining(root, paths, ddir, final, src_segs, tgt_segs, laser, dev)
     return result
+
+
+def _chain_mining(root, paths, ddir, final, src_segs, tgt_segs, laser, dev):
+    """The chain's end, through the CLIs at svecalign_tpu/pipeline.py's
+    settings: stage 6.5 with SpeechLASER on the target side (its source
+    side ran in phase_chain, into the same directory), 6.6 for both
+    languages (``--embed_fp16 --embed_stopes --sample_ratio 0.5``), 6.7
+    (``--k 16``, ratio margin), 6.8, 6.9 (``OVERLAP_ARGS``) and 6.10.
+    Checks: the sorted tsv is in descending margin order, and every row's
+    two spans are those of one stage-6.4 alignment (``final``), of the
+    pair's two audio files."""
+    import torch
+
+    from svecalign_tpu_torch.postprocess import (
+        embed_align, prep_index, prep_tsv, remove_overlaps, score_align, sort_tsv)
+    from svecalign_tpu_torch.utils import file_utils
+    from svecalign_tpu_torch.utils.file_utils import alignments_to_timestamps
+
+    meta, langs = str(paths["metadata"]), ["--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG]
+    ea = root / f"ea_speech_laser_{ddir.name}"
+    walls = {}
+    t0 = time.perf_counter()
+    embed_align.main([meta, str(ea), "--align_dir", str(ddir), "--seg_dir",
+                      str(root / "segments"), "--concat_seg_dir", str(root / "cat_segs"),
+                      "--concat_seg_embed_dir", str(laser["emb_dir"]), "--embed_model_type",
+                      "speech_laser", "--use_tgt", "--device", dev] + langs)
+    torch.cuda.synchronize()
+    walls["6.5 tgt"] = time.perf_counter() - t0
+    idx, mrg, tsv = root / "mine_index", root / "mine_margins", root / "mine_tsv"
+    t0 = time.perf_counter()
+    for use_tgt in ([], ["--use_tgt"]):
+        prep_index.main([meta, str(idx), "--data_dir", str(ea), "--embed_fp16",
+                         "--sample_ratio", "0.5", "--embed_stopes", "--device", dev]
+                        + langs + use_tgt)
+    walls["6.6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score_align.main([meta, str(mrg), "--embed_dir", str(ea), "--align_dir", str(ddir),
+                      "--index_dir", str(idx), "--embed_fp16", "--k", str(MINING_K),
+                      "--embed_stopes", "--device", dev] + langs)
+    walls["6.7"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep_tsv.main([meta, str(tsv), "--align_dir", str(mrg), "--seg_dir", str(root / "segments")]
+                  + langs)
+    walls["6.8"] = time.perf_counter() - t0
+    d = tsv / f"{SRC_LANG}-{TGT_LANG}"
+    t0 = time.perf_counter()
+    remove_overlaps.main(["--output_dir", str(d), "--output_filename", "align.rm_overlap.tsv.gz",
+                          "--mining_result_path", str(d / "align.tsv.gz"), *OVERLAP_ARGS])
+    walls["6.9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sort_tsv.main(["--in_tsv", str(d / "align.rm_overlap.tsv.gz"),
+                   "--out_tsv", str(d / "align.rm_overlap.sort.tsv.gz")])
+    walls["6.10"] = time.perf_counter() - t0
+
+    src_audio, tgt_audio = file_utils.read_metadata(meta)[0]
+    s_times, t_times, _ = alignments_to_timestamps(final, src_segs, tgt_segs, ignore_empty=False)
+    spans = {(f"{src_audio} {s0} {s1} 16", f"{tgt_audio} {t0} {t1} 16")
+             for (s0, s1), (t0, t1) in zip(s_times, t_times)}
+    with file_utils.open(d / "align.tsv.gz") as fp:
+        n_mined = sum(1 for _ in fp)
+    with file_utils.open(d / "align.rm_overlap.sort.tsv.gz") as fp:
+        rows = [line.rstrip("\n").split("\t") for line in fp]
+    margins = [float(r[0]) for r in rows]
+    if not rows or margins != sorted(margins, reverse=True):
+        raise AssertionError("the sorted tsv is empty or not in descending margin order")
+    stray = [r for r in rows if (r[1], r[2]) not in spans]
+    if stray:
+        raise AssertionError(f"{len(stray)} sorted-tsv rows are no stage-6.4 alignment, e.g. "
+                             f"{stray[0]}")
+    if n_mined != len(final):
+        raise AssertionError(f"stage 6.8 wrote {n_mined} rows for {len(final)} alignments")
+    _log(f"[chain] mined tsv: 6.7 scored the {len(final)} alignments (margins "
+         f"{min(margins):.4f}-{max(margins):.4f} after 6.9), 6.9 kept {len(rows)}, 6.10 sorted "
+         "them by margin; every row's spans are a stage-6.4 alignment's; walls "
+         + ", ".join(f"{k} {v:.3f}s" for k, v in walls.items()))
 
 
 def phase_sonar_long_spans(device, waveform):
@@ -2209,6 +2332,285 @@ def phase_long_attention_times(device, chunks, n_layers=24, batch=16, heads=16):
         T = bucket // 2
         lens = tuple(int(x) for x in rng.integers(T // 2, T + 1, batch))
         _time_attention_bucket(bucket, lens, heads, n_layers * chunks.get(bucket, 0), device)
+
+
+# ---------------------------------------------------------------------------
+# Mining: stages 6.6 and 6.7 at a corpus size users run
+# ---------------------------------------------------------------------------
+
+MINING_PAIRS = 100  # hour-scale document pairs of one language pair's corpus
+MINING_ROWS = 1 << 18  # alignments a language: ~2,600 a pair (the chain's 455 on 10 minutes, x6)
+MINING_SUBSET_PAIRS = 12
+MINING_SUBSET_ROWS = 1 << 15  # the IVF, int8 and fp16-upload coverage runs
+MINING_DIM = 1024
+MINING_K = 16  # svecalign_tpu/pipeline.py's --knn_k
+MINING_IVF = "IVF256"
+PLANTED_NOISE = 1.0  # a planted pair: one latent vector plus noise of the same scale, per side
+MARGIN_CHECK_ROWS = 4096  # margins held against a float64 recomputation on the card
+MARGIN_RTOL = 1e-5
+MIN_PLANTED_SHARE = 0.99  # of planted pairs whose ratio margin is over 1
+CHEAP_TIER_TOL = (0.03, 1e-3)  # rtol, atol: int8 corpus / fp16 upload against fp32 margins
+PREP_ARGS = ("--embed_fp16", "--embed_stopes", "--sample_ratio", "0.5")  # pipeline.py's 6.6
+
+
+def write_mining_corpus(root, n_pairs, n_rows, dim, seed):
+    """Stage 6.5's output for a corpus, in the layout stages 6.6 and 6.7
+    read (as ``tests/test_fused.py::_write_mining_fixture`` writes it):
+    ``metadata.tsv``; per pair and side a stopes fp16 ``.npy`` embed file
+    ``embeds/{src}-{tgt}/{pair}.{side}.embed`` and its pointer tsv, one
+    line per row; per pair an alignment file ``aligns/{src}-{tgt}/`` of
+    ``[i]:[i]``. ``n_rows`` rows a language over ``n_pairs`` pairs; row i
+    of a pair's two sides is one latent vector plus independent noise of
+    the same scale (the planted pairs). Returns the per-pair row counts."""
+    from svecalign_tpu_torch.utils.embedding_utils import write_stopes_embedding
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    sizes = [n_rows // n_pairs + (p < n_rows % n_pairs) for p in range(n_pairs)]
+    embed_dir = root / "embeds" / f"{SRC_LANG}-{TGT_LANG}"
+    align_dir = root / "aligns" / f"{SRC_LANG}-{TGT_LANG}"
+    embed_dir.mkdir(parents=True, exist_ok=True)
+    align_dir.mkdir(parents=True, exist_ok=True)
+    meta = []
+    for p, n in enumerate(sizes):
+        src, tgt = f"MINE-{p:03d}_{SRC_LANG}", f"MINE-{p:03d}_{TGT_LANG}"
+        pid = f"{src}-{tgt}"
+        meta.append(f"/audio/{SRC_LANG}/{src}.wav\t/audio/{TGT_LANG}/{tgt}.wav\n")
+        latent = rng.standard_normal((n, dim), dtype=np.float32)
+        for side in ("src", "tgt"):
+            rows = latent + PLANTED_NOISE * rng.standard_normal((n, dim), dtype=np.float32)
+            path = embed_dir / f"{pid}.{side}.embed"
+            write_stopes_embedding(rows, str(path), fp16=True)
+            (embed_dir / f"{pid}.{side}.tsv").write_text(
+                "".join(f"{path.as_posix()}\t{i}\n" for i in range(n)))
+        (align_dir / f"{pid}.txt").write_text("".join(f"[{i}]:[{i}]\n" for i in range(n)))
+    (root / "metadata.tsv").write_text("".join(meta))
+    return sizes
+
+
+def _mining_rows(root, side, sizes):
+    """The corpus rows of one side, fp32, in metadata order."""
+    d = Path(root) / "embeds" / f"{SRC_LANG}-{TGT_LANG}"
+    return np.concatenate([
+        np.load(d / f"MINE-{p:03d}_{SRC_LANG}-MINE-{p:03d}_{TGT_LANG}.{side}.embed")
+        .astype(np.float32) for p in range(len(sizes))])
+
+
+def _run_prep_index(root, out, dev, extra=()):
+    from svecalign_tpu_torch.postprocess import prep_index
+
+    t0 = time.perf_counter()
+    for use_tgt in ([], ["--use_tgt"]):
+        prep_index.main([str(root / "metadata.tsv"), str(root / out), "--data_dir",
+                         str(root / "embeds"), "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG,
+                         *PREP_ARGS, *use_tgt, *extra, "--device", dev])
+    return time.perf_counter() - t0
+
+
+def _run_score_align(root, index, out, dev, extra=()):
+    """Stage 6.7 through its CLI; returns (wall, margins in metadata order
+    as np.float32, alignment columns)."""
+    from svecalign_tpu_torch.postprocess import score_align
+
+    t0 = time.perf_counter()
+    score_align.main([str(root / "metadata.tsv"), str(root / out), "--embed_dir",
+                      str(root / "embeds"), "--align_dir", str(root / "aligns"), "--src_lang",
+                      SRC_LANG, "--tgt_lang", TGT_LANG, "--index_dir", str(root / index),
+                      "--embed_fp16", "--embed_stopes", "--k", str(MINING_K), *extra,
+                      "--device", dev])
+    wall = time.perf_counter() - t0
+    d = root / out / f"{SRC_LANG}-{TGT_LANG}"
+    cols, margins = [], []
+    for line in (root / "metadata.tsv").read_text().splitlines():
+        src, tgt = (Path(x).stem for x in line.split("\t"))
+        for row in (d / f"{src}-{tgt}.txt").read_text().splitlines():
+            head, margin = row.rsplit(":", 1)
+            cols.append(head)
+            margins.append(margin)
+    return wall, np.asarray(margins, dtype=np.float32), cols
+
+
+def _float64_margins(device, x, y, rows, k, chunk=1024):
+    """Ratio margins of ``rows`` from scratch in float64 on ``device``:
+    squared L2 to every corpus row, the k smallest, their mean cosine in
+    both directions. ``x``/``y`` are the L2-normalized fp32 corpora."""
+    import torch
+
+    xc = torch.from_numpy(x).to(device, torch.float64)
+    yc = torch.from_numpy(y).to(device, torch.float64)
+    out = []
+    for r0 in range(0, len(rows), chunk):
+        r = torch.from_numpy(np.asarray(rows[r0:r0 + chunk])).to(device)
+        qx, qy = xc[r], yc[r]
+        avg = []
+        for q, corpus in ((qx, yc), (qy, xc)):
+            d2 = (q * q).sum(1, keepdim=True) + (corpus * corpus).sum(1)[None] \
+                - 2.0 * q @ corpus.T
+            avg.append((2.0 - torch.topk(d2, k, dim=1, largest=False).values.mean(1)) / 2.0)
+            del d2
+        out.append(((qx * qy).sum(1) / ((avg[0] + avg[1]) / 2.0)).cpu().numpy())
+    return np.concatenate(out)
+
+
+def _mining_gate_planted(what, margins):
+    share = float(np.mean(margins > 1.0))
+    if share < MIN_PLANTED_SHARE:
+        raise AssertionError(f"{what}: {share:.4f} of the planted pairs have a ratio margin "
+                             f"over 1, want >= {MIN_PLANTED_SHARE}")
+    return share
+
+
+def phase_mining(workdir, device):
+    """Stages 6.6 and 6.7 through their CLIs on the card, at the
+    pipeline's settings (``PREP_ARGS``; ``--k 16``, ratio margin) on a
+    synthetic corpus of ``MINING_PAIRS`` pairs, ``MINING_ROWS`` rows a
+    language: the Flat tier (the size rule's choice), searched tiled.
+    Both stages run twice (first and warm walls); the warm 6.7 reports its
+    peak device memory. Gates: ``Flat.populate.idx`` read back equals the
+    L2-normalized rows; ``MARGIN_CHECK_ROWS`` sampled margins equal a
+    float64 recomputation on the card within ``MARGIN_RTOL``; at least
+    ``MIN_PLANTED_SHARE`` of the planted pairs score over 1. Then one
+    direction's search alone, split into products, top-k and merge
+    (``SVECALIGN_SEARCH_PROFILE=1``), against the fp32 bound. Coverage on
+    a ``MINING_SUBSET_ROWS``-row corpus: ``MINING_IVF`` at the full probe
+    equals Flat within ``MARGIN_RTOL``, at the default probe passes the
+    planted gate; two k-means trainings on one sample give bit-equal
+    centroids; ``--corpus_quant int8`` and ``--query_upload fp16`` stay
+    within ``CHEAP_TIER_TOL`` of the fp32 margins. Returns the numbers."""
+    import torch
+
+    from svecalign_tpu_torch.ops import topk
+    from svecalign_tpu_torch.postprocess import prep_index, score_align
+    from svecalign_tpu_torch.utils.embedding_utils import load_sent_embeddings
+    from svecalign_tpu_torch.utils.index_utils import load_index, read_flat_index
+
+    dev, root = device.type, Path(workdir) / "mining"
+    t0 = time.perf_counter()
+    sizes = write_mining_corpus(root, MINING_PAIRS, MINING_ROWS, MINING_DIM, seed=200)
+    n = sum(sizes)
+    _log(f"[mining] wrote a corpus of {len(sizes)} pairs, {n} rows a language "
+         f"({min(sizes)}-{max(sizes)} a pair, {MINING_DIM}-d fp16 stopes rows), in "
+         f"{time.perf_counter() - t0:.1f}s")
+
+    walls = {}
+    for run in ("first", "warm"):
+        walls["6.6", run] = _run_prep_index(root, "index", dev)
+    prep_phases = dict(prep_index.phase_seconds)
+    x_rows, y_rows = _mining_rows(root, "src", sizes), _mining_rows(root, "tgt", sizes)
+    x, y = topk.normalize_l2(x_rows), topk.normalize_l2(y_rows)
+    del x_rows, y_rows
+    for lang, want in ((SRC_LANG, x), (TGT_LANG, y)):
+        path = root / "index" / f"{SRC_LANG}-{TGT_LANG}" / lang / "Flat.populate.idx"
+        if not np.array_equal(read_flat_index(path), want):
+            raise AssertionError(f"{path} is not the L2-normalized rows")
+    _log(f"[time] stage 6.6 (Flat, both languages): first {walls['6.6', 'first']:.3f}s, warm "
+         f"{walls['6.6', 'warm']:.3f}s wall; warm phases of the second language "
+         + ", ".join(f"{k} {v:.3f}s" for k, v in prep_phases.items())
+         + "; Flat.populate.idx equals the L2-normalized rows (both languages)")
+
+    walls["6.7", "first"], _, _ = _run_score_align(root, "index", "margins_first", dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    walls["6.7", "warm"], margins, _ = _run_score_align(root, "index", "margins", dev)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    phases = dict(score_align.phase_seconds)
+    if margins.shape != (n,) or not np.isfinite(margins).all():
+        raise AssertionError(f"stage 6.7: {margins.shape} margins, want {n} finite ones")
+    share = _mining_gate_planted("stage 6.7 (Flat)", margins)
+    rows = np.sort(np.random.default_rng(7).choice(n, size=min(MARGIN_CHECK_ROWS, n),
+                                                    replace=False))
+    t0 = time.perf_counter()
+    want = _float64_margins(device, x, y, rows, MINING_K)
+    rel = np.abs(margins[rows] - want) / np.abs(want)
+    if rel.max() > MARGIN_RTOL:
+        raise AssertionError(f"stage 6.7 margins against float64: max relative error "
+                             f"{rel.max():.3e} > {MARGIN_RTOL}")
+    flops = 2 * 2.0 * n * n * MINING_DIM  # both directions
+    bound_s = flops / H100_FP32_OPS_PER_S
+    _log(f"[time] stage 6.7 (Flat, tiled, k {MINING_K}, {n} queries a direction): first "
+         f"{walls['6.7', 'first']:.3f}s, warm {walls['6.7', 'warm']:.3f}s wall; warm phases "
+         + ", ".join(f"{k} {v:.3f}s" for k, v in phases.items())
+         + f"; search + margins {flops / phases['search'] / 1e12:.2f} TFLOP/s "
+         f"({100 * bound_s / phases['search']:.1f}% of the fp32 peak, bound {bound_s:.3f}s); "
+         + (f"peak device memory {peak / 2**30:.2f} GiB" if peak is not None
+            else "peak device memory not measured (no card)"))
+    _log(f"[mining] margins: {share:.4f} of the planted pairs over 1 (median "
+         f"{float(np.median(margins)):.4f}); {len(rows)} sampled against float64 on the card: "
+         f"max relative error {rel.max():.3e} ({time.perf_counter() - t0:.1f}s)")
+
+    # one direction's search alone, split by phase
+    index = load_index(root / "index" / f"{SRC_LANG}-{TGT_LANG}" / TGT_LANG /
+                       "Flat.populate.idx", device=device)
+    index.search(x[:score_align.CHUNK_ROWS], MINING_K)  # upload the corpus, warm up
+    topk.search_seconds.clear()
+    os.environ["SVECALIGN_SEARCH_PROFILE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        for q0 in range(0, n, score_align.CHUNK_ROWS):
+            index.search(x[q0:q0 + score_align.CHUNK_ROWS], MINING_K)
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["SVECALIGN_SEARCH_PROFILE"]
+    split = dict(topk.search_seconds)
+    one_dir = flops / 2
+    _log(f"[time] Flat search, one direction ({n} x {n}, {n // score_align.CHUNK_ROWS or 1} "
+         f"chunks of {min(n, score_align.CHUNK_ROWS)} queries, blocks of {index.BLOCK} rows, "
+         f"synced by phase): {wall:.3f}s wall; "
+         + ", ".join(f"{k} {v:.3f}s" for k, v in split.items())
+         + f"; products {one_dir / split['products'] / 1e12:.2f} TFLOP/s against "
+         f"{H100_FP32_OPS_PER_S / 1e12:.0f} (fp32, TF32 off), bound {one_dir / H100_FP32_OPS_PER_S:.3f}s")
+    del index, x, y
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # coverage on a subset corpus
+    sub = root / "subset"
+    sub_sizes = write_mining_corpus(sub, MINING_SUBSET_PAIRS, MINING_SUBSET_ROWS, MINING_DIM,
+                                    seed=201)
+    _run_prep_index(sub, "flat", dev)
+    _, flat, cols = _run_score_align(sub, "flat", "m_flat", dev)
+    nlist = int(MINING_IVF[3:])
+    t0 = time.perf_counter()
+    _run_prep_index(sub, "ivf", dev, ["--index_type", MINING_IVF])
+    ivf_wall = time.perf_counter() - t0
+    cov = {}
+    for probe in (str(nlist), "128"):
+        wall, got, got_cols = _run_score_align(sub, "ivf", f"m_ivf{probe}", dev,
+                                               ["--num_probe", probe])
+        if got_cols != cols:
+            raise AssertionError(f"{MINING_IVF} --num_probe {probe}: alignment columns differ")
+        cov[probe] = (wall, float(np.max(np.abs(got - flat) / np.abs(flat))),
+                      _mining_gate_planted(f"{MINING_IVF} --num_probe {probe}", got))
+    if cov[str(nlist)][1] > MARGIN_RTOL:
+        raise AssertionError(f"{MINING_IVF} at the full probe against Flat: max relative "
+                             f"error {cov[str(nlist)][1]:.3e} > {MARGIN_RTOL}")
+    sample = topk.normalize_l2(load_sent_embeddings(
+        str(sub / "ivf" / f"{SRC_LANG}-{TGT_LANG}" / SRC_LANG / "sample.embed"),
+        use_stopes=True))
+    cents = []
+    for _ in range(2):
+        ivf = topk.IVFIndex(dim=MINING_DIM, nlist=nlist, device=device)
+        ivf.train(sample)
+        cents.append(ivf.centroids)
+    if not np.array_equal(cents[0], cents[1]):
+        raise AssertionError("two k-means trainings on one sample differ")
+    rtol, atol = CHEAP_TIER_TOL
+    cheap = {}
+    for flag, value in (("--corpus_quant", "int8"), ("--query_upload", "fp16")):
+        wall, got, _ = _run_score_align(sub, "flat", f"m_{value}", dev, [flag, value])
+        err = np.abs(got - flat)
+        if not np.all(err <= atol + rtol * np.abs(flat)):
+            raise AssertionError(f"{flag} {value}: margins off the fp32 ones by up to "
+                                 f"{err.max():.3e}")
+        cheap[value] = (wall, float(err.max()))
+    _log(f"[mining] coverage on {sum(sub_sizes)} rows a language: {MINING_IVF} stage 6.6 "
+         f"{ivf_wall:.3f}s; stage 6.7 at --num_probe {nlist}: {cov[str(nlist)][0]:.3f}s, max "
+         f"relative error to Flat {cov[str(nlist)][1]:.3e}; at --num_probe 128: "
+         f"{cov['128'][0]:.3f}s, {cov['128'][2]:.4f} of the planted pairs over 1; two "
+         f"trainings ({sample.shape[0]} rows, {nlist} lists) bit-equal; "
+         + "; ".join(f"{k}: {w:.3f}s, max margin difference {e:.3e}"
+                     for k, (w, e) in cheap.items()))
+    return {"walls": walls, "phases": phases, "split": split, "peak": peak, "n": n}
 
 
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
@@ -2287,6 +2689,9 @@ def main(argv=None):
                       help="only build, the kernel checks, LASER stage 5.3, the post-align "
                            "chain, SONAR's long spans and the attention kernel at the long "
                            "buckets (phases 1, 2, 6-8); prints no result line")
+    mode.add_argument("--mining", action="store_true",
+                      help="only build, the kernel checks and the mining phase (phases 1, 2, "
+                           "9; no encoder is built); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2310,6 +2715,11 @@ def main(argv=None):
     if args.checks:
         _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.mining:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mining_") as td:
+            phase_mining(Path(td), device)
+        _log(f"[done] mining phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if not args.laser:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
             stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
@@ -2332,6 +2742,8 @@ def main(argv=None):
     if args.laser:
         _log(f"[done] LASER and chain phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mining_") as td:
+        phase_mining(Path(td), device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",

@@ -5,24 +5,28 @@ the same stages with PyTorch on an NVIDIA H100, with every TPU kernel of a
 ported stage replaced by a CUDA kernel written by hand (``csrc/``).
 
 Ported so far:
-- stage 5.4, the coarse-to-fine aligner, per document pair
-  (``seg_align/align.py`` -> ``vecalign/vecalign.py`` ->
-  ``vecalign/pyramid.py``);
-- stage 5.3, the embed stage with the SONAR speech encoder
-  (``seg_align/embed.py`` -> ``models/sonar_encoder.py`` ->
-  ``models/w2v_bert.py``).
+- stage 5.4, the coarse-to-fine aligner, per document pair and in
+  buckets (``seg_align/align.py`` -> ``vecalign/vecalign.py`` /
+  ``vecalign/batch.py`` -> ``vecalign/pyramid.py``);
+- stage 5.3, the embed stage with the SpeechLASER and SONAR encoders
+  (``seg_align/embed.py`` -> ``models/``);
+- stages 6.5 (``postprocess/embed_align.py``), 6.6 and 6.7, mining
+  (``postprocess/prep_index.py``, ``score_align.py`` -> ``ops/topk.py``);
+- the host stages 5.1, 5.2, 6.1, 6.3, 6.4 and 6.8-6.10.
 It imports neither ``jax`` nor ``svecalign_tpu``.
 
 Subpackages
 -----------
 - ``ops``      : cost products (torch), the dense and banded DPs, fbank,
-                 window assembly, rel-key attention, and the CUDA kernel
-                 wrappers (banded DP, rel-key attention) with their build
+                 window assembly, rel-key attention, the kNN search, and
+                 the CUDA kernel wrappers with their build
 - ``models``   : the SONAR encoder (w2v-BERT trunk, pooler), the span
                  encode loop and the JAX-parameter loader
 - ``vecalign`` : coarse-to-fine driver, traceback, deletion knob, scorer
-- ``seg_align``: the stage-5.4 and stage-5.3 CLIs
-- ``utils``    : file/audio/embedding IO, sharding and the device/fp32 setup
+- ``seg_align``: the stage-5.1 to 5.4 CLIs
+- ``postprocess``: the stage-6 CLIs
+- ``utils``    : file/audio/embedding/index IO, sharding, phase timers and
+                 the device/fp32 setup
 """
 
 __version__ = "0.1.0"

@@ -40,7 +40,6 @@ mesh are not ported: they raise naming their ROADMAP items.
 
 import math
 import os
-from time import perf_counter
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +49,7 @@ from svecalign_tpu_torch.ops import costs as costs_ops
 from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda, traceback_cuda
 from svecalign_tpu_torch.ops import dp as dp_ops
 from svecalign_tpu_torch.utils.log_utils import logging
+from svecalign_tpu_torch.utils.phase_clock import PhaseClock
 from svecalign_tpu_torch.utils.torch_setup import resolve_device
 from svecalign_tpu_torch.vecalign.deletion import NUM_BINS, DeletionKnob, device_del_penalty
 from svecalign_tpu_torch.vecalign.pyramid import (
@@ -606,25 +606,6 @@ def vecalign_batched(
     )
 
 
-class _PhaseClock:
-    """Adds the wall time since the last mark to ``phase_seconds[name]``;
-    off unless SVECALIGN_ALIGN_PROFILE=1 (a mark synchronises the device)."""
-
-    def __init__(self, device: torch.device):
-        self.on = os.environ.get("SVECALIGN_ALIGN_PROFILE") == "1"
-        self.device = device
-        self.t = perf_counter()
-
-    def mark(self, name: str) -> None:
-        if not self.on:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = perf_counter()
-        phase_seconds[name] = phase_seconds.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def _pull(tensors, kind: str):
     """One device->host pull of several tensors, counted in pull_stats."""
     out = [t.cpu().numpy() for t in tensors]
@@ -655,7 +636,7 @@ def _vecalign_batched_core(
     dev = v0.device
     P = v0.shape[0]
     n_pad, m_pad = v0.shape[2], v1.shape[2]
-    clock = _PhaseClock(dev)
+    clock = PhaseClock(dev, phase_seconds, "SVECALIGN_ALIGN_PROFILE")
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s stage-5.3 LASER phase and post-align chain
-(5.3 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5) rehearsed on the CPU: the same phase functions
-at a tiny width on a 2-minute document, so that their control flow,
+(5.1 -> 5.3 -> 5.2 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5 -> 6.6 ... 6.10)
+rehearsed on the CPU: the same phase functions at a tiny width on a 2-minute document, so that their control flow,
 file layout and checks run before the card sees them. The encoders are
 2-layer, 128-wide (LASER keeps the full conv geometry: 400-sample frames
 every 320); the rel-key "kernel" is its plain version, counted as a
@@ -71,6 +71,9 @@ def test_laser_phase_and_chain_rehearsal(tiny_card, tmp_path, capsys):
     assert "[laser] --upload_precision fp32" in out and "(bit-equal)" in out
     assert "stage 6.3 (--max_num_align 3 --max_sil 1.0 --max_dur 20.0" in out
     assert out.count("stage 6.5") == 4
+    # the chain starts from the stage-5.1 windows and stage 5.2, and ends in the mined tsv
+    assert "[chain] stage 5.2 on a stage-4.2 output" in out
+    assert "[chain] mined tsv:" in out and "6.10 sorted them by margin" in out
     assert set(result) == {(label, kind) for label, _ in cs.CHAIN_TRAFFIC
                            for kind in ("speech_laser", "sonar")}
     # the coverage chains are no concat window: stage 6.5 embeds them, and

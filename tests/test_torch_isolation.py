@@ -32,7 +32,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "ops.dense_dp_cuda", "ops.traceback_cuda", "vecalign.batch",
                  "models.laser_encoder", "postprocess.filter_by_cost",
                  "postprocess.concat_aligns", "postprocess.filter_by_dur",
-                 "postprocess.embed_align"):
+                 "postprocess.embed_align", "ops.topk", "utils.index_utils",
+                 "postprocess.prep_index", "postprocess.score_align", "postprocess.prep_tsv",
+                 "postprocess.remove_overlaps", "postprocess.sort_tsv",
+                 "seg_align.concat_segs", "seg_align.detect_untranslate_concats"):
         assert f"svecalign_tpu_torch.{name}" in res["imported"]
     mods = res["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib"]
