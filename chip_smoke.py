@@ -59,17 +59,25 @@ Phases, in order; any failure exits non-zero:
    into products, top-k and merge against its fp32 bound, peak memory;
    coverage on 2^15 rows: IVF at the full probe against Flat and at the
    default probe, k-means reproducible bit for bit, the int8 corpus and
-   fp16 query uploads within tolerance of fp32.
+   fp16 query uploads within tolerance of fp32;
+10. the front of the pipeline at hour scale: stages 4.1 (energy VAD on
+   both sides, the Silero v4 graph on the card), 4.2 and 6.2 through
+   their CLIs on a synthetic hour-long pair with planted untranslated
+   segments: the planted speech found, Silero on the card against the CPU
+   path with the plain LSTM loop, every planted pair flagged and dropped,
+   the card's verdicts equal to the CPU path's, walls and splits, the
+   LSTM against its latency bound; an .ogg round trip.
 
 Phase 7 begins with the windows of both documents written by the
-stage-5.1 CLI and stage 5.2, and ends in the mined tsv: stages 6.6-6.10
-on the pipeline-settings traffic.
+stage-5.1 CLI, the stage-4.2 CLI's flags and stage 5.2, runs stage 6.2
+between 6.1 and 6.3, and ends in the mined tsv: stages 6.6-6.10 on the
+pipeline-settings traffic.
 
 ``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
 alone: no SONAR model is built) and prints their ``[time]`` lines;
-``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 (no
-encoder is built); ``--profile`` profiles one warm stage-5.3 run with
-each encoder instead.
+``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
+``--front`` phases 1, 2 and 10 (no encoder is built); ``--profile``
+profiles one warm stage-5.3 run with each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
@@ -975,7 +983,7 @@ def phase_times(stack, device):
          f"{totals['bound_ms']:.6f} ms, kernel / bound {totals['ms'] / totals['bound_ms']:.2f}")
 
     totals["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "latency"
-    totals["probe"] = {"clock": clock, "alu": alu, "smem": smem_trip}
+    totals["probe"] = {"clock": clock, "alu": alu, "smem": smem_trip, "handover": handover}
     return totals
 
 
@@ -2049,15 +2057,16 @@ def _stage_6_5(kind, model, root, adir, emb_dir, spans, laser, dev):
 def phase_chain(workdir, device, laser):
     """The post-align chain on the card, every stage through its CLI:
     stage 5.3 with SpeechLASER on a second document (the target side, seed
-    1; both documents' windows written by the stage-5.1 CLI), stage 5.2 on
-    a stage-4.2 output of "no untranslated segment" (stage 4.2 waits on
-    ROADMAP item 12), stage 5.4 over both, stage 6.1 at the cost that keeps
-    ``KEEP_SHARE`` of the non-deletions (random weights make the costs
-    meaningless), then for each of ``CHAIN_TRAFFIC`` stage 6.3
+    1; both documents' windows written by the stage-5.1 CLI), the stage-4.2
+    CLI on both documents' segments (its flags equal to the CPU path's, as
+    in :func:`phase_front`), stage 5.2 on its output, stage 5.4 over both,
+    stage 6.1 at the cost that keeps ``KEEP_SHARE`` of the non-deletions
+    (random weights make the costs meaningless), stage 6.2 on 6.1's output
+    (its drops equal to the CPU path's, its survivors byte-equal to their
+    lines), then for each of ``CHAIN_TRAFFIC`` stage 6.3
     (``CONCAT_ARGS``), stage 6.4 (``MIN_DUR_S``) and stage 6.5 on 6.4's
     output with SpeechLASER and with SONAR (whose stage 5.3 runs on the
-    source side first). Stage 6.2 (untranslated segments) is not ported:
-    6.3 reads 6.1's output. On the first traffic the chain then runs to the
+    source side first). On the first traffic the chain then runs to the
     mined tsv (:func:`_chain_mining`): stage 6.5 on the target side, 6.6,
     6.7, 6.8, 6.9 and 6.10 at the pipeline's settings.
 
@@ -2097,21 +2106,24 @@ def phase_chain(workdir, device, laser):
 
     langs = ["--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG]
     pair = f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}"
-    flags = root / "untrans_segs" / f"{SRC_LANG}-{TGT_LANG}"
-    flags.mkdir(parents=True, exist_ok=True)
-    for side in ("src", "tgt"):
-        (flags / f"{pair}.{side}.txt").write_text("")
+    src_segs = read_segments(root / "segments" / SRC_LANG / f"{STEM}_{SRC_LANG}.txt")
+    tgt_segs = read_segments(root / "segments" / TGT_LANG / f"{STEM}_{TGT_LANG}.txt")
+    audio = (paths["wav"], tgt_paths["wav"])
+    wall, flags = run_untrans_segs(paths, root / "untrans_segs", dev)
+    _, cpu_flags = run_untrans_segs(paths, root / "untrans_segs_cpu", "cpu")
+    mses = untrans_candidates(src_segs, tgt_segs, *audio)
+    _verdicts_agree("chain stage 4.2", flags, cpu_flags, mses)
     t0 = time.perf_counter()
     detect_untranslate_concats.main([str(paths["metadata"]), str(root / "untrans_cats"),
                                      "--seg_dir", str(root / "segments"),
                                      "--identical_seg_dir", str(root / "untrans_segs")] + langs)
-    wall = time.perf_counter() - t0
-    ign = [root / "untrans_cats" / f"{SRC_LANG}-{TGT_LANG}" / f"{pair}.{side}.txt"
-           for side in ("src", "tgt")]
-    if any(p.read_text() for p in ign):
-        raise AssertionError("stage 5.2 flagged windows with no untranslated segment")
-    _log(f"[chain] stage 5.2 on a stage-4.2 output of no untranslated segment: empty ignore "
-         f"files for both sides, {wall:.3f}s wall")
+    wall52 = time.perf_counter() - t0
+    ign = [(root / "untrans_cats" / f"{SRC_LANG}-{TGT_LANG}" / f"{pair}.{side}.txt")
+           .read_text().splitlines() for side in ("src", "tgt")]
+    _log(f"[chain] stage 5.2 on a stage-4.2 output of {len(flags)} flagged pairs ({len(mses)} "
+         f"candidates past the duration gate; the CLI on {dev} {wall:.3f}s, its flags equal "
+         f"to the CPU path's): ignore files of {len(ign[0])} and {len(ign[1])} windows, "
+         f"{wall52:.3f}s wall")
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -2142,8 +2154,17 @@ def phase_chain(workdir, device, laser):
     _log(f"[chain] stage 6.1 at --max_cost {max_cost:.6f} (the {KEEP_SHARE} quantile of the "
          f"non-deletion costs): kept {len(kept)} of {len(spans)}, no deletion, no cost over "
          f"the limit, {wall:.3f}s wall")
-    src_segs = read_segments(root / "segments" / SRC_LANG / f"{STEM}_{SRC_LANG}.txt")
-    tgt_segs = read_segments(root / "segments" / TGT_LANG / f"{STEM}_{TGT_LANG}.txt")
+    lines = output_path(root / "align_f").read_text().splitlines()
+    wall, survivors = run_untrans_align(paths, root / "align_f", root / "align_u", dev)
+    _, cpu_survivors = run_untrans_align(paths, root / "align_f", root / "align_u_cpu", "cpu")
+    dropped = dropped_rows("chain stage 6.2", lines, survivors)
+    mses = align_mses([(a, b) for a, b, _ in kept], src_segs, tgt_segs, *audio)
+    _verdicts_agree("chain stage 6.2", dropped,
+                    dropped_rows("chain stage 6.2 CPU", lines, cpu_survivors), mses)
+    kept = read_alignments_with_score(output_path(root / "align_u"))
+    _log(f"[chain] stage 6.2 on {dev}: dropped {len(dropped)} of {len(lines)} ({len(mses)} "
+         f"past the duration gate), the survivors byte-equal to their lines, drops equal to "
+         f"the CPU path's, {wall:.3f}s wall")
     anchors = {(tuple(a), tuple(b)) for a, b, _ in kept}
 
     def secs(segs, ids):
@@ -2161,7 +2182,7 @@ def phase_chain(workdir, device, laser):
         cdir, ddir = root / f"align_c{max_num}", root / f"align_d{max_num}"
         t0 = time.perf_counter()
         concat_aligns.main([str(paths["metadata"]), str(cdir), "--max_num_align", str(max_num),
-                            *CONCAT_ARGS, "--align_dir", str(root / "align_f")]
+                            *CONCAT_ARGS, "--align_dir", str(root / "align_u")]
                            + seg_args + langs)
         host = {"6.3": time.perf_counter() - t0}
         t0 = time.perf_counter()
@@ -2613,6 +2634,432 @@ def phase_mining(workdir, device):
     return {"walls": walls, "phases": phases, "split": split, "peak": peak, "n": n}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the front of the pipeline (stages 4.1, 4.2 and 6.2) at hour scale
+# ---------------------------------------------------------------------------
+
+
+FRONT_SECONDS = 3600  # a plenary side: nothing is cut
+FRONT_PLANTED = 20  # untranslated segments planted in the target side
+PLANT_MARGIN_S = 0.5  # copied surroundings on each side of a planted segment
+MIN_VAD_COVER = 0.5  # of a planted speech segment, by the stage-4.1 segments
+MIN_VAD_SHARE = 0.95  # of the planted speech segments so covered
+SILERO_SLICE_S = 600  # the stage-4.1 Silero slice held against the CPU path
+SILERO_TOL = 1e-4  # speech probabilities, card (nn.LSTM) against CPU (lstm_plain)
+PLAIN_LSTM_S = 120  # audio whose features the card's lstm_plain runs over
+LSTM_TOL = 1e-5  # nn.LSTM against lstm_plain on the card, hidden outputs
+FBANK_TOL = 1e-3  # log-mel, fbank_batch on the card against CPU fbank per segment
+FBANK_SAMPLE = 64  # segments of that check
+THRES_RTOL = 1e-3  # a verdict may differ between card and CPU only this near the threshold
+UNTRANS_THRES = 5.0  # --fbank_dist_thres of stages 4.2 and 6.2 (their default)
+DUR_DIFF = {"4.2": 0.1, "6.2": 0.5}  # --dur_diff of each stage (their defaults)
+OGG_MIN_SNR_DB = 3.0  # a Vorbis round trip at quality 0.4 (7-18 dB on this traffic)
+
+
+def front_speech(rng, n, sr=16000):
+    """``n`` samples of speech-like sound: a gliding f0 with five harmonics
+    of random weights, and noise in a random formant-like band, under a
+    syllable-rate envelope."""
+    t = np.arange(n, dtype=np.float32) / np.float32(sr)
+    f0 = rng.uniform(90, 250) * (1 + rng.uniform(-0.3, 0.3) * t / max(float(t[-1]), 1e-3))
+    phase = (2 * np.pi * np.cumsum(f0, dtype=np.float64) / sr).astype(np.float32)
+    voiced = sum(np.float32(rng.uniform(0.1, 1.0) / h)
+                 * np.sin(h * phase + np.float32(rng.uniform(0, 6.3))) for h in range(1, 6))
+    m = 1 << (n - 1).bit_length()  # a fast FFT length; the band noise is cut to n
+    freqs = np.fft.rfftfreq(m, 1 / sr)
+    centre, width = rng.uniform(300, 4000), rng.uniform(200, 1500)
+    band = np.fft.irfft(np.fft.rfft(rng.standard_normal(m))
+                        * np.exp(-0.5 * ((freqs - centre) / width) ** 2), m)[:n]
+    band = (band / (band.std() + 1e-9)).astype(np.float32)
+    mix = np.float32(rng.uniform(0.3, 0.9))
+    env = 1 + 0.5 * np.sin(np.float32(2 * np.pi * rng.uniform(3, 6)) * t
+                           + np.float32(rng.uniform(0, 6.3)))
+    taper = (0.5 - 0.5 * np.cos(np.float32(2 * np.pi / max(n - 1, 1)) * np.arange(
+        n, dtype=np.float32))) ** np.float32(0.2)
+    amp = np.float32(rng.uniform(0.05, 0.3)) * taper * env
+    return amp * (mix * voiced / np.float32(1.5) + (1 - mix) * band)
+
+
+def write_front_pair(root, seconds=FRONT_SECONDS, n_planted=FRONT_PLANTED, seed=300,
+                     stem=STEM):
+    """A stage-4 input tree: per side a 16 kHz PCM16 WAV
+    ``raw_audios/{lang}/{stem}_{lang}.wav`` of :func:`front_speech` over
+    :func:`vad_segments` (0.003 noise between), its segments
+    ``segments/{lang}/`` (the truth), and ``metadata.tsv``. In the target
+    side ``n_planted`` untranslated segments: exact copies of source
+    segments' samples at the same spans, with ``PLANT_MARGIN_S`` of copied
+    surroundings each side; the target segments the copies overlap are
+    cleared, and the copied segment takes their place, so the
+    midpoint-nearest target segment of each copied source segment is its
+    copy. Returns a dict with the paths, both segment lists and the planted
+    (source, target) index pairs."""
+    from svecalign_tpu_torch.utils import audio_io
+
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    segs, waves = {}, {}
+    for lang in (SRC_LANG, TGT_LANG):
+        segs[lang] = vad_segments(rng, seconds, sr)
+        waves[lang] = (0.003 * rng.standard_normal(seconds * sr)).astype(np.float32)
+        for s, e in segs[lang]:
+            waves[lang][s:e] += front_speech(rng, e - s, sr)
+    src, margin = segs[SRC_LANG], int(PLANT_MARGIN_S * sr)
+    picks = np.unique(np.linspace(2, len(src) - 3, n_planted).astype(int))
+    tgt = segs[TGT_LANG]
+    for i in picks:
+        lo, hi = src[i][0] - margin, src[i][1] + margin
+        waves[TGT_LANG][lo:hi] = waves[SRC_LANG][lo:hi]
+        tgt = [(a, b) for a, b in tgt if b <= lo or a >= hi] + [src[i]]
+    segs[TGT_LANG] = tgt = sorted(tgt)
+    planted = [(int(i), tgt.index(src[i])) for i in picks]
+    paths = {"root": root, "metadata": root / "metadata.tsv", "segments": segs,
+             "planted": planted}
+    for lang in (SRC_LANG, TGT_LANG):
+        name = f"{stem}_{lang}"
+        wav = root / "raw_audios" / lang / f"{name}.wav"
+        wav.parent.mkdir(parents=True, exist_ok=True)
+        audio_io.write(str(wav), np.clip(waves[lang], -1.0, 1.0), sr)
+        d = root / "segments" / lang
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{name}.txt").write_text("".join(f"{s} {e}\n" for s, e in segs[lang]),
+                                       encoding="utf-8")
+        paths[lang] = wav
+    paths["metadata"].write_text(f"{paths[SRC_LANG]}\t{paths[TGT_LANG]}\n", encoding="utf-8")
+    return paths
+
+
+def vad_cover_share(truth, found, n_samples, hop=160):
+    """Share of the ``truth`` spans that the ``found`` spans cover for
+    ``MIN_VAD_COVER`` or more of their length (at 10 ms resolution)."""
+    mask = np.zeros(n_samples // hop + 1, bool)
+    for a, b in found:
+        mask[a // hop:-(-b // hop)] = True
+    covered = [mask[s // hop:max(e // hop, s // hop + 1)].mean() >= MIN_VAD_COVER
+               for s, e in truth]
+    return float(np.mean(covered))
+
+
+def _timed(fn, sync=True):
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if sync and torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _first_and_warm(fn, env, sink):
+    """``fn(run)`` for run "first" and "warm", the warm one with the phase
+    clock of environment variable ``env`` on (its seconds summed into
+    ``sink``). Returns ({run: what fn returned}, the warm run's split)."""
+    out = {}
+    for run in ("first", "warm"):
+        os.environ[env] = "1" if run == "warm" else "0"
+        sink.clear()
+        try:
+            out[run] = fn(run)
+        finally:
+            os.environ.pop(env)
+    return out, dict(sink)
+
+
+def _cpu_mses(span_pairs, src_audio, tgt_audio):
+    """The port's CPU path's sliding fbank MSE of each ((s0, s1), (t0, t1))
+    span pair."""
+    from svecalign_tpu_torch.utils.audio_utils import (
+        Segment, batch_segment_fbanks, compute_fbank_dist)
+
+    segs = ([Segment(s0, s1, src_audio) for (s0, s1), _ in span_pairs]
+            + [Segment(t0, t1, tgt_audio) for _, (t0, t1) in span_pairs])
+    fb = batch_segment_fbanks(segs, device="cpu")
+    n = len(span_pairs)
+    return [compute_fbank_dist(fb[k], fb[n + k]) for k in range(n)]
+
+
+def untrans_candidates(src_segs, tgt_segs, src_audio, tgt_audio, dur_diff=DUR_DIFF["4.2"]):
+    """{(i, j): CPU MSE} of stage 4.2's candidates: each source segment and
+    its midpoint-nearest target segment, within the duration gate."""
+    from svecalign_tpu_torch.utils.audio_utils import binary_search
+
+    mids = np.array([(s + e) / 2 for s, e in tgt_segs], dtype=float)
+    gate = int(dur_diff * 16000)
+    cands = []
+    for i, (s, e) in enumerate(src_segs):
+        j = binary_search(mids, (s + e) / 2)
+        if abs((e - s) - (tgt_segs[j][1] - tgt_segs[j][0])) <= gate:
+            cands.append((i, j))
+    mses = _cpu_mses([(src_segs[i], tgt_segs[j]) for i, j in cands], src_audio, tgt_audio)
+    return dict(zip(cands, mses))
+
+
+def align_mses(aligns, src_segs, tgt_segs, src_audio, tgt_audio, dur_diff=DUR_DIFF["6.2"]):
+    """{row: CPU MSE} of the alignments that pass stage 6.2's duration gate."""
+    from svecalign_tpu_torch.utils.file_utils import alignments_to_timestamps
+
+    s_times, t_times, _ = alignments_to_timestamps(aligns, src_segs, tgt_segs,
+                                                   ignore_empty=False)
+    gate = int(dur_diff * 16000)
+    rows = [r for r, (s, t) in enumerate(zip(s_times, t_times))
+            if abs((s[1] - s[0]) - (t[1] - t[0])) <= gate]
+    mses = _cpu_mses([(s_times[r], t_times[r]) for r in rows], src_audio, tgt_audio)
+    return dict(zip(rows, mses))
+
+
+def _verdicts_agree(what, card, cpu, mses, thres=UNTRANS_THRES):
+    """The card's verdicts must equal the CPU path's, except where the CPU
+    MSE lies within ``THRES_RTOL`` of the threshold. Returns those."""
+    near = {k for k in card ^ cpu if abs(mses.get(k, np.inf) - thres) <= THRES_RTOL * thres}
+    if (card ^ cpu) - near:
+        raise AssertionError(f"{what}: card and CPU verdicts differ away from the threshold: "
+                             f"{sorted((card ^ cpu) - near)[:10]}")
+    if near:
+        _log(f"[front] {what}: verdicts differ at the threshold, allowed: "
+             + ", ".join(f"{k} (CPU MSE {mses[k]:.6f})" for k in sorted(near)))
+    return near
+
+
+def run_untrans_segs(paths, out_dir, dev, extra=()):
+    """The stage-4.2 CLI on a tree written by write_front_pair or
+    write_synthetic_document; returns its (wall, set of flagged pairs)."""
+    from svecalign_tpu_torch.preprocess import detect_untranslate_segs
+
+    wall, _ = _timed(lambda: detect_untranslate_segs.main(
+        [str(paths["metadata"]), str(out_dir), "--seg_dir", str(paths["root"] / "segments"),
+         "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG, "--device", dev, *extra]))
+    d = Path(out_dir) / f"{SRC_LANG}-{TGT_LANG}"
+    pair = f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}"
+    rows = [(d / f"{pair}.{side}.txt").read_text().split() for side in ("src", "tgt")]
+    return wall, {(int(i), int(j)) for i, j in zip(*rows)}
+
+
+def run_untrans_align(paths, align_dir, out_dir, dev):
+    """The stage-6.2 CLI; returns its (wall, output lines, or None where it
+    wrote no file)."""
+    from svecalign_tpu_torch.postprocess import filter_untrans_align
+
+    wall, _ = _timed(lambda: filter_untrans_align.main(
+        [str(paths["metadata"]), str(out_dir), "--align_dir", str(align_dir), "--seg_dir",
+         str(paths["root"] / "segments"), "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG,
+         "--device", dev]))
+    out = output_path(out_dir)
+    return wall, (out.read_text().splitlines() if out.exists() else None)
+
+
+def dropped_rows(what, lines, kept):
+    """Rows of ``lines`` that stage 6.2 dropped; its survivors must be the
+    other lines, byte for byte and in order."""
+    kept = kept or []
+    dropped = {r for r, line in enumerate(lines) if line not in set(kept)}
+    if kept != [line for r, line in enumerate(lines) if r not in dropped]:
+        raise AssertionError(f"{what}: stage 6.2's survivors are not its input lines in order")
+    return dropped
+
+
+def _lstm_bound_s(steps, hidden, handover, alu, clock_hz):
+    """Least time of ``steps`` dependent LSTM steps (the layers of a stack
+    overlap): a step hands h over to the lanes of the next step's products
+    (``handover`` cycles), reduces a ``hidden``-term dot product as a tree
+    (log2(hidden) dependent adds), then c = f * c + i * g, tanh(c) and
+    h = o * tanh(c) (three more dependent operations after the last add)."""
+    return steps * (handover + (np.log2(hidden) + 3) * alu) / clock_hz
+
+
+def phase_front(workdir, device, seconds=FRONT_SECONDS, n_planted=FRONT_PLANTED,
+                latencies=None, clock_hz=H100_SM_CLOCK_HZ):
+    """Stages 4.1, 4.2 and 6.2 through their CLIs on a pair written by
+    :func:`write_front_pair` (``seconds`` a side, ``n_planted`` planted
+    untranslated segments). Stage 4.1 with the energy VAD (both sides) and
+    with the Silero v4 graph at its full geometry on seeded random weights
+    (source side), first and warm; stage 4.2 on the writer's segments and
+    stage 6.2 on alignments that pair each planted copy with its source
+    plus 1-1 alignments of the other segments, each on ``device`` (first
+    and warm) and with ``--device cpu``. Gates: ``MIN_VAD_SHARE`` of the
+    planted speech segments covered by the energy VAD; Silero on the card
+    within ``SILERO_TOL`` of the CPU path with ``lstm_plain`` on a
+    ``SILERO_SLICE_S`` slice, and nn.LSTM within ``LSTM_TOL`` of
+    ``lstm_plain`` on the card; every planted pair flagged by 4.2 and
+    dropped by 6.2; card and CPU verdicts equal (:func:`_verdicts_agree`);
+    6.2's survivors byte-equal to their input lines; ``fbank_batch`` on
+    the card within ``FBANK_TOL`` of CPU ``fbank`` per segment; an .ogg
+    round trip where the host's Vorbis libraries load. ``latencies``:
+    (handover, alu) cycles of :func:`phase_chain_latencies`, for the
+    LSTM's bound. Returns the numbers."""
+    import torch
+
+    from svecalign_tpu_torch.models import vad
+    from svecalign_tpu_torch.ops.fbank import fbank, fbank_batch
+    from svecalign_tpu_torch.preprocess import segment
+    from svecalign_tpu_torch.utils import audio_io, audio_utils
+    from svecalign_tpu_torch.utils.file_utils import read_segments
+
+    dev, root = device.type, Path(workdir) / "front"
+    hours = seconds / 3600
+    t0 = time.perf_counter()
+    paths = write_front_pair(root, seconds, n_planted)
+    src_segs, tgt_segs = paths["segments"][SRC_LANG], paths["segments"][TGT_LANG]
+    planted = set(paths["planted"])
+    _log(f"[front] wrote a {seconds} s pair: {len(src_segs)} {SRC_LANG} and {len(tgt_segs)} "
+         f"{TGT_LANG} segments, {len(planted)} planted untranslated segments, in "
+         f"{time.perf_counter() - t0:.1f}s")
+    res = {"hours": hours}
+
+    # stage 4.1, energy VAD (the default), both sides
+    walls, found = {}, {}
+    for run in ("first", "warm"):
+        for lang in (SRC_LANG, TGT_LANG):
+            out = root / f"vad_energy_{run}"
+            walls[run, lang], _ = _timed(lambda: segment.main(
+                [str(paths["metadata"]), str(out), "--lang", lang, "--device", dev,
+                 *(["--use_tgt"] if lang == TGT_LANG else [])]))
+            found[lang] = read_segments(out / lang / f"{STEM}_{lang}.txt")
+    for lang in (SRC_LANG, TGT_LANG):
+        share = vad_cover_share(paths["segments"][lang], found[lang], seconds * 16000)
+        if share < MIN_VAD_SHARE:
+            raise AssertionError(f"stage 4.1 energy, {lang}: {share:.4f} of the planted speech "
+                                 f"segments covered {MIN_VAD_COVER} or more, want "
+                                 f"{MIN_VAD_SHARE}")
+        _log(f"[front] stage 4.1 energy, {lang}: {len(found[lang])} segments found for "
+             f"{len(paths['segments'][lang])} planted, {share:.4f} of the planted covered "
+             f"{MIN_VAD_COVER} or more; walls first {walls['first', lang]:.3f}s, warm "
+             f"{walls['warm', lang]:.3f}s")
+    res["4.1 energy"] = {k: v for k, v in walls.items()}
+
+    # stage 4.1, the Silero v4 graph (random seeded weights) on the card
+    walls, split = _first_and_warm(lambda run: _timed(lambda: segment.main(
+        [str(paths["metadata"]), str(root / f"vad_silero_{run}"), "--lang", SRC_LANG,
+         "--vad_model", "silero_jax", "--device", dev]))[0],
+        vad.VAD_PROFILE_ENV, vad.vad_seconds)
+    n_silero = len(read_segments(root / "vad_silero_warm" / SRC_LANG / f"{STEM}_{SRC_LANG}.txt"))
+    model = vad.SileroV4VAD(device=dev)
+    wave = audio_utils.load_waveform(paths[SRC_LANG])
+    steps = -(-len(wave) // model.window_size) * 6
+    bound = None
+    if latencies is not None:
+        bound = _lstm_bound_s(steps, model.lstm.hidden_size, latencies[0], latencies[1],
+                              clock_hz)
+    _log(f"[front] stage 4.1 silero_jax on {dev} ({SRC_LANG}, random weights, full v4 "
+         f"geometry): {n_silero} segments; walls first {walls['first']:.3f}s, warm "
+         f"{walls['warm']:.3f}s; warm split " + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                                         split.items())
+         + f"; LSTM {steps} steps a layer ({model.lstm.num_layers} layers), "
+         f"{steps / split['lstm']:.0f} frames/s"
+         + (f", latency bound {bound * 1e3:.3f} ms ({split['lstm'] / bound:.1f}x)"
+            if bound else ""))
+    res["4.1 silero"] = {"walls": walls, "split": split, "steps": steps, "bound_s": bound}
+
+    sl = wave[:SILERO_SLICE_S * 16000]
+    cpu_model = vad.SileroV4VAD(device="cpu")
+    t_cpu, want = _timed(lambda: cpu_model.speech_probs(sl, plain_lstm=True), sync=False)
+    got = model.speech_probs(sl)
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not err <= SILERO_TOL:
+        raise AssertionError(f"Silero on {dev} vs CPU lstm_plain over {SILERO_SLICE_S} s: "
+                             f"max difference {err:.3e}, want {SILERO_TOL}")
+    chunks, scale = model.quantize(wave[:PLAIN_LSTM_S * 16000])
+    with torch.no_grad():
+        feats = model.features(torch.from_numpy(chunks).to(model.device).float() * scale)
+        seq = feats.reshape(-1, feats.shape[-1])
+        lstm_err = float((model.recur(seq) - vad.lstm_plain(seq, model.lstm_layers()))
+                         .abs().max())
+    if not lstm_err <= LSTM_TOL:
+        raise AssertionError(f"nn.LSTM vs lstm_plain on {dev}: max difference {lstm_err:.3e}")
+    _log(f"[front] Silero on {dev} against the CPU path with lstm_plain over {len(sl) / 16000:.0f} "
+         f"s: max probability difference {err:.3e} (CPU {t_cpu:.1f}s); nn.LSTM against "
+         f"lstm_plain on {dev} over {seq.shape[0]} frames: max hidden difference {lstm_err:.3e}")
+    res["silero err"], res["lstm err"] = err, lstm_err
+
+    # stage 4.2 on the writer's segment files
+    mses = untrans_candidates(src_segs, tgt_segs, paths[SRC_LANG], paths[TGT_LANG])
+    resident = torch.cuda.memory_allocated() if dev == "cuda" else 0
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs, split = _first_and_warm(lambda run: run_untrans_segs(paths, root / f"untrans_{run}", dev),
+                                  audio_utils.UNTRANS_PROFILE_ENV, audio_utils.untrans_seconds)
+    peak = torch.cuda.max_memory_allocated() - resident if dev == "cuda" else 0
+    walls = {run: wall for run, (wall, _) in runs.items()}
+    flags = runs["warm"][1]
+    walls["cpu"], cpu_flags = run_untrans_segs(paths, root / "untrans_cpu", "cpu")
+    if planted - flags:
+        raise AssertionError(f"stage 4.2 missed planted pairs {sorted(planted - flags)}")
+    _verdicts_agree("stage 4.2", flags, cpu_flags, mses)
+    q = np.quantile(list(mses.values()), [0, 0.01, 0.5, 0.99, 1]) if mses else []
+    _log(f"[front] stage 4.2 on {dev}: {len(flags)} pairs flagged, all {len(planted)} planted "
+         f"among them, {len(flags - planted)} unplanted; {len(mses)} candidates past the "
+         f"duration gate, CPU MSE quantiles 0/1/50/99/100% "
+         + "/".join(f"{v:.3f}" for v in q)
+         + f" (threshold {UNTRANS_THRES}); walls first {walls['first']:.3f}s, warm "
+         f"{walls['warm']:.3f}s, CPU path {walls['cpu']:.3f}s; warm split "
+         + ", ".join(f"{k} {v:.3f}s" for k, v in split.items())
+         + f"; peak device memory {peak / 2**20:.1f} MiB above the {resident / 2**20:.1f} "
+         "MiB resident before")
+    res["4.2"] = {"walls": walls, "split": split, "peak": peak, "flagged": len(flags),
+                  "candidates": len(mses)}
+
+    rng = np.random.default_rng(301)
+    sample = sorted(rng.choice(len(src_segs), min(FBANK_SAMPLE, len(src_segs)), replace=False))
+    waves = [audio_utils.Segment(*src_segs[i], paths[SRC_LANG]).mono() for i in sample]
+    got = fbank_batch(waves, device=dev)
+    ferr = max(float(np.abs(g - fbank(w, device="cpu")).max()) for g, w in zip(got, waves))
+    if not ferr <= FBANK_TOL:
+        raise AssertionError(f"fbank_batch on {dev} vs CPU fbank: {ferr:.3e} > {FBANK_TOL}")
+    _log(f"[front] fbank_batch on {dev} against CPU fbank per segment, {len(sample)} segments "
+         f"({sum(len(g) for g in got)} frames): max log-mel difference {ferr:.3e}")
+    res["fbank err"] = ferr
+
+    # stage 6.2: the planted pairs plus 1-1 alignments of the other segments
+    others = sorted(zip([i for i in range(len(src_segs)) if i not in {a for a, _ in planted}],
+                        [j for j in range(len(tgt_segs)) if j not in {b for _, b in planted}]))
+    rows = sorted(list(planted) + others)
+    lines = [f"[{i}]:[{j}]:{0.1 + 0.5 * ((7 * i) % 97) / 97:.6f}" for i, j in rows]
+    adir = root / "align_6.1" / f"{SRC_LANG}-{TGT_LANG}"
+    adir.mkdir(parents=True, exist_ok=True)
+    (adir / f"{STEM}_{SRC_LANG}-{STEM}_{TGT_LANG}.txt").write_text("\n".join(lines) + "\n")
+    mses62 = align_mses([([i], [j]) for i, j in rows], src_segs, tgt_segs, paths[SRC_LANG],
+                        paths[TGT_LANG])
+    runs, split = _first_and_warm(
+        lambda run: run_untrans_align(paths, root / "align_6.1", root / f"align_6.2_{run}", dev),
+        audio_utils.UNTRANS_PROFILE_ENV, audio_utils.untrans_seconds)
+    runs["cpu"] = run_untrans_align(paths, root / "align_6.1", root / "align_6.2_cpu", "cpu")
+    walls = {run: wall for run, (wall, _) in runs.items()}
+    dropped = {run: dropped_rows(f"stage 6.2 {run}", lines, kept)
+               for run, (_, kept) in runs.items()}
+    card_dropped = dropped["warm"]
+    planted_rows = {r for r, ij in enumerate(rows) if ij in planted}
+    if planted_rows - card_dropped:
+        raise AssertionError(f"stage 6.2 kept planted alignments {sorted(planted_rows - card_dropped)}")
+    _verdicts_agree("stage 6.2", card_dropped, dropped["cpu"], mses62)
+    _log(f"[front] stage 6.2 on {dev}: {len(lines)} alignments, {len(mses62)} past the "
+         f"duration gate, {len(card_dropped)} dropped (all {len(planted_rows)} planted), the "
+         f"{len(lines) - len(card_dropped)} survivors byte-equal to their input lines; walls "
+         f"first {walls['first']:.3f}s, warm {walls['warm']:.3f}s, CPU path {walls['cpu']:.3f}s; "
+         "warm split " + ", ".join(f"{k} {v:.3f}s" for k, v in split.items()))
+    res["6.2"] = {"walls": walls, "split": split, "alignments": len(lines),
+                  "dropped": len(card_dropped)}
+
+    # .ogg: host IO, no part of the card's path
+    seg = audio_utils.Segment(*src_segs[0], paths[SRC_LANG])
+    ogg = root / "clip.ogg"
+    try:
+        seg.save(str(ogg))
+    except RuntimeError as e:
+        _log(f"[front] .ogg: the host's Vorbis libraries do not load ({e}); no round trip")
+        return res
+    want = seg.mono()
+    got, sr = audio_io.read(str(ogg))
+    if audio_io.info(str(ogg)) != (16000, len(want), 1) or sr != 16000:
+        raise AssertionError(f".ogg info {audio_io.info(str(ogg))} for {len(want)} samples")
+    snr = 10 * np.log10(np.sum(want.astype(np.float64) ** 2)
+                        / np.sum((got.astype(np.float64) - want) ** 2))
+    if not snr >= OGG_MIN_SNR_DB:
+        raise AssertionError(f".ogg round trip SNR {snr:.2f} dB < {OGG_MIN_SNR_DB}")
+    _log(f"[front] .ogg round trip of a {len(want) / 16000:.2f} s segment at quality 0.4: info "
+         f"equal, SNR {snr:.2f} dB against the WAV samples")
+    res["ogg snr"] = snr
+    return res
+
+
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
     ("relkey_attention kernel", ("relkey_attention",)),
     ("SDPA attention (LASER)", ("fmha", "flash", "attention")),
@@ -2692,6 +3139,10 @@ def main(argv=None):
     mode.add_argument("--mining", action="store_true",
                       help="only build, the kernel checks and the mining phase (phases 1, 2, "
                            "9; no encoder is built); prints no result line")
+    mode.add_argument("--front", action="store_true",
+                      help="only build, the kernel checks and the front of the pipeline "
+                           "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
+                           "is built); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2720,6 +3171,12 @@ def main(argv=None):
             phase_mining(Path(td), device)
         _log(f"[done] mining phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.front:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as td:
+            phase_front(Path(td), device, latencies=phase_chain_latencies(device)[:2],
+                        clock_hz=_sm_clock_hz())
+        _log(f"[done] front phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if not args.laser:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
             stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
@@ -2744,6 +3201,10 @@ def main(argv=None):
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mining_") as td:
         phase_mining(Path(td), device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as td:
+        probe = t["probe"]
+        phase_front(Path(td), device, latencies=(probe["handover"], probe["alu"]),
+                    clock_hz=probe["clock"])
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",

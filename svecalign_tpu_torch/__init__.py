@@ -12,21 +12,33 @@ Ported so far:
   (``seg_align/embed.py`` -> ``models/``);
 - stages 6.5 (``postprocess/embed_align.py``), 6.6 and 6.7, mining
   (``postprocess/prep_index.py``, ``score_align.py`` -> ``ops/topk.py``);
-- the host stages 5.1, 5.2, 6.1, 6.3, 6.4 and 6.8-6.10.
-It imports neither ``jax`` nor ``svecalign_tpu``.
+- stage 4.1, VAD segmentation (``preprocess/segment.py`` ->
+  ``models/vad.py``: the energy VAD, and the Silero v4 graph with one
+  ``nn.LSTM`` over the file), stage 4.2, untranslated-segment detection
+  (``preprocess/detect_untranslate_segs.py``), and its alignment filter,
+  stage 6.2 (``postprocess/filter_untrans_align.py``), both on a batched
+  fbank (``utils/audio_utils.py`` -> ``ops/fbank.py``);
+- the host stages 5.1, 5.2, 6.1, 6.3, 6.4 and 6.8-6.10, and the audit
+  tool ``analysis/dump_alignments.py``;
+- WAV and Ogg/Vorbis audio (``utils/audio_io.py``; Vorbis through the
+  port's own libvorbis binding, ``csrc/ogg_io.cpp``).
+Every stage CLI of the JAX package has its counterpart here. It imports
+neither ``jax`` nor ``svecalign_tpu``.
 
 Subpackages
 -----------
 - ``ops``      : cost products (torch), the dense and banded DPs, fbank,
                  window assembly, rel-key attention, the kNN search, and
                  the CUDA kernel wrappers with their build
-- ``models``   : the SONAR encoder (w2v-BERT trunk, pooler), the span
-                 encode loop and the JAX-parameter loader
+- ``models``   : the SONAR and SpeechLASER encoders, the span encode
+                 loop, the JAX-parameter loader, and the VADs
 - ``vecalign`` : coarse-to-fine driver, traceback, deletion knob, scorer
+- ``preprocess``: the stage-4.1 and 4.2 CLIs
 - ``seg_align``: the stage-5.1 to 5.4 CLIs
 - ``postprocess``: the stage-6 CLIs
-- ``utils``    : file/audio/embedding/index IO, sharding, phase timers and
-                 the device/fp32 setup
+- ``analysis`` : the alignment audit dump (clips and HTML pages)
+- ``utils``    : file/audio/embedding/index IO, sharding and worker
+                 processes, phase timers and the device/fp32 setup
 """
 
 __version__ = "0.1.0"

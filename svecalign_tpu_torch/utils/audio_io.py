@@ -1,5 +1,6 @@
-"""WAV read and write with numpy, bit-compatible with the JAX package's
-native reader and writer (``native/audio_io.cpp``).
+"""Audio read and write, bit-compatible with the JAX package's native
+reader and writer (``native/audio_io.cpp``): WAV with numpy, Ogg/Vorbis
+through libvorbis.
 
 Read returns float32 arrays shaped like ``soundfile.read``: (n,) for mono,
 (n, channels) otherwise, with ``start``/``stop`` frame offsets. PCM16 is
@@ -7,26 +8,122 @@ read as int16 / 32768 and written as ``(int16)(clip(v, -1, 1) * 32767)``
 (truncated toward zero), as the native library does; PCM24/PCM32 and
 32-bit float WAVs are read too.
 
-The port does not load ``native/``. Ogg/Vorbis needs libvorbis, which the
-port does not bind yet: ``.ogg`` raises, naming its ROADMAP item.
+The port does not load ``native/``. ``.ogg`` goes through the port's own
+copy of its Vorbis half, ``csrc/ogg_io.cpp``, which g++ builds at first use
+into ``svecalign_tpu_torch/build/`` against the system's
+:data:`VORBIS_LIBS`, bound with ctypes. Where g++ or those libraries are
+missing, ``.ogg`` raises and names them; nothing reads or writes another
+format in its place.
 """
 
+import ctypes
+import hashlib
+import os
 import struct
+import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-OGG_TODO = "ROADMAP.md Queue 1 item 12a (.ogg decode in the port)"
+from svecalign_tpu_torch.ops._build import BUILD_DIR, CSRC_DIR
+
+VORBIS_LIBS = ("libvorbisfile.so.3", "libvorbisenc.so.2", "libvorbis.so.0", "libogg.so.0")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+_ogg_lock = threading.Lock()
+_ogg_lib: Optional[ctypes.CDLL] = None
 
 
 class _WavInfo:
     __slots__ = ("sample_rate", "channels", "bits", "fmt", "data_offset", "frames")
 
 
-def _check_not_ogg(path: str) -> None:
-    if str(path).endswith(".ogg"):
-        raise NotImplementedError(f"{path}: .ogg is not supported by the port yet: {OGG_TODO}")
+def _is_ogg(path) -> bool:
+    return str(path).endswith(".ogg")
+
+
+def _build_ogg_library() -> Path:
+    """Compile ``csrc/ogg_io.cpp`` into ``build/libogg_io-<digest>.so``
+    (the digest covers the source and the flags) unless it is built."""
+    src = CSRC_DIR / "ogg_io.cpp"
+    link = ["-L/usr/lib/x86_64-linux-gnu"] + [f"-l:{lib}" for lib in VORBIS_LIBS]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS + tuple(link)).encode())
+    out = BUILD_DIR / f"libogg_io-{digest.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    try:
+        res = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp), *link],
+                             capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f".ogg needs g++ to build {src.name}, and there is none: {e}") from e
+    if res.returncode != 0:
+        raise RuntimeError(f".ogg needs the system's {', '.join(VORBIS_LIBS)}; building "
+                           f"{src.name} against them failed:\n{res.stderr[-2000:]}")
+    tmp.replace(out)  # atomic: concurrent builds each rename a whole library
+    return out
+
+
+def _ogg() -> ctypes.CDLL:
+    global _ogg_lib
+    with _ogg_lock:
+        if _ogg_lib is None:
+            try:
+                lib = ctypes.CDLL(str(_build_ogg_library()))
+            except OSError as e:
+                raise RuntimeError(f".ogg needs the system's {', '.join(VORBIS_LIBS)}: {e}") from e
+            lib.sva_ogg_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int64),
+                                         ctypes.POINTER(ctypes.c_int)]
+            lib.sva_ogg_info.restype = ctypes.c_int
+            lib.sva_ogg_read.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.POINTER(ctypes.c_float)]
+            lib.sva_ogg_read.restype = ctypes.c_int64
+            lib.sva_ogg_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                                          ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_float]
+            lib.sva_ogg_write.restype = ctypes.c_int
+            _ogg_lib = lib
+    return _ogg_lib
+
+
+def _ogg_info(path: str) -> Tuple[int, int, int]:
+    sr, frames, ch = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int()
+    ret = _ogg().sva_ogg_info(str(path).encode(), ctypes.byref(sr), ctypes.byref(frames),
+                              ctypes.byref(ch))
+    if ret != 0:
+        raise IOError(f"cannot read audio info from {path} (code {ret})")
+    return sr.value, frames.value, ch.value
+
+
+def _ogg_read(path: str, start: int, stop: Optional[int]) -> Tuple[np.ndarray, int]:
+    sr, total, ch = _ogg_info(path)
+    if stop is None or stop > total:
+        stop = total
+    count = max(stop - start, 0)
+    out = np.empty(count * ch, dtype=np.float32)
+    if count:
+        got = _ogg().sva_ogg_read(str(path).encode(), start, count,
+                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if got < 0:
+            raise IOError(f"failed to read {path} (code {got})")
+        if got < count:
+            out = out[: got * ch]
+            count = got
+    wav = out.reshape(count, ch)
+    return (wav[:, 0] if ch == 1 else wav), sr
+
+
+def _ogg_write(path: str, wav: np.ndarray, sample_rate: int, quality: float) -> None:
+    frames, ch = wav.shape
+    ret = _ogg().sva_ogg_write(str(path).encode(),
+                               wav.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                               frames, ch, sample_rate, quality)
+    if ret != 0:
+        raise IOError(f"failed to write {path} (code {ret})")
 
 
 def _parse_header(fp, path) -> _WavInfo:
@@ -61,7 +158,8 @@ def _parse_header(fp, path) -> _WavInfo:
 
 def info(path: str) -> Tuple[int, int, int]:
     """Return (sample_rate, frames, channels)."""
-    _check_not_ogg(path)
+    if _is_ogg(path):
+        return _ogg_info(path)
     with open(path, "rb") as fp:
         wi = _parse_header(fp, path)
     return wi.sample_rate, wi.frames, wi.channels
@@ -69,7 +167,8 @@ def info(path: str) -> Tuple[int, int, int]:
 
 def read(path: str, start: int = 0, stop: Optional[int] = None) -> Tuple[np.ndarray, int]:
     """Read frames [start, stop) as float32. Returns (waveform, sample_rate)."""
-    _check_not_ogg(path)
+    if _is_ogg(path):
+        return _ogg_read(path, start, stop)
     with open(path, "rb") as fp:
         wi = _parse_header(fp, path)
         if stop is None or stop > wi.frames:
@@ -99,12 +198,15 @@ def read(path: str, start: int = 0, stop: Optional[int] = None) -> Tuple[np.ndar
     return wav, wi.sample_rate
 
 
-def write(path: str, waveform: np.ndarray, sample_rate: int) -> None:
-    """Write a float32 waveform ((n,) or (n, ch)) as 16-bit PCM WAV."""
-    _check_not_ogg(path)
-    wav = np.asarray(waveform, dtype=np.float32)
+def write(path: str, waveform: np.ndarray, sample_rate: int, quality: float = 0.4) -> None:
+    """Write a float32 waveform ((n,) or (n, ch)) as .ogg (Vorbis VBR at
+    ``quality``) or else as 16-bit PCM WAV."""
+    wav = np.ascontiguousarray(waveform, dtype=np.float32)
     if wav.ndim == 1:
         wav = wav[:, None]
+    if _is_ogg(path):
+        _ogg_write(path, wav, sample_rate, quality)
+        return
     frames, ch = wav.shape
     pcm = (np.clip(wav, -1.0, 1.0) * np.float32(32767.0)).astype("<i2")  # truncates
     data_bytes = frames * ch * 2

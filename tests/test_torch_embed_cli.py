@@ -237,6 +237,15 @@ def test_wav_reader_equals_native(tmp_path, channels):
         np.testing.assert_array_equal(got, want)
 
 
-def test_ogg_raises_naming_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_ogg_raises_naming_roadmap(tmp_path, monkeypatch):
+    """.ogg is read through the port's own libvorbis binding; where the
+    system's Vorbis libraries are missing, it raises and names them (no
+    other format stands in), and a missing file raises."""
+    with pytest.raises(IOError):
         taudio.read(str(tmp_path / "x.ogg"))
+    monkeypatch.setattr(taudio, "VORBIS_LIBS", ("libvorbisfile-missing.so.3",))
+    monkeypatch.setattr(taudio, "_ogg_lib", None)
+    monkeypatch.setattr(taudio, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="libvorbisfile-missing.so.3"):
+        taudio.write(str(tmp_path / "y.ogg"), np.zeros(100, np.float32), 16000)
+    assert not (tmp_path / "y.ogg").exists()
