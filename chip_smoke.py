@@ -66,7 +66,17 @@ Phases, in order; any failure exits non-zero:
    segments: the planted speech found, Silero on the card against the CPU
    path with the plain LSTM loop, every planted pair flagged and dropped,
    the card's verdicts equal to the CPU path's, walls and splits, the
-   LSTM against its latency bound; an .ogg round trip.
+   LSTM against its latency bound; an .ogg round trip;
+11. the whole graph through ``svecalign_tpu_torch.pipeline``: all 16
+   stages on two hour-long pairs with planted untranslated segments,
+   full-width SpeechLASER, ``--pair_batch 2``, once unfused and once
+   ``--fused --overlap_untrans``: every output file equal (margins within
+   1e-5), the row cache hit for every document, the fused stage 5.4
+   uploading the id maps alone and equal to a stage-5.4 run in a process
+   of its own, its kernels launched once a bucket and level and the plain
+   DP never, no untranslated duplicate mined, device memory back where it
+   was; then SONAR ``--fused`` on phase 7's documents (the rel-key kernel
+   24 times a chunk, the plain attention never).
 
 Phase 7 begins with the windows of both documents written by the
 stage-5.1 CLI, the stage-4.2 CLI's flags and stage 5.2, runs stage 6.2
@@ -76,7 +86,8 @@ pipeline-settings traffic.
 ``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
 alone: no SONAR model is built) and prints their ``[time]`` lines;
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
-``--front`` phases 1, 2 and 10 (no encoder is built); ``--profile``
+``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
+phases 1, 2 and 11; ``--profile``
 profiles one warm stage-5.3 run with each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
@@ -3060,6 +3071,376 @@ def phase_front(workdir, device, seconds=FRONT_SECONDS, n_planted=FRONT_PLANTED,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the whole graph, svecalign_tpu_torch.pipeline, in one process
+# ---------------------------------------------------------------------------
+
+PIPE_SECONDS = 3600  # a plenary side, as in phase 10: nothing is cut
+PIPE_SEEDS = (300, 301)  # one hour-long pair per seed
+PIPE_PLANTED = 20  # untranslated segments planted in each target side
+PIPE_BATCH = 2  # --pair_batch: the two pairs form one bucket
+PIPE_OVERLAPS = 5  # -a 6: the id maps hold 5 overlap rows a segment
+# device bytes a pipeline run may leave allocated beyond the weights it
+# loads: the cuBLAS workspace of a thread's first product (stage 4.2 runs
+# on a thread of its own under --overlap_untrans)
+MEMORY_SLACK = 64 << 20
+SONAR_PIPE_MAX_TOKENS = 150 * 16000  # the SONAR run's --embed_max_tokens (SONAR ignores it;
+# the stage-5.3 CLI's default keeps phase 5's loaded model in the memo)
+
+
+def write_pipeline_corpus(root, seconds=PIPE_SECONDS, n_planted=PIPE_PLANTED, seeds=PIPE_SEEDS):
+    """A stage-4 input tree of one :func:`write_front_pair` pair per seed
+    (stems ``{STEM}-0``, ``-1``, ...) and one metadata file naming them all.
+    Returns (metadata path, [the writer's dict per pair])."""
+    root = Path(root)
+    pairs, lines = [], []
+    for k, seed in enumerate(seeds):
+        paths = write_front_pair(root, seconds, n_planted, seed=seed, stem=f"{STEM}-{k}")
+        pairs.append(paths)
+        lines.append(paths["metadata"].read_text(encoding="utf-8"))
+    meta = root / "metadata.tsv"
+    meta.write_text("".join(lines), encoding="utf-8")
+    return meta, pairs
+
+
+class _counting:
+    """Count the calls of (owner, attribute name) functions in a block."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.calls = {name: 0 for _, name in targets}
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(owner, name, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _weight_bytes():
+    """Device bytes of the parameters and buffers of every loaded encoder."""
+    from svecalign_tpu_torch.utils import embed_model_utils
+
+    return sum(t.numel() * t.element_size() for m in embed_model_utils._model_memo.values()
+               for t in (*m.model.parameters(), *m.model.buffers()))
+
+
+def run_pipeline(meta, out, dev, extra=()):
+    """One in-process run of ``svecalign_tpu_torch.pipeline`` (all 16 stages)
+    on ``dev``, with the kernel counters zeroed just before. Returns the
+    wall, the pipeline's stage_seconds, the kernel launches, the align
+    stage's phase dict, the cache stats, the stage-5.4 upload bytes, and
+    device memory: before, after and the peak above before, and the
+    loaded weights' bytes before and after."""
+    import torch
+
+    from svecalign_tpu_torch import pipeline
+    from svecalign_tpu_torch.seg_align import align
+    from svecalign_tpu_torch.utils import embed_cache
+    from svecalign_tpu_torch.vecalign import batch
+
+    cuda = dev == "cuda"
+    for k in embed_cache.stats:
+        embed_cache.stats[k] = 0
+    up0, w0 = batch.upload_stats["bytes"], _weight_bytes()
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    profs = []
+    align_main = align.main
+    align.main = lambda argv=None: profs.append(align_main(argv)) or profs[-1]
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        pipeline.main([str(meta), str(out), "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG,
+                       "--device", dev, *extra])
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        align.main = align_main
+    return {"wall": wall, "stages": dict(pipeline.stage_seconds), "launches": _launches(),
+            "align": profs[0], "stats": dict(embed_cache.stats),
+            "upload": batch.upload_stats["bytes"] - up0, "mem_before": mem0,
+            "mem_after": torch.cuda.memory_allocated() if cuda else 0,
+            "peak": torch.cuda.max_memory_allocated() - mem0 if cuda else 0,
+            "weights": (w0, _weight_bytes())}
+
+
+def _lines_and_scores(path, tsv):
+    """(lines without their margin, margins) of a stage-6.7 file or, with
+    ``tsv``, a stage-6.8-6.10 ``.tsv.gz``."""
+    import gzip
+
+    if tsv:
+        with gzip.open(path, "rt", encoding="utf-8") as fp:
+            rows = [line.rstrip("\n").split("\t", 1) for line in fp]
+        return [r[1] for r in rows], np.array([float(r[0]) for r in rows])
+    rows = [line.rsplit(":", 1) for line in Path(path).read_text().splitlines()]
+    return [r[0] for r in rows], np.array([float(r[1]) for r in rows])
+
+
+def compare_pipeline_runs(a, b, margin_rtol=0.0, only=None):
+    """Hold every file of pipeline output tree ``a`` against ``b``'s: equal
+    bytes (``.gz`` once decompressed), but for the out dir inside stage
+    6.5's pointer tsvs and, with ``margin_rtol``, the margins of stages
+    6.7-6.10: the rest of each line equal, margins within that relative
+    tolerance; in the mined tsvs (6.8-6.10) the same rows, in an order that
+    may differ between margins that close (stage 6.10 sorts by margin, and
+    the check that it did comes from the margins' order in each file).
+    ``only``: the top-level directories to compare (default: all).
+    Raises AssertionError; returns the number of files compared."""
+    import gzip
+
+    a, b = Path(a), Path(b)
+    fa, fb = ({p.relative_to(root) for p in root.rglob("*")
+               if p.is_file() and (only is None or p.relative_to(root).parts[0] in only)}
+              for root in (a, b))
+    if fa != fb or not fa:
+        raise AssertionError(f"{a} and {b} hold other files: {sorted(fa ^ fb)[:5]}")
+    for rel in sorted(fa):
+        pa, pb = a / rel, b / rel
+        top = rel.parts[0]
+        if margin_rtol and (top.endswith("_margin") or top.endswith("_tsvs")):
+            tsv = top.endswith("_tsvs")
+            (la, ma), (lb, mb) = (_lines_and_scores(p, tsv) for p in (pa, pb))
+            if tsv:
+                if "sort" in rel.name and (np.any(np.diff(ma) > 0) or np.any(np.diff(mb) > 0)):
+                    raise AssertionError(f"{rel}: not in descending margin order")
+                order_a, order_b = np.argsort(la, kind="stable"), np.argsort(lb, kind="stable")
+                la, ma = [la[i] for i in order_a], ma[order_a]
+                lb, mb = [lb[i] for i in order_b], mb[order_b]
+            if la != lb:
+                raise AssertionError(f"{rel}: {sum(x != y for x, y in zip(la, lb))} lines differ "
+                                     f"({len(la)} and {len(lb)} lines)")
+            if not np.allclose(ma, mb, rtol=margin_rtol, atol=0):
+                err = float(np.max(np.abs(ma - mb) / np.abs(mb)))
+                raise AssertionError(f"{rel}: margins {err:.3e} apart, beyond rtol {margin_rtol}")
+        elif rel.suffix == ".tsv":
+            same = (pa.read_text(encoding="utf-8").replace(str(a), "OUT")
+                    == pb.read_text(encoding="utf-8").replace(str(b), "OUT"))
+            if not same:
+                raise AssertionError(f"{rel}: the pointer tsvs differ")
+        elif rel.suffix == ".gz":  # the gzip header holds a time stamp
+            if gzip.decompress(pa.read_bytes()) != gzip.decompress(pb.read_bytes()):
+                raise AssertionError(f"{rel}: differs")
+        elif pa.read_bytes() != pb.read_bytes():
+            raise AssertionError(f"{rel}: differs")
+    return len(fa)
+
+
+def mined_duplicates(tsv, pairs, dur_diff=DUR_DIFF["6.2"], thres=UNTRANS_THRES):
+    """Untranslated duplicates among the rows of a mined ``.tsv.gz``:
+    (rows, rows past stage 6.2's duration gate, rows under the MSE
+    threshold there on the CPU path, rows that pair a planted copy with its
+    source (both spans within ``dur_diff`` of the copied span), rows whose
+    target span overlaps a planted copy). ``pairs``: the writer's dicts."""
+    import gzip
+
+    copies = {}
+    for p in pairs:
+        spans = [p["segments"][SRC_LANG][i] for i, _ in p["planted"]]
+        copies[str(p[TGT_LANG])] = (str(p[SRC_LANG]), spans)
+    with gzip.open(tsv, "rt", encoding="utf-8") as fp:
+        rows = [line.rstrip("\n").split("\t") for line in fp]
+    gate, by_doc = int(dur_diff * 16000), {}
+    exact = overlapping = 0
+    for _, src, tgt in rows:
+        s_path, s0, s1, _ = src.rsplit(" ", 3)
+        t_path, t0, t1, _ = tgt.rsplit(" ", 3)
+        s0, s1, t0, t1 = int(s0), int(s1), int(t0), int(t1)
+        for a, b in copies.get(t_path, (None, []))[1]:
+            if t0 < b and a < t1:
+                overlapping += 1
+            if max(abs(s0 - a), abs(s1 - b), abs(t0 - a), abs(t1 - b)) <= gate:
+                exact += 1
+        if abs((s1 - s0) - (t1 - t0)) <= gate:
+            by_doc.setdefault((s_path, t_path), []).append(((s0, s1), (t0, t1)))
+    mses = [m for (s_path, t_path), spans in by_doc.items()
+            for m in _cpu_mses(spans, s_path, t_path)]
+    return len(rows), len(mses), sum(m < thres for m in mses), exact, overlapping
+
+
+def phase_pipeline(workdir, device, seconds=PIPE_SECONDS, n_planted=PIPE_PLANTED):
+    """The whole graph through ``python -m svecalign_tpu_torch.pipeline``'s
+    entry point, in this process: all 16 stages on a corpus of
+    :func:`write_pipeline_corpus` (two hour-long pairs, ``PIPE_PLANTED``
+    planted untranslated segments each), full-width SpeechLASER (random
+    weights from seed 0), ``--pair_batch 2``: once unfused, once ``--fused
+    --overlap_untrans``. Gates: every file of the two runs equal, margins
+    within ``MARGIN_RTOL``; the cache hit for every document, no miss and
+    no rejection; the fused align uploads the id maps alone; stage 5.4
+    re-run as a separate CLI process on the run's ``.embed`` files writes
+    identical alignments; on the card the stage-5.4 kernels launch once a
+    bucket and level and the plain DP and walks never run; no mined row is
+    an untranslated duplicate by stage 6.2's own test and none pairs a
+    planted copy with its source; device memory after the fused run back
+    to what it was plus the weights loaded. Then SONAR ``--fused`` on
+    phase 7's two 10-minute documents: the rel-key kernel ``n_layers``
+    times a chunk and the plain attention never. Logs the walls and stage
+    seconds, stage 5.4's phases fused against unfused, peak memory.
+    Returns the launches of both pipelines' runs."""
+    import torch
+
+    from svecalign_tpu_torch.models import w2v_bert
+    from svecalign_tpu_torch.models.sonar_encoder import SonarSpeechModel
+    from svecalign_tpu_torch.ops import dp as dp_ops
+    from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.file_utils import read_segments
+
+    dev, root = device.type, Path(workdir) / "pipeline"
+    cuda = dev == "cuda"
+    t0 = time.perf_counter()
+    meta, pairs = write_pipeline_corpus(root / "in", seconds, n_planted)
+    _log(f"[pipeline] wrote {len(pairs)} pairs of {seconds} s a side, {n_planted} planted "
+         f"untranslated segments in each target side, in {time.perf_counter() - t0:.1f}s")
+
+    plain = [(dp_ops, name) for name in ("banded_dp_batched", "dense_dp_batched",
+                                         "dense_traceback_walk", "banded_traceback_walk")]
+    runs = {}
+    for label, flags in (("unfused", []), ("fused", ["--fused", "--overlap_untrans"])):
+        with _counting(*plain) as plain_calls:
+            runs[label] = run = run_pipeline(meta, root / label, dev,
+                                             ["--pair_batch", str(PIPE_BATCH), *flags])
+        run["plain"] = dict(plain_calls)
+        _log(f"[pipeline] {label} ({' '.join(flags) or 'the defaults'}, --pair_batch "
+             f"{PIPE_BATCH}): {run['wall']:.3f}s wall; stage seconds: "
+             + " | ".join(f"{k} {v:.3f}" for k, v in run["stages"].items()))
+
+    sizes = []
+    for p in pairs:
+        name = Path(p[SRC_LANG]).stem.rsplit("_", 1)[0]
+        sizes.append(tuple(len(read_segments(root / "unfused" / "segments" / lang /
+                                             f"{name}_{lang}.txt")) for lang in (SRC_LANG, TGT_LANG)))
+    plan = bucket_plan(sizes, PIPE_BATCH)
+    n_levels = sum(max(depth, 1) for *_, depth in plan)
+    want = {"dense_dp": len(plan), "banded_dp": n_levels, "banded_dp_warp": n_levels,
+            "banded_dp_block": 0, "dense_traceback_walk": len(plan),
+            "banded_traceback_walk": n_levels}
+    for label, run in runs.items():
+        got = {k: run["launches"][k] for k in want}
+        if cuda and (got != want or any(run["plain"].values())):
+            raise AssertionError(f"{label}: stage 5.4 launched {got}, want {want} ({len(plan)} "
+                                 f"buckets, {n_levels} banded levels); plain calls {run['plain']}")
+    _log(f"[pipeline] stage 5.4 on {sizes} segments (stage 4.1's): {len(plan)} bucket(s), "
+         f"{n_levels} banded level(s); launches per run {want if cuda else 'none (CPU)'}; plain "
+         f"DP and walk calls {runs['unfused']['plain']} and {runs['fused']['plain']}")
+
+    fused, unfused = runs["fused"], runs["unfused"]
+    stats = fused["stats"]
+    if stats["hit"] != 2 * len(pairs) or stats["miss"] or stats["rejected"] or stats["gather_miss"]:
+        raise AssertionError(f"fused run's cache stats {stats}: want a hit for each of the "
+                             f"{2 * len(pairs)} documents and no miss or rejection")
+    ids_bytes = sum(4 * PIPE_OVERLAPS * len(bp) * (n_pad + m_pad) for bp, n_pad, m_pad, _ in plan)
+    if fused["upload"] != ids_bytes:
+        raise AssertionError(f"fused stage 5.4 uploaded {fused['upload']} bytes, want the id "
+                             f"maps' {ids_bytes}")
+    if fused["align"]["fused"] != len(pairs):
+        raise AssertionError(f"fused stage 5.4 staged {fused['align']['fused']} pairs from the "
+                             "cache")
+    n_files = compare_pipeline_runs(root / "unfused", root / "fused", MARGIN_RTOL)
+    _log(f"[pipeline] fused against unfused: {n_files} files equal (margins within rtol "
+         f"{MARGIN_RTOL}); cache stats {stats}; stage-5.4 uploads {unfused['upload']} bytes "
+         f"unfused (rows and id maps), {fused['upload']} fused (the id maps alone)")
+    for label, run in runs.items():
+        a = run["align"]
+        _log(f"[time] stage 5.4 in the {label} pipeline: {run['stages']['align']:.3f}s wall; "
+             f"load {a['load']:.3f}s, stage {a['stage']:.3f}s, pyramid {a['pyramid']:.3f}s, "
+             f"write {a['write']:.3f}s ({a['buckets']} bucket(s), {a['fused']} pairs from the "
+             "cache)")
+
+    # stage 5.4 again, in a process of its own, on the fused run's files
+    out = root / "align_rerun"
+    argv = [sys.executable, "-m", "svecalign_tpu_torch.seg_align.align", str(meta), str(out),
+            "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG,
+            "--seg_dir", str(root / "fused" / "segments"),
+            "--concat_dir", str(root / "fused" / "cat_segs"),
+            "--embed_dir", str(root / "fused" / "embeds"), "--is_stopes_embed", "-a", "6",
+            "--ign_indices_dir", str(root / "fused" / "untrans_cat_seg_ids"),
+            "--pair_batch", str(PIPE_BATCH), "--device", dev]
+    repo = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"stage 5.4 in its own process failed:\n{proc.stderr[-3000:]}")
+    n_align = compare_pipeline_runs(root / "fused" / "alignments", out)
+    _log(f"[pipeline] stage 5.4 re-run as a separate CLI process on the fused run's .embed files: "
+         f"{n_align} alignment files identical ({time.perf_counter() - t0:.1f}s with the "
+         "process start)")
+
+    tsv = next((root / "fused").glob(f"*_tsvs/{SRC_LANG}-{TGT_LANG}/align.rm_overlap.sort.tsv.gz"))
+    n_rows, n_gated, dups, exact, overlapping = mined_duplicates(tsv, pairs)
+    if dups or exact:
+        raise AssertionError(f"mined tsv: {dups} untranslated duplicates by stage 6.2's test, "
+                             f"{exact} rows pairing a planted copy with its source")
+    _log(f"[pipeline] mined tsv: {n_rows} rows; {n_gated} within stage 6.2's duration gate, none "
+         f"under its MSE threshold on the CPU path; no row pairs a planted copy with its source; "
+         f"{overlapping} row(s) hold part of a planted copy beside other speech (stage 4.1's "
+         "segments there differ between the sides, so 4.2 and 6.2 see no duplicate)")
+
+    for label, run in runs.items():
+        _log_memory(label, run)
+    _check_memory("fused", fused)
+    if cuda and hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+        _log(f"[pipeline] device memory with every cuBLAS workspace dropped: "
+             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (loaded weights "
+             f"{_weight_bytes() / 2**20:.1f} MiB)")
+
+    # SONAR, fused, on phase 7's two 10-minute documents
+    sroot = root / "sonar_in"
+    write_synthetic_document(sroot, DOC_SECONDS, seed=0)
+    paths, _ = write_synthetic_document(sroot, DOC_SECONDS, seed=1, lang=TGT_LANG)
+    for k in w2v_bert.ATTENTION_CALLS:
+        w2v_bert.ATTENTION_CALLS[k] = 0
+    with _counting((SonarSpeechModel, "_span_forward")) as chunks:
+        sonar = run_pipeline(paths["metadata"], root / "sonar", dev,
+                             ["--embed_model_type", "sonar", "--fused",
+                              "--embed_max_tokens", str(SONAR_PIPE_MAX_TOKENS)])
+    n_layers = next(m for m in embed_model_utils._model_memo.values()
+                    if isinstance(m, SonarSpeechModel)).config.n_layers
+    launches = sonar["launches"]["relkey_attention"]
+    if launches != n_layers * chunks["_span_forward"] or not chunks["_span_forward"]:
+        raise AssertionError(f"SONAR pipeline: {launches} rel-key launches for "
+                             f"{chunks['_span_forward']} chunks of {n_layers} layers")
+    if w2v_bert.ATTENTION_CALLS["torch"]:
+        raise AssertionError(f"SONAR pipeline ran the plain attention: {w2v_bert.ATTENTION_CALLS}")
+    s = sonar["stats"]
+    if s["hit"] != 2 or s["miss"] or s["rejected"] or s["gather_miss"]:
+        raise AssertionError(f"SONAR pipeline's cache stats {s}")
+    _log_memory("SONAR", sonar)
+    _check_memory("SONAR", sonar)
+    _log(f"[pipeline] SONAR --fused on two {DOC_SECONDS} s documents: {sonar['wall']:.3f}s wall; "
+         f"{chunks['_span_forward']} chunks, {launches} rel-key launches ({n_layers} a chunk), "
+         f"plain attention calls {w2v_bert.ATTENTION_CALLS['torch']}; cache stats {s}; stage "
+         "seconds: " + " | ".join(f"{k} {v:.3f}" for k, v in sonar["stages"].items()))
+    return {"laser": fused["launches"], "sonar": launches, "plan": plan}
+
+
+def _log_memory(label, run):
+    w0, w1 = run["weights"]
+    _log(f"[pipeline] device memory, {label}: {run['mem_before'] / 2**20:.1f} MiB before, "
+         f"{run['mem_after'] / 2**20:.1f} MiB after (loaded weights {w1 / 2**20:.1f} MiB, "
+         f"{(w1 - w0) / 2**20:.1f} of them new), peak {run['peak'] / 2**30:.3f} GiB above before")
+
+
+def _check_memory(label, run):
+    """A fused run leaves nothing on the device but the weights it loaded."""
+    grown = run["mem_after"] - run["mem_before"] - (run["weights"][1] - run["weights"][0])
+    if grown > MEMORY_SLACK:
+        raise AssertionError(f"{label} pipeline left {grown / 2**20:.1f} MiB on the device beyond "
+                             f"the weights it loaded (slack {MEMORY_SLACK >> 20} MiB)")
+
+
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
     ("relkey_attention kernel", ("relkey_attention",)),
     ("SDPA attention (LASER)", ("fmha", "flash", "attention")),
@@ -3139,6 +3520,10 @@ def main(argv=None):
     mode.add_argument("--mining", action="store_true",
                       help="only build, the kernel checks and the mining phase (phases 1, 2, "
                            "9; no encoder is built); prints no result line")
+    mode.add_argument("--pipeline", action="store_true",
+                      help="only build, the kernel checks and the pipeline (phases 1, 2, 11: "
+                           "all 16 stages on two hour-long pairs, unfused and fused, then "
+                           "SONAR fused); prints no result line")
     mode.add_argument("--front", action="store_true",
                       help="only build, the kernel checks and the front of the pipeline "
                            "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
@@ -3177,6 +3562,11 @@ def main(argv=None):
                         clock_hz=_sm_clock_hz())
         _log(f"[done] front phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.pipeline:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as td:
+            phase_pipeline(Path(td), device)
+        _log(f"[done] pipeline phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if not args.laser:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
             stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
@@ -3205,11 +3595,13 @@ def main(argv=None):
         probe = t["probe"]
         phase_front(Path(td), device, latencies=(probe["handover"], probe["alu"]),
                     clock_hz=probe["clock"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as td:
+        pipe = phase_pipeline(Path(td), device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",
         "replaces": "svecalign_tpu/ops/dp_pallas.py:70",
-        "launches": launches["banded_dp"],
+        "launches": launches["banded_dp"], "pipeline_launches": pipe["laser"]["banded_dp"],
         "max_abs_err": max(check_err, t["err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "bytes_bound_ms": t["bytes_bound_ms"],
@@ -3218,7 +3610,7 @@ def main(argv=None):
         "name": "relkey_attention", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/relkey_attention.cu",
         "replaces": "svecalign_tpu/ops/attention_pallas.py:200",
-        "launches": embed_launches["relkey_attention"],
+        "launches": embed_launches["relkey_attention"], "pipeline_launches": pipe["sonar"],
         "max_abs_err": max(attn_err, a["err"]),
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
@@ -3232,6 +3624,7 @@ def main(argv=None):
         kernels.append({
             "name": name, "route": "cuda", "source": f"svecalign_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": bucket_launches[name],
+            "pipeline_launches": pipe["laser"][name],
             "max_abs_err": max(row["err"], dense_err) if name == "dense_dp" else row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound, "bound_by": by,
             "bytes_bound_ms": max(row["bounds"]["bytes"], row["bounds"]["operations"]),
@@ -3246,7 +3639,9 @@ def main(argv=None):
          "versions, bound_ms the largest of bytes, operations and the dependent steps' latency "
          "(bytes_bound_ms: the larger of the first two). relkey_attention: device times per launch "
          "(CUDA-graph replay) at the stage-5.3 modal bucket (every bucket, and eager times, "
-         "above); launches per stage-5.3 run")
+         "above); launches per stage-5.3 run. pipeline_launches: the launches of one run of the "
+         "whole pipeline (phase 11: stage 5.4 of the LASER run, stages 5.3 and 6.5 of the "
+         "SONAR run)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

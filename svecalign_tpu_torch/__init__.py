@@ -22,6 +22,9 @@ Ported so far:
   tool ``analysis/dump_alignments.py``;
 - WAV and Ogg/Vorbis audio (``utils/audio_io.py``; Vorbis through the
   port's own libvorbis binding, ``csrc/ogg_io.cpp``).
+- the one-command pipeline over all 16 stages (``pipeline.py``) with its
+  fused handoff: ``--fused`` keeps each document's rows on the card from
+  stage 5.3 to stages 5.4, 6.6 and 6.7 (``utils/embed_cache.py``).
 Every stage CLI of the JAX package has its counterpart here. It imports
 neither ``jax`` nor ``svecalign_tpu``.
 
@@ -38,7 +41,8 @@ Subpackages
 - ``postprocess``: the stage-6 CLIs
 - ``analysis`` : the alignment audit dump (clips and HTML pages)
 - ``utils``    : file/audio/embedding/index IO, sharding and worker
-                 processes, phase timers and the device/fp32 setup
+                 processes, phase timers, the device/fp32 setup and the
+                 fused pipeline's row cache
 """
 
 __version__ = "0.1.0"

@@ -16,11 +16,15 @@ through the same hooks as in JAX:
 
 plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``.
 
+``keep_device`` (the fused pipeline's handoff, ``utils/embed_cache.py``)
+also writes every chunk's rows, as fp16, into one (embed_cache.max_rows,
+dim) buffer on the device and returns it beside the host rows.
+
 Left out, as TPU workarounds whose flags keep their meaning: the compile
 prewarm threads, the ``SVECALIGN_FUSED_CHUNK`` one-program chunk, the
-2048-row accumulator pulls, the staging thread pool and buffer donation,
-and ``keep_device`` (the fused-pipeline row cache, ROADMAP Queue 1 item
-11a). Outputs stay on the device until one pull at the end of the call.
+2048-row accumulator pulls (:func:`pull_rows` pulls the buffer with one
+copy), the staging thread pool and buffer donation. Outputs stay on the
+device until one pull at the end of the call.
 
 Phase timers: :func:`start_encode_profile` makes ``encode_profile`` a dict
 that the encode loops add wall seconds to, each phase ending in a device
@@ -34,6 +38,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.log_utils import logging
 
 logger = logging.getLogger(__name__)
@@ -98,35 +103,54 @@ def stage_rows(pieces, rows: int, width: int, fp32: bool) -> Tuple[np.ndarray, n
 
 
 def pull_rows(pending: Sequence[Tuple[List[int], torch.Tensor]], n: int, dim: int,
-              fp16: bool, device: torch.device) -> np.ndarray:
+              fp16: bool, device: torch.device, keep_device: bool = False):
     """Scatter each chunk's device rows into one (n, dim) host array
     (float16 when ``fp16``: the rows were cast on the device); padding
-    rows of a chunk (past its index list) are dropped."""
+    rows of a chunk (past its index list) are dropped.
+
+    ``keep_device``: also write each chunk's rows, as fp16 (the ``.embed``
+    file's dtype), into one zeroed (embed_cache.max_rows, dim) buffer on
+    ``device`` with ``index_copy_``, and return ``(out, buffer)``; the
+    buffer is None when ``n`` exceeds ``embed_cache.max_rows``. Its first
+    ``n`` rows are bit-equal to the rows the writer stores. With ``fp16``
+    the host rows are one copy of ``buffer[:n]`` (the JAX package pulls
+    its buffer in 2048-row slices, a transfer-size workaround)."""
     tick = phase_clock(device)
-    out = np.zeros((n, dim), dtype=np.float16 if fp16 else np.float32)
-    if pending:
-        ids = np.concatenate([np.asarray(i, np.int64) for i, _ in pending])
-        rows = torch.cat([emb[: len(i)] for i, emb in pending]).cpu().numpy()
-        out[ids] = rows
+    dev = None
+    if keep_device and n <= embed_cache.max_rows:
+        dev = torch.zeros((embed_cache.max_rows, dim), dtype=torch.float16, device=device)
+        for ids, emb in pending:
+            dev.index_copy_(0, torch.tensor(ids, dtype=torch.int64, device=device),
+                            emb[: len(ids)].half())
+    if dev is not None and fp16:
+        out = dev[:n].cpu().numpy()
+    else:
+        out = np.zeros((n, dim), dtype=np.float16 if fp16 else np.float32)
+        if pending:
+            ids = np.concatenate([np.asarray(i, np.int64) for i, _ in pending])
+            rows = torch.cat([emb[: len(i)] for i, emb in pending]).cpu().numpy()
+            out[ids] = rows
     tick("pull_s")
     prof = encode_profile
     if prof is not None:
         prof["chunks"] += len(pending)
         prof["rows"] += n
-    return out
+    return (out, dev) if keep_device else out
 
 
 class SpanEncoderMixin:
     """encode_spans() for models exposing the hook set described above."""
 
-    def encode_spans(self, waveform, spans, fp16_pull: bool = False) -> np.ndarray:
+    def encode_spans(self, waveform, spans, keep_device: bool = False,
+                     fp16_pull: bool = False):
         """Encode (start, end) sample spans of ONE waveform -> (N, dim).
 
         Equivalent to ``encode([waveform[s:e] for s, e in spans])``: bit-equal
         in fp32 upload mode, within about one quantization step in int16
         mode (per 1 s block, then per row on the device). Waveforms longer
         than the largest wave bucket fall back to host-sliced encode().
-        ``fp16_pull`` casts the rows to fp16 on the device.
+        ``fp16_pull`` casts the rows to fp16 on the device. ``keep_device``
+        returns ``(out, device fp16 rows)``, as :func:`pull_rows` says.
         """
         from svecalign_tpu_torch.ops import assemble
 
@@ -141,7 +165,8 @@ class SpanEncoderMixin:
                 f"exceeds the largest wave bucket ({buckets_s[-1]} s); "
                 "falling back to host-sliced encode()"
             )
-            return self.encode([waveform[s:e] for s, e in spans], fp16_pull=fp16_pull)
+            return self.encode([waveform[s:e] for s, e in spans], keep_device=keep_device,
+                               fp16_pull=fp16_pull)
 
         fp32 = self.upload_dtype == "fp32"
         dev = self.device
@@ -184,4 +209,4 @@ class SpanEncoderMixin:
                 tick("assemble_s")
                 emb = self._span_forward(rows_q, row_scales, lengths, bucket)
                 pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
-        return pull_rows(pending, len(spans), self._embed_dim, fp16_pull, dev)
+        return pull_rows(pending, len(spans), self._embed_dim, fp16_pull, dev, keep_device)

@@ -30,10 +30,11 @@ embedding depends on its bucket's width: the buckets are the JAX ones.
 
 ``SpeechLaserModel`` is the host wrapper. Weights come from a JAX ``.npz``
 (``save_params_npz``) or, without one, from the JAX package's numpy init
-for ``seed``, so both packages hold the same random weights. Left out, as
-in the SONAR port: the mesh/data-parallel branch (ROADMAP Queue 1 item
-20), ``keep_device`` (items 11, 11a), buffer donation and the staging
-thread.
+for ``seed``, so both packages hold the same random weights.
+``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
+on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
+Left out, as in the SONAR port: the mesh/data-parallel branch (ROADMAP
+Queue 1 item 20), buffer donation and the staging thread.
 """
 
 import dataclasses
@@ -258,6 +259,9 @@ class SpeechLaserModel(SpanEncoderMixin):
     """Host wrapper: bucketed batched forward on the device."""
 
     supports_spans = True
+    # encode(..., keep_device=True) returns (out, device fp16 rows): the
+    # fused pipeline's handoff (utils/embed_cache.py)
+    supports_keep_device = True
     WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
 
     # length buckets in samples at 16 kHz, the JAX package's: 8 and 14 s fill
@@ -347,11 +351,13 @@ class SpeechLaserModel(SpanEncoderMixin):
     def _trunc_unit(self) -> str:
         return f"{self.BUCKETS[-1] // 16000} s"
 
-    def encode(self, waveforms, fp16_pull: bool = False) -> np.ndarray:
+    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False):
         """Encode waveforms -> (N, encoder_dim) float32 (float16 under
         ``fp16_pull``: cast on the device, bit-equal to the writer's host
         fp32 -> fp16 cast). Each bucket's chunks are padded to a fixed
-        (rows, bucket) shape; padding rows have length 0 and are dropped."""
+        (rows, bucket) shape; padding rows have length 0 and are dropped.
+        ``keep_device`` returns ``(out, device fp16 rows)``
+        (``encode_common.pull_rows``)."""
         by_bucket: dict = {}
         n_truncated = 0
         for i, w in enumerate(waveforms):
@@ -383,4 +389,4 @@ class SpeechLaserModel(SpanEncoderMixin):
                     torch.from_numpy(lengths).to(self.device), bucket)
                 pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
         return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
-                                       self.device)
+                                       self.device, keep_device)

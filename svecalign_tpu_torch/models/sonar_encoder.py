@@ -16,9 +16,11 @@ random weights. Inputs are bucketed into fixed (batch_size, samples)
 chunks as in JAX, uploaded as per-row int16 (or fp32) and dequantised,
 featurised and encoded on the device.
 
+``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
+on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
+
 Left out, as TPU workarounds: the mesh/data-parallel branch (multi-GPU is
-ROADMAP Queue 1 item 20), the staging thread pool and buffer donation,
-and ``keep_device`` (the fused-pipeline row cache, Queue 1 item 11a).
+ROADMAP Queue 1 item 20), the staging thread pool and buffer donation.
 """
 
 import dataclasses
@@ -150,6 +152,9 @@ class SonarSpeechModel(SpanEncoderMixin):
     """Host wrapper: bucketed batched forward on the device."""
 
     supports_spans = True
+    # encode(..., keep_device=True) returns (out, device fp16 rows): the
+    # fused pipeline's handoff (utils/embed_cache.py)
+    supports_keep_device = True
     WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
 
     # 10 ms frames (pre-stack), the JAX package's buckets: 700/1400 fill
@@ -238,10 +243,11 @@ class SonarSpeechModel(SpanEncoderMixin):
     def _trunc_unit(self) -> str:
         return f"{self.BUCKET_FRAMES[-1]} x 10 ms"
 
-    def encode(self, waveforms, fp16_pull: bool = False) -> np.ndarray:
+    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False):
         """Encode waveforms -> (N, pool_dim) float32 (float16 under
         ``fp16_pull``: cast on the device, bit-equal to the writer's host
-        fp32 -> fp16 cast)."""
+        fp32 -> fp16 cast). ``keep_device`` returns ``(out, device fp16
+        rows)`` (``encode_common.pull_rows``)."""
         by_bucket: dict = {}
         n_truncated = 0
         for i, w in enumerate(waveforms):
@@ -275,4 +281,4 @@ class SonarSpeechModel(SpanEncoderMixin):
                     torch.from_numpy(lengths).to(self.device), bucket)
                 pending.append(([i for i, *_ in chunk], emb.half() if fp16_pull else emb))
         return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
-                                       self.device)
+                                       self.device, keep_device)

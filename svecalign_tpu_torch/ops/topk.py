@@ -24,11 +24,12 @@ merge is a stable sort: ids then equal JAX's wherever the k-th and
 (k+1)-th distances differ. Stage 6.7 reads only the distances, so its
 margins do not depend on the tie order at all.
 
-Left out (they raise, naming the ROADMAP item they wait on): the sharded
-tiers ``ShardedFlatIndex`` / ``ShardedIVFIndex`` and their helper
-functions (item 20), and the fused pipeline's device-assembled corpus,
-``FlatIndex.set_device_corpus`` with its device normalisation and
-re-quantisation (item 11).
+The fused pipeline hands rows that stay on the card: a Flat corpus
+gathered from the embed cache (``FlatIndex.set_device_corpus``, normalised
+on the device; re-quantised there for ``corpus_quant="int8"``) and query
+rows (:func:`normalize_rows_device`). Left out (they raise, naming the
+ROADMAP item they wait on): the sharded tiers ``ShardedFlatIndex`` /
+``ShardedIVFIndex`` and their helper functions (item 20).
 """
 
 from typing import Optional, Tuple
@@ -50,6 +51,24 @@ def normalize_l2(x: np.ndarray) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     norms = np.sqrt(np.sum(x * x, axis=1, keepdims=True))
     return x / np.where(norms == 0, 1.0, norms)
+
+
+def normalize_rows_device(rows: torch.Tensor) -> torch.Tensor:
+    """L2 normalization of a tensor's rows in fp32, on its device, with
+    :func:`normalize_l2`'s zero-row convention (fused query rows)."""
+    x = rows.float()
+    norms = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    return x / torch.where(norms == 0, 1.0, norms)
+
+
+def _normalize_corpus(rows: torch.Tensor, n: int):
+    """Gathered fp16 rows -> (fp32 L2-normalized corpus, corpus_sq), rows
+    at ``n`` and past zero with ``corpus_sq = inf`` (padding never wins a
+    top-k): the device side of ``FlatIndex.set_device_corpus``."""
+    x = normalize_rows_device(rows)
+    valid = torch.arange(x.shape[0], device=x.device) < n
+    sq = torch.where(valid, torch.sum(x * x, dim=1), float("inf"))
+    return torch.where(valid[:, None], x, 0.0), sq
 
 
 def _exact_in_fp16(x: np.ndarray) -> bool:
@@ -140,6 +159,20 @@ def _quantize_rows_host(corpus: np.ndarray):
     deq = codes.astype(np.float32) * scales[:, None]
     corpus_sq = np.sum(deq * deq, axis=1).astype(np.float32)
     return codes, scales, corpus_sq
+
+
+def _quantize_corpus_device(corpus: torch.Tensor, corpus_sq: torch.Tensor):
+    """:func:`_quantize_rows_host` on the device, for a corpus installed by
+    ``FlatIndex.set_device_corpus`` (fp32 normalized rows, ``corpus_sq =
+    inf`` on padding rows, which stays inf). ``torch.round`` rounds half
+    to even, as ``np.rint``. In JAX this branch is unreachable (every int8
+    run quantizes on the host); it is ported as JAX has it."""
+    amax = torch.amax(torch.abs(corpus), dim=1)
+    scales = torch.where(amax == 0, 1.0, amax / 127.0)
+    codes = torch.clamp(torch.round(corpus / scales[:, None]), -127, 127).to(torch.int8)
+    deq = codes.float() * scales[:, None]
+    sq = torch.sum(deq * deq, dim=1)
+    return codes, scales.float(), torch.where(torch.isinf(corpus_sq), float("inf"), sq)
 
 
 def _bf16_sims(qb: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -293,7 +326,13 @@ class FlatIndex:
 
     def _device_corpus_q8(self, tiled: bool):
         """int8 tier of :meth:`_device_corpus`: codes (a quarter of the
-        fp32 bytes) and per-row scales, uploaded once; cached."""
+        fp32 bytes) and per-row scales, uploaded once; cached. A device
+        corpus with no host rows behind it is quantized on the device (the
+        JAX condition: prep_index's fused index also holds its host rows,
+        so every int8 run quantizes on the host there)."""
+        if self._device_cache_q8 is None and self._device_cache is not None \
+                and not self._chunks:
+            self._device_cache_q8 = _quantize_corpus_device(*self._device_cache)
         if self._device_cache_q8 is None:
             n = self.ntotal
             codes, scales, corpus_sq = _quantize_rows_host(self.corpus)
@@ -306,8 +345,19 @@ class FlatIndex:
                 _as_tensor(a, self.device) for a in (codes, scales, corpus_sq))
         return self._device_cache_q8
 
-    def set_device_corpus(self, rows_fp16, n_valid: int) -> None:
-        _not_ported("FlatIndex.set_device_corpus (the fused pipeline's device corpus)", "11")
+    def set_device_corpus(self, rows_fp16: torch.Tensor, n_valid: int) -> None:
+        """Install a corpus assembled on the device (the fused pipeline; no
+        upload): ``rows_fp16`` is an (n_padded, dim) fp16 tensor of
+        unnormalized rows gathered from ``utils/embed_cache.py``, n_padded a
+        multiple of ``BLOCK``. It is normalized on the device and padding
+        rows get ``corpus_sq = inf``; distances then equal the host path's
+        up to the fp32 summation order of the norms."""
+        if rows_fp16.shape[0] % self.BLOCK:
+            raise ValueError(f"{rows_fp16.shape[0]} rows: not a multiple of {self.BLOCK}")
+        if n_valid != self.ntotal:
+            raise ValueError(f"{n_valid} device rows for an index of {self.ntotal}")
+        self._device_cache = _normalize_corpus(rows_fp16.to(self.device), n_valid)
+        self._device_cache_q8 = None
 
     def _search_core(self, queries: torch.Tensor, k_eff: int):
         """Search over device-resident queries -> device (d2, idx)."""

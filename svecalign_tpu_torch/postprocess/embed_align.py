@@ -8,7 +8,9 @@ embedding row; otherwise embed the span on the card. Output per pair:
 for SpeechLASER, headerless raw rows for SONAR; not written when every
 span is reused) and ``{src}-{tgt}.{src|tgt}.tsv`` of ``embed_file_path \\t
 row_id`` pointers, one line per alignment, written last: the tsv alone
-marks the pair as done. Atomic renames, as in JAX.
+marks the pair as done. Atomic renames, as in JAX. While the fused handoff
+is on (``utils/embed_cache.py``) the fresh rows also stay on the card,
+keyed by their ``.embed`` path, for stages 6.6 and 6.7.
 
 CLI: ``python -m svecalign_tpu_torch.postprocess.embed_align METADATA
 OUT_DIR --src_lang S --tgt_lang T --align_dir A --seg_dir D
@@ -176,6 +178,7 @@ def main(argv=None):
                 miss_segments,
                 str(tmp_embed),
                 fp16=not args.embed_fp32,
+                cache_key=str(embed_out_path),
                 window_assembly=args.window_assembly,
             )
             tmp_embed.replace(embed_out_path)

@@ -12,8 +12,10 @@ Port of the JAX package's ``postprocess/prep_index.py``:
 Outputs ``${type}.train.idx`` and ``${type}.populate.idx`` in the faiss
 binary formats, byte-identical to the JAX CLI's. (Reference
 svecalign/postprocess/prep_index.py, faiss-gpu replaced by
-:mod:`svecalign_tpu_torch.ops.topk`.) The JAX CLI's fused branch (the
-corpus assembled from its device embed cache) waits on ROADMAP item 11.
+:mod:`svecalign_tpu_torch.ops.topk`.) In a fused pipeline run
+(``utils/embed_cache.py`` enabled) a Flat corpus is also gathered from the
+rows the embed stages left on the card (``FlatIndex.set_device_corpus``),
+and the live index is handed to stage 6.7; the files stay as they are.
 
 CLI: ``python -m svecalign_tpu_torch.postprocess.prep_index METADATA OUT_DIR
 --data_dir D --src_lang S --tgt_lang T [--use_tgt] [--sample_ratio 0.5]
@@ -31,6 +33,7 @@ from typing import List, Tuple
 import numpy as np
 
 from svecalign_tpu_torch.ops.topk import FlatIndex, IVFIndex, normalize_l2
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.embedding_utils import (
     load_sent_embeddings,
     write_stopes_embedding,
@@ -241,6 +244,22 @@ def main(argv=None):
     else:
         write_ivf_index(index, populate_path)
     phase_seconds["write"] = perf_counter() - t0
+
+    # fused pipeline: assemble the same corpus on the card from the rows
+    # the embed stages left there (the file above stays the durable copy)
+    # and hand the live index to score_align
+    if embed_cache.enabled:
+        if index_type == "Flat" and index.ntotal:
+            entries = []
+            for path in embed_paths:
+                entries.extend(parse_embed_tsv_entries(path))
+            gathered = embed_cache.gather_rows_device(entries, pad_multiple=FlatIndex.BLOCK)
+            if gathered is not None:
+                index.set_device_corpus(*gathered)
+                logger.info(f"Device-resident corpus installed ({gathered[1]} rows, no upload)")
+            else:
+                logger.info("Embed cache incomplete; corpus uploads lazily")
+        embed_cache.register_index(populate_path, index)
     logger.info("Finished!")
 
 

@@ -13,9 +13,14 @@ as in JAX, and reaches the writer as an ``np.float32`` array: its
 svecalign/postprocess/score_align.py, faiss replaced by
 :mod:`svecalign_tpu_torch.ops.topk`.)
 
-Left out: ``--sharded_index`` raises (ROADMAP item 20); the JAX CLI's
-fused branch (queries gathered from its device embed cache) waits on
-item 11. ``--gpu_type`` is accepted and ignored, as in JAX.
+In a fused pipeline run (``utils/embed_cache.py`` enabled) each chunk's
+queries are gathered on the card from the rows the embed stages left
+there, and normalization, both searches and the margins run there
+(:func:`compute_margin_device`); only the (n,) margins come back. A chunk
+with any row not cached takes the file path, as in JAX.
+
+Left out: ``--sharded_index`` raises (ROADMAP item 20). ``--gpu_type`` is
+accepted and ignored, as in JAX.
 
 CLI: ``python -m svecalign_tpu_torch.postprocess.score_align METADATA
 OUT_DIR --embed_dir E --align_dir A --src_lang S --tgt_lang T --index_dir I
@@ -29,12 +34,14 @@ from time import perf_counter
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
-from svecalign_tpu_torch.ops.topk import FlatIndex, normalize_l2
+from svecalign_tpu_torch.ops.topk import FlatIndex, normalize_l2, normalize_rows_device
 from svecalign_tpu_torch.postprocess.prep_index import (
     load_embed_from_entries,
     parse_embed_tsv_entries,
 )
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.file_utils import read_alignments, read_metadata
 from svecalign_tpu_torch.utils.index_utils import load_index
 from svecalign_tpu_torch.utils.log_utils import logging, my_tqdm
@@ -159,6 +166,28 @@ def compute_margin(
     raise ValueError(f"Wrong margin type: {margin}")
 
 
+def compute_margin_device(idx_x, idx_y, qx: torch.Tensor, qy: torch.Tensor, n: int, k: int,
+                          margin: str) -> np.ndarray:
+    """Fused-pipeline margins: ``qx``/``qy`` are (n_padded, dim) fp16 rows
+    on the card, straight from the embed cache's gather. Normalization,
+    both kNN searches and the margin formula run there; only the first
+    ``n`` fp32 margins come back. Equals :func:`compute_margin` up to the
+    fp32 summation order."""
+    if margin not in ("ratio", "distance"):
+        raise ValueError(f"Wrong margin type: {margin}")
+    qx = normalize_rows_device(qx)
+    qy = normalize_rows_device(qy)
+    # Flat leaves its results on the card; IVF returns them on the host
+    l2_xy = torch.as_tensor(idx_y.search_device_queries(qx, k)[0], device=qx.device)
+    l2_yx = torch.as_tensor(idx_x.search_device_queries(qy, k)[0], device=qx.device)
+    avg_xy = (2.0 - l2_xy.mean(dim=1)) / 2.0
+    avg_yx = (2.0 - l2_yx.mean(dim=1)) / 2.0
+    a = torch.sum(qx * qy, dim=1)
+    b = (avg_xy + avg_yx) / 2.0
+    m = a / b if margin == "ratio" else a - b
+    return m[:n].cpu().numpy().astype(np.float32)
+
+
 def main(argv=None):
     args = parse_args(argv)
     logger.info(args)
@@ -221,20 +250,44 @@ def main(argv=None):
             "lower --k to at most the corpus size"
         )
 
+    # fused pipeline: when the embed stages left the rows on the card and
+    # the indexes take device queries, each chunk is resolved by one gather
+    # a side, with no query upload
+    use_device = (
+        embed_cache.enabled
+        and hasattr(src_index, "search_device_queries")
+        and hasattr(tgt_index, "search_device_queries")
+        and min(src_index.ntotal, tgt_index.ntotal) >= args.k
+    )
+    if use_device:
+        logger.info("Fused mode: resolving queries from the device embed cache")
+
     margin_scores = []
     phase_seconds["query_load"] = phase_seconds["search"] = 0.0
     buf_src_e, buf_tgt_e = [], []
 
-    def flush():
-        nonlocal buf_src_e, buf_tgt_e
-        if not buf_src_e:
-            return
+    def flush_device(src_entries, tgt_entries) -> bool:
+        t0 = perf_counter()
+        gs = embed_cache.gather_rows_device(src_entries)
+        gt = embed_cache.gather_rows_device(tgt_entries)
+        if gs is None or gt is None:
+            return False
+        if gs[1] != gt[1]:
+            raise ValueError(f"unpaired rows: {gs[1]} src, {gt[1]} tgt")
+        t1 = perf_counter()
+        margin_scores.append(compute_margin_device(src_index, tgt_index, gs[0], gt[0], gs[1],
+                                                   args.k, args.margin))
+        phase_seconds["query_load"] += t1 - t0
+        phase_seconds["search"] += perf_counter() - t1
+        return True
+
+    def flush_host(src_entries, tgt_entries) -> None:
         t0 = perf_counter()
         src = load_embed_from_entries(
-            buf_src_e, fp16_embed=args.embed_fp16, use_stopes=args.embed_stopes
+            src_entries, fp16_embed=args.embed_fp16, use_stopes=args.embed_stopes
         )
         tgt = load_embed_from_entries(
-            buf_tgt_e, fp16_embed=args.embed_fp16, use_stopes=args.embed_stopes
+            tgt_entries, fp16_embed=args.embed_fp16, use_stopes=args.embed_stopes
         )
         t1 = perf_counter()
         margin_scores.append(
@@ -242,6 +295,13 @@ def main(argv=None):
         )
         phase_seconds["query_load"] += t1 - t0
         phase_seconds["search"] += perf_counter() - t1
+
+    def flush():
+        nonlocal buf_src_e, buf_tgt_e
+        if not buf_src_e:
+            return
+        if not (use_device and flush_device(buf_src_e, buf_tgt_e)):
+            flush_host(buf_src_e, buf_tgt_e)
         buf_src_e, buf_tgt_e = [], []
 
     for align_id in my_tqdm(metas):

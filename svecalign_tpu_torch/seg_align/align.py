@@ -8,7 +8,10 @@ lines to ``OUT/{src}-{tgt}/{srcstem}-{tgtstem}.txt``. With ``--pair_batch
 P`` (P > 1) the pairs are sorted by size and aligned P at a time by the
 batched pyramid (``vecalign/batch.py``): each bucket uploads its raw fp16
 (or int8 / int4) embedding rows once and gathers the overlap tensors on
-the device.
+the device. In a fused pipeline run (``utils/embed_cache.py`` enabled) the
+pairs whose rows the embed stage left on the card skip the ``.embed``
+read and the upload (``vecalign/batch.py::stage_rows_device``); the
+batched driver then runs even at ``--pair_batch 1``, as in JAX.
 
 CLI: ``python -m svecalign_tpu_torch.seg_align.align METADATA OUT_DIR
 --src_lang S --tgt_lang T --seg_dir D --concat_dir C --embed_dir E
@@ -34,6 +37,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.file_utils import check_exist, read_metadata
 from svecalign_tpu_torch.utils.log_utils import logging, my_tqdm
 from svecalign_tpu_torch.utils.torch_setup import DEVICES, resolve_device
@@ -109,10 +113,7 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Exit with an error naming the ROADMAP item for every flag whose path
-    this package does not have yet; nothing is quietly ignored. (The JAX
-    CLI's fused embed-cache handoff is reached only through
-    ``pipeline --fused``, which is not ported: ROADMAP.md Queue 1 items 11
-    and 19.)"""
+    this package does not have yet; nothing is quietly ignored."""
     unported = []
     if args.data_parallel != 1:
         unported.append(f"--data_parallel {args.data_parallel}: {_MULTI_GPU}")
@@ -215,8 +216,9 @@ def _profile_trace(profile_dir: Optional[str], device):
 def main(argv=None):
     """Run the stage on ``argv`` (default: the command line). Returns each
     aligned pair's phase wall times (the pyramid's ``runtimes``) or, with
-    ``--pair_batch`` > 1, the batched path's phase wall times (one dict:
-    load, stage, pyramid, write, buckets)."""
+    ``--pair_batch`` > 1 or the fused handoff on, the batched path's phase
+    wall times (one dict: load, stage, pyramid, write, buckets, and fused:
+    the pairs staged from the device)."""
     args = parse_args(argv)
     logger.info(args)
     check_ported(args)
@@ -244,7 +246,15 @@ def main(argv=None):
         ign_indices_dir,
     )
     with _profile_trace(args.profile_dir, device):
-        if args.pair_batch > 1:
+        # the fused handoff lives in the batched driver, so use it (even at
+        # batch 1) whenever the embed stage may have left rows on the card
+        if args.pair_batch > 1 or embed_cache.enabled:
+            if args.pair_batch <= 1:
+                logger.info(
+                    "fused handoff: using the batched aligner driver even at "
+                    "pair_batch 1 (its seeded sampling differs slightly from "
+                    "the per-pair path)"
+                )
             if args.dp_backend == "native":
                 logger.warning(
                     "--dp_backend native is ignored with --pair_batch > 1: "
@@ -256,8 +266,16 @@ def main(argv=None):
 
 def _run_pairs_batched(args, valid_pairs):
     """Batched path: bucket pairs by size and run the batched pyramid."""
-    from svecalign_tpu_torch.utils.embedding_utils import make_doc_ids, read_in_embeddings
-    from svecalign_tpu_torch.vecalign.batch import run_staged, stage_rows_upload
+    from svecalign_tpu_torch.utils.embedding_utils import (
+        make_doc_ids,
+        read_in_embeddings,
+        read_sent2id,
+    )
+    from svecalign_tpu_torch.vecalign.batch import (
+        run_staged,
+        stage_rows_device,
+        stage_rows_upload,
+    )
     from svecalign_tpu_torch.vecalign.vecalign import (
         load_ignore_index_file,
         make_alignment_types,
@@ -273,24 +291,34 @@ def _run_pairs_batched(args, valid_pairs):
     prof = {"load": 0.0, "stage": 0.0, "pyramid": 0.0, "write": 0.0}
     t_phase = time.perf_counter()
 
-    loaded = []
+    loaded = []        # file-backed pairs: fp16 rows uploaded per bucket
+    fused_loaded = []  # fused-pipeline pairs: rows already on the device
     for pair in valid_pairs:
         seg_lines = []
         for p in pair.segs:
             with open(p, encoding="utf-8") as fp:
                 seg_lines.append(fp.readlines())
-        sent2id, embs = [], []
-        for concat_p, embed_p in zip(pair.concats, pair.embeds):
-            s2i, emb = read_in_embeddings(
-                concat_p, embed_p, args.is_stopes_embed, args.fp16_embed,
-            )
-            sent2id.append(s2i)
-            embs.append(emb.astype(np.float16))
+        cached = [embed_cache.get(p) for p in pair.embeds]
+        if all(c is not None for c in cached):
+            # the embed stage left the rows on the card: no file read, no upload
+            sent2id = [read_sent2id(p) for p in pair.concats]
+            n_rows = [c[0] for c in cached]
+            embs = [c[1] for c in cached]
+        else:
+            cached = None
+            sent2id, embs = [], []
+            for concat_p, embed_p in zip(pair.concats, pair.embeds):
+                s2i, emb = read_in_embeddings(
+                    concat_p, embed_p, args.is_stopes_embed, args.fp16_embed,
+                )
+                sent2id.append(s2i)
+                embs.append(emb.astype(np.float16))
+            n_rows = [e.shape[0] for e in embs]
         # raw fp16 rows + index maps: the overlap tensor is gathered on
         # device (uploading it materialized repeats every row ~n_overlaps x)
         ids = [
             make_doc_ids(
-                sent2id[side], embs[side].shape[0], seg_lines[side],
+                sent2id[side], n_rows[side], seg_lines[side],
                 args.alignment_max_size - 1,
                 ignore_indices=load_ignore_index_file(pair.ignores[side])
                 if pair.ignores[side] else None,
@@ -298,7 +326,8 @@ def _run_pairs_batched(args, valid_pairs):
             )
             for side in (0, 1)
         ]
-        loaded.append((pair, embs[0], ids[0], embs[1], ids[1]))
+        item = (pair, embs[0], ids[0], embs[1], ids[1])
+        (fused_loaded if cached is not None else loaded).append(item)
     prof["load"] = time.perf_counter() - t_phase
 
     kwargs = dict(
@@ -312,22 +341,46 @@ def _run_pairs_batched(args, valid_pairs):
         dp_backend=args.dp_backend if args.dp_backend != "native" else "auto",
     )
 
-    # bucket by size so padding stays modest
-    loaded.sort(key=lambda it: it[2].shape[1] + it[4].shape[1])
-    buckets = [
-        loaded[s0: s0 + args.pair_batch] for s0 in range(0, len(loaded), args.pair_batch)
-    ]
+    if fused_loaded:
+        logger.info(
+            f"fused pipeline: {len(fused_loaded)}/{len(fused_loaded) + len(loaded)} "
+            "pairs use device-resident embeddings (no re-upload)"
+        )
+    if embed_cache.enabled and loaded:
+        # in a fused run every pair should be cached: a fallback means the
+        # document exceeded the row cap, the byte cap rejected it, or a
+        # resumed run skipped the embed stage
+        names = ", ".join(Path(p.embeds[0]).stem for p, *_ in loaded[:5])
+        logger.warning(
+            f"fused handoff MISSED {len(loaded)} pair(s) -- falling back to "
+            f"the file+upload path for: {names}"
+            + (" ..." if len(loaded) > 5 else "")
+            + f" (cache stats: {embed_cache.stats})"
+        )
 
-    def stage(bucket):
+    def stage_upload(bucket):
         return stage_rows_upload(
             [(e0, i0, e1, i1) for _, e0, i0, e1, i1 in bucket],
             quantize=args.upload_quant, device=args.device,
         )
 
+    def stage_device(bucket):
+        return stage_rows_device([(e0, i0, e1, i1) for _, e0, i0, e1, i1 in bucket])
+
+    # bucket by size so padding stays modest; fused pairs form their own
+    # buckets. The JAX CLI pads a device-staged tail bucket up to the full
+    # pair_batch (a compile rule); here a tail keeps its size, so fused and
+    # unfused runs of one corpus form the same buckets.
+    buckets = []
+    for items, stage in ((loaded, stage_upload), (fused_loaded, stage_device)):
+        items.sort(key=lambda it: it[2].shape[1] + it[4].shape[1])
+        buckets += [(items[s0: s0 + args.pair_batch], stage)
+                    for s0 in range(0, len(items), args.pair_batch)]
+
     # bucket i + 1 is staged after bucket i's pyramid, on the same thread:
     # the stage time is logged so that overlapping the two can be judged
     for bi in my_tqdm(range(len(buckets))):
-        bucket = buckets[bi]
+        bucket, stage = buckets[bi]
         t0 = time.perf_counter()
         handle = stage(bucket)
         if handle[0].is_cuda:
@@ -351,6 +404,7 @@ def _run_pairs_batched(args, valid_pairs):
                 f"write={t3 - t2:.3f}s"
             )
     prof["buckets"] = len(buckets)
+    prof["fused"] = len(fused_loaded)
     if profile:
         logger.info(
             "align profile: load=%.3fs stage=%.3fs pyramid=%.3fs "

@@ -6,7 +6,9 @@ concat-segment windows, embed them in bucketed batches on the card, write
 stopes ``.npy`` for SpeechLASER (the default), headerless raw rows for
 SONAR. Sharding (``--rank/--n_shard`` over the sorted inputs),
 skip-existing and the atomic rename (``{stem}.tmp.embed`` -> ``{stem}.embed``)
-behave as in JAX.
+behave as in JAX. While the fused handoff is on (``pipeline --fused``,
+``utils/embed_cache.py``) each file's fp16 rows also stay on the card,
+keyed by the final ``.embed`` path, for stages 5.4, 6.6 and 6.7.
 
 CLI: ``python -m svecalign_tpu_torch.seg_align.embed METADATA OUT_DIR
 --concat_dir C --lang L [--use_tgt] [--rank/--n_shard]
@@ -117,6 +119,8 @@ def main(argv=None):
         embed_segments_to_file(
             embed_model, args.embed_model_type, audio_file, all_segments,
             str(tmp_out_path), fp16=not args.embed_fp32,
+            # fused pipeline: keep the rows on the device under the FINAL path
+            cache_key=str(embed_out_path),
             window_assembly=args.window_assembly, waveform=waveform,
         )
         tmp_out_path.replace(embed_out_path)

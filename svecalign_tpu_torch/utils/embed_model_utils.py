@@ -18,6 +18,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.audio_utils import SAMPLE_RATE, load_waveform
 from svecalign_tpu_torch.utils.embedding_utils import write_np_embeddings, write_stopes_embedding
 from svecalign_tpu_torch.utils.log_utils import logging
@@ -146,6 +147,7 @@ def embed_segments_to_file(
     segments: List[Tuple[int, int]],
     out_path: str,
     fp16: bool = True,
+    cache_key: str = None,
     window_assembly: str = "device",
     waveform: np.ndarray = None,
 ) -> np.ndarray:
@@ -153,17 +155,32 @@ def embed_segments_to_file(
     per segment, fp16 (``fp16``) or fp32: a stopes ``.npy`` for
     SpeechLASER, headerless raw rows for SONAR.
 
+    ``cache_key``: while the fused handoff is on (``utils/embed_cache.py``),
+    also keep the fp16 rows on the device under this key, normally the
+    FINAL .embed path (``out_path`` is the tmp file). Only fp16 files are
+    cached, so that the cached rows equal the file's.
+
     ``window_assembly="device"``: upload the waveform once and gather the
     overlap windows on the device (``encode_spans``); "host" slices and
     stages the windows on the host (``encode``). ``waveform``: the audio,
     when the caller has read it already.
     """
+    fused = (
+        embed_cache.enabled
+        and cache_key is not None
+        and fp16
+        and getattr(embed_model, "supports_keep_device", False)
+    )
     if window_assembly == "device" and getattr(embed_model, "supports_spans", False):
         if waveform is None:
             waveform = load_waveform(wave_path, sr=SAMPLE_RATE)
-        emb = embed_model.encode_spans(waveform, segments, fp16_pull=fp16)
+        emb = embed_model.encode_spans(waveform, segments, keep_device=fused, fp16_pull=fp16)
     else:
-        emb = embed_model.encode(slice_segments(wave_path, segments), fp16_pull=fp16)
+        emb = embed_model.encode(slice_segments(wave_path, segments), keep_device=fused,
+                                 fp16_pull=fp16)
+    if fused:
+        emb, dev = emb
+        embed_cache.put(cache_key, emb.shape[0], dev)
     if embed_model_type == "speech_laser":
         write_stopes_embedding(emb, out_path, fp16=fp16)
     else:

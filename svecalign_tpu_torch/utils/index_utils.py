@@ -20,6 +20,7 @@ from typing import Union
 import numpy as np
 
 from svecalign_tpu_torch.ops.topk import FlatIndex, IVFIndex
+from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.log_utils import logging
 
 logger = logging.getLogger(__name__)
@@ -224,8 +225,14 @@ def load_index(
     path: Union[str, Path], index_type: str = "Flat", nprobe: int = 128, device="cuda"
 ) -> Union[FlatIndex, IVFIndex]:
     """Load a populated index file onto ``device``, auto-detecting the
-    container. (The JAX package's registry of live indexes for its fused
-    pipeline, ``utils/embed_cache.py``, waits on ROADMAP item 11.)"""
+    container. In a fused pipeline run the live index that prep_index just
+    built (its corpus possibly gathered on the card) is returned instead
+    of reading the file again (``utils/embed_cache.py``'s registry)."""
+    registered = embed_cache.get_index(path)
+    if registered is not None:
+        if hasattr(registered, "nprobe"):
+            registered.nprobe = nprobe
+        return registered
     path = str(path)
     with open(path, "rb") as fp:
         head = fp.read(4)

@@ -34,8 +34,11 @@ on the host — so a bucket of same-sized pairs is sample-identical to
 per-pair runs, and to the JAX package's paired mode. Costs one extra host
 pull per depth.
 
-Single device. The fused handoff (``stage_rows_device``) and the multi-GPU
-mesh are not ported: they raise naming their ROADMAP items.
+Staging: :func:`stage_rows_upload` uploads a bucket's rows from the host;
+:func:`stage_rows_device` gathers them from rows the embed stage left on
+the device (the fused pipeline, ``utils/embed_cache.py``), uploading only
+the id maps. Single device: the multi-GPU mesh is not ported and raises
+naming its ROADMAP item.
 """
 
 import math
@@ -69,7 +72,6 @@ logger = logging.getLogger("vecalign.batch")
 
 Alignment = Tuple[List[int], List[int]]
 
-_FUSED = "ROADMAP.md Queue 1 item 11 (the device-resident embed cache, utils/embed_cache.py)"
 _MULTI_GPU = "ROADMAP.md Queue 1 item 20 (multi-GPU, parallel/mesh.py)"
 
 # the gate lives with the walks (ops.dp); re-exported for callers
@@ -372,6 +374,21 @@ def _build_doc_tensors_q4(packed: torch.Tensor, scale: torch.Tensor, ids: torch.
     return _gather_overlaps(q.float() * scale[:, :, None], ids)
 
 
+def _build_doc_tensors_flat(bank: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """(R, d) fp16 document bank + (P, n_overlaps, n) bank row ids (-1 =
+    zero row) -> (P, n_overlaps, n, d) fp32 normalized overlap tensors.
+
+    Gather first: rows are picked in fp16 and only the gathered block is
+    cast to fp32 (the JAX package's fp32 cast of whole per-pair stacks was
+    its out-of-memory at ``--pair_batch 128``). NaN rows zero after the
+    gather, so the result equals :func:`_build_doc_tensors` on the same
+    rows bit for bit."""
+    g = bank[gids.clamp(min=0).long()].float()
+    g = torch.where(torch.isnan(g).any(dim=-1, keepdim=True), 0.0, g)
+    vecs = torch.where((gids >= 0)[:, :, :, None], g, 0.0)
+    return costs_ops.make_norm1(vecs)
+
+
 def _build_doc_tensors(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(P, rows, d) raw embeddings + (P, n_overlaps, n) row ids (-1 = zero)
     -> (P, n_overlaps, n, d) fp32 normalized overlap tensors, on device.
@@ -522,13 +539,50 @@ def stage_rows_upload(
 
 
 def stage_rows_device(pairs, sharding=None):
-    """The fused pipeline's staging (rows left on the device by the embed
-    stage). Not ported: it needs the embed cache."""
-    raise NotImplementedError(f"not ported yet: {_FUSED}")
+    """The fused pipeline's staging: each pair is (rows0, ids0, rows1,
+    ids1), where the rows are the (embed_cache.max_rows, d) fp16 tensors
+    the embed stage left on the device (``utils/embed_cache.py``). Only
+    the id maps are uploaded; ``upload_stats`` counts them alone.
+
+    The pairs' documents are deduplicated (by identity) into one fp16 bank,
+    so a document in several pairs is stored once; the id maps are rebased
+    to bank rows and the overlap tensors gathered from the bank in fp16
+    (:func:`_build_doc_tensors_flat`). The JAX package pads the bank's
+    document count to a power of two, an XLA shape rule; here the bank
+    holds the distinct documents only. ``sharding`` (a pair-axis mesh) is
+    not ported and raises."""
+    if sharding is not None:
+        raise NotImplementedError(f"not ported yet: {_MULTI_GPU}")
+    ids0, ids1, sizes0, sizes1 = _pad_id_maps(pairs)
+
+    slot_of, unique = {}, []
+    for p in pairs:
+        for rows in (p[0], p[2]):
+            if id(rows) not in slot_of:
+                slot_of[id(rows)] = len(unique)
+                unique.append(rows)
+    first = unique[0]
+    if any((u.shape, u.dtype, u.device) != (first.shape, first.dtype, first.device)
+           for u in unique):
+        raise ValueError("the cached rows must share one (max_rows, dim) shape, dtype "
+                         "and device")
+    rows = first.shape[0]
+    bank = torch.cat(unique) if len(unique) > 1 else first
+
+    slot0 = np.array([slot_of[id(p[0])] for p in pairs], np.int32)
+    slot1 = np.array([slot_of[id(p[2])] for p in pairs], np.int32)
+    gids0 = np.where(ids0 >= 0, ids0 + slot0[:, None, None] * rows, -1).astype(np.int32)
+    gids1 = np.where(ids1 >= 0, ids1 + slot1[:, None, None] * rows, -1).astype(np.int32)
+    v0 = _build_doc_tensors_flat(bank, torch.from_numpy(gids0).to(bank.device))
+    v1 = _build_doc_tensors_flat(bank, torch.from_numpy(gids1).to(bank.device))
+    upload_stats["bytes"] += gids0.nbytes + gids1.nbytes
+    upload_stats["buckets"] += 1
+    return (v0, v1, sizes0, sizes1)
 
 
 def run_staged(handle, **kwargs) -> List[Tuple[List[Alignment], np.ndarray]]:
-    """Run the batched pyramid on a bucket staged by stage_rows_upload."""
+    """Run the batched pyramid on a bucket staged by stage_rows_upload or
+    stage_rows_device."""
     v0, v1, sizes0, sizes1 = handle
     return _vecalign_batched_core(v0, v1, sizes0, sizes1, **kwargs)
 

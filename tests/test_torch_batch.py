@@ -388,8 +388,10 @@ def test_upload_byte_accounting(monkeypatch):
 
 
 def test_unported_staging_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        tbatch.stage_rows_device([])
+    emb = torch.zeros((8, 4), dtype=torch.float16)
+    ids = np.zeros((3, 2), np.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
+        tbatch.stage_rows_device([(emb, ids, emb, ids)], sharding=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
         tbatch._pair_mesh(torch.zeros(1))
 

@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s stage-5.3 LASER phase and post-align chain
-(5.1 -> 5.3 -> 5.2 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5 -> 6.6 ... 6.10)
-rehearsed on the CPU: the same phase functions at a tiny width on a 2-minute document, so that their control flow,
+(5.1 -> 5.3 -> 5.2 -> 5.4 -> 6.1 -> 6.3 -> 6.4 -> 6.5 -> 6.6 ... 6.10),
+and its pipeline phase (11), rehearsed on the CPU: the same phase
+functions at a tiny width on a 2-minute document (the pipeline: two pairs
+of 40 s a side, documents of 60 s), so that their control flow,
 file layout and checks run before the card sees them. The encoders are
 2-layer, 128-wide (LASER keeps the full conv geometry: 400-sample frames
 every 320); the rel-key "kernel" is its plain version, counted as a
@@ -92,3 +94,29 @@ def test_laser_row_flops_at_full_width():
     np.testing.assert_allclose(per_s["extractor"], 4.9, rtol=0.03)
     np.testing.assert_allclose(per_s["attention"], 2.0, rtol=0.03)
     np.testing.assert_allclose(per_s["projection + positional conv"], 0.89, rtol=0.03)
+
+
+def test_pipeline_phase_rehearsal(tiny_card, tmp_path, capsys, monkeypatch):
+    """Phase 11 end to end on the CPU: both LASER runs, the tree
+    comparison, the cache stats and upload bytes, stage 5.4 in a process of
+    its own, the mined-duplicate gate and the SONAR run's launch count."""
+    monkeypatch.setattr(cs, "DOC_SECONDS", 60)
+    # chunks of 40 s of samples, not the pipeline's 600 s: on 40 s documents
+    # those would be nearly all padding rows
+    tiny = temu._build_embed_model
+
+    def capped(*args, **kwargs):
+        p = inspect.signature(temu.load_embed_model).bind(*args, **kwargs)
+        p.apply_defaults()
+        p.arguments["max_tokens"] = min(p.arguments["max_tokens"], 40 * 16000)
+        return tiny(**p.arguments)
+
+    monkeypatch.setattr(temu, "_build_embed_model", capped)
+    res = cs.phase_pipeline(tmp_path, torch.device("cpu"), seconds=40, n_planted=2)
+    out = capsys.readouterr().out
+    assert "[pipeline] fused against unfused:" in out and "'miss': 0" in out
+    assert "(the id maps alone)" in out and "files identical" in out
+    assert "[time] stage 5.4 in the fused pipeline:" in out and "2 pairs from the cache" in out
+    assert "no row pairs a planted copy with its source" in out
+    assert out.count("[pipeline] device memory,") == 3
+    assert res["sonar"] > 0 and len(res["plan"]) == 1

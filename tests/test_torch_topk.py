@@ -210,8 +210,8 @@ def test_cuda_without_card_raises(monkeypatch):
             make()
     with pytest.raises(NotImplementedError, match="item 20"):
         ttopk.ShardedFlatIndex(np.zeros((4, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttopk.FlatIndex(dim=8, device=CPU).set_device_corpus(None, 0)
+    with pytest.raises(ValueError, match="multiple of"):
+        ttopk.FlatIndex(dim=8, device=CPU).set_device_corpus(torch.zeros((3, 8)), 0)
 
 
 # --- IVF -------------------------------------------------------------------------
