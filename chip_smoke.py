@@ -76,7 +76,18 @@ Phases, in order; any failure exits non-zero:
    of its own, its kernels launched once a bucket and level and the plain
    DP never, no untranslated duplicate mined, device memory back where it
    was; then SONAR ``--fused`` on phase 7's documents (the rel-key kernel
-   24 times a chunk, the plain attention never).
+   24 times a chunk, the plain attention never);
+12. several cards in one process (``parallel/mesh.py``), each sharded
+   path against the same path on one device: phase 2's kernel checks on
+   every card of the mesh; stage 5.4's 16 pairs at ``--pair_batch 8``
+   over the mesh, bit-equal in paired and in shared mode, the kernels
+   launched on every shard; full-width LASER and SONAR data-parallel on
+   the 10-minute document (rows at cosine >= 0.999, the rel-key kernel on
+   every shard); the sharded Flat search over the mining corpus, the
+   sharded IVF and int8 tiers and ``score_align --sharded_index``; and,
+   with two or more cards, the pipeline with ``--data_parallel 0
+   --sharded_index --fused`` against one card. On one card the mesh is
+   two shards of it, and the pipeline bullet is skipped.
 
 Phase 7 begins with the windows of both documents written by the
 stage-5.1 CLI, the stage-4.2 CLI's flags and stage 5.2, runs stage 6.2
@@ -87,7 +98,7 @@ pipeline-settings traffic.
 alone: no SONAR model is built) and prints their ``[time]`` lines;
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
 ``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
-phases 1, 2 and 11; ``--profile``
+phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12; ``--profile``
 profiles one warm stage-5.3 run with each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
@@ -2396,21 +2407,19 @@ def write_mining_corpus(root, n_pairs, n_rows, dim, seed):
     the same scale (the planted pairs). Returns the per-pair row counts."""
     from svecalign_tpu_torch.utils.embedding_utils import write_stopes_embedding
 
-    rng = np.random.default_rng(seed)
     root = Path(root)
-    sizes = [n_rows // n_pairs + (p < n_rows % n_pairs) for p in range(n_pairs)]
     embed_dir = root / "embeds" / f"{SRC_LANG}-{TGT_LANG}"
     align_dir = root / "aligns" / f"{SRC_LANG}-{TGT_LANG}"
     embed_dir.mkdir(parents=True, exist_ok=True)
     align_dir.mkdir(parents=True, exist_ok=True)
-    meta = []
-    for p, n in enumerate(sizes):
+    meta, sizes = [], []
+    for p, sides in enumerate(mining_pair_rows(n_pairs, n_rows, dim, seed)):
+        n = len(sides["src"])
+        sizes.append(n)
         src, tgt = f"MINE-{p:03d}_{SRC_LANG}", f"MINE-{p:03d}_{TGT_LANG}"
         pid = f"{src}-{tgt}"
         meta.append(f"/audio/{SRC_LANG}/{src}.wav\t/audio/{TGT_LANG}/{tgt}.wav\n")
-        latent = rng.standard_normal((n, dim), dtype=np.float32)
-        for side in ("src", "tgt"):
-            rows = latent + PLANTED_NOISE * rng.standard_normal((n, dim), dtype=np.float32)
+        for side, rows in sides.items():
             path = embed_dir / f"{pid}.{side}.embed"
             write_stopes_embedding(rows, str(path), fp16=True)
             (embed_dir / f"{pid}.{side}.tsv").write_text(
@@ -2418,6 +2427,17 @@ def write_mining_corpus(root, n_pairs, n_rows, dim, seed):
         (align_dir / f"{pid}.txt").write_text("".join(f"[{i}]:[{i}]\n" for i in range(n)))
     (root / "metadata.tsv").write_text("".join(meta))
     return sizes
+
+
+def mining_pair_rows(n_pairs, n_rows, dim, seed):
+    """The rows of :func:`write_mining_corpus`, pair by pair, as fp32
+    ``{"src": rows, "tgt": rows}`` before the fp16 file write."""
+    rng = np.random.default_rng(seed)
+    for p in range(n_pairs):
+        n = n_rows // n_pairs + (p < n_rows % n_pairs)
+        latent = rng.standard_normal((n, dim), dtype=np.float32)
+        yield {side: latent + PLANTED_NOISE * rng.standard_normal((n, dim), dtype=np.float32)
+               for side in ("src", "tgt")}
 
 
 def _mining_rows(root, side, sizes):
@@ -2439,9 +2459,10 @@ def _run_prep_index(root, out, dev, extra=()):
     return time.perf_counter() - t0
 
 
-def _run_score_align(root, index, out, dev, extra=()):
-    """Stage 6.7 through its CLI; returns (wall, margins in metadata order
-    as np.float32, alignment columns)."""
+def _run_score_align(root, index, out, dev, extra=(), mesh=None):
+    """Stage 6.7 through its CLI (``mesh``: the devices of
+    ``--sharded_index``); returns (wall, margins in metadata order as
+    np.float32, alignment columns)."""
     from svecalign_tpu_torch.postprocess import score_align
 
     t0 = time.perf_counter()
@@ -2449,8 +2470,13 @@ def _run_score_align(root, index, out, dev, extra=()):
                       str(root / "embeds"), "--align_dir", str(root / "aligns"), "--src_lang",
                       SRC_LANG, "--tgt_lang", TGT_LANG, "--index_dir", str(root / index),
                       "--embed_fp16", "--embed_stopes", "--k", str(MINING_K), *extra,
-                      "--device", dev])
-    wall = time.perf_counter() - t0
+                      "--device", dev], mesh=mesh)
+    return (time.perf_counter() - t0, *_read_margins(root, out))
+
+
+def _read_margins(root, out):
+    """(margins in metadata order as np.float32, alignment columns) of a
+    stage-6.7 output ``root / out``."""
     d = root / out / f"{SRC_LANG}-{TGT_LANG}"
     cols, margins = [], []
     for line in (root / "metadata.tsv").read_text().splitlines():
@@ -2459,7 +2485,7 @@ def _run_score_align(root, index, out, dev, extra=()):
             head, margin = row.rsplit(":", 1)
             cols.append(head)
             margins.append(margin)
-    return wall, np.asarray(margins, dtype=np.float32), cols
+    return np.asarray(margins, dtype=np.float32), cols
 
 
 def _float64_margins(device, x, y, rows, k, chunk=1024):
@@ -3441,6 +3467,502 @@ def _check_memory(label, run):
                              f"the weights it loaded (slack {MEMORY_SLACK >> 20} MiB)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: several cards in one process (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+MULTI_ONE_CARD_SHARDS = 2  # shards of the mesh on a machine of one card
+MULTI_MIN_COSINE = 0.999  # data-parallel rows against one device's (bf16 drifts with batch shape)
+MULTI_SEARCH_TOL = (1e-4, 1e-5)  # rtol, atol: sharded kNN distances against one device's
+MULTI_HOST_DIRS = ("segments", "untrans_segs", "cat_segs", "untrans_cat_seg_ids")
+MULTI_PIPE_STAGES = "segment,untrans_segs,concat_segs,untrans_concats,embed"
+PIPE_MAX_TOKENS = 600 * 16000  # the pipeline's --embed_max_tokens
+
+
+def multi_mesh(device):
+    """The mesh of phase 12: every card when there are two or more, else
+    ``MULTI_ONE_CARD_SHARDS`` shards on the one device. Returns (mesh,
+    whether the shards share a device)."""
+    import torch
+
+    from svecalign_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        return make_mesh(device="cuda"), False
+    first = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" \
+        else torch.device("cpu")
+    return Mesh([first] * MULTI_ONE_CARD_SHARDS), True
+
+
+def _multi_kernel_checks(mesh):
+    """Phase 2's checks on every card of the mesh that phase 2 did not run
+    on (the current device). Returns {device: (banded, dense, attention)
+    max abs errors}."""
+    import torch
+
+    errs = {}
+    for d in dict.fromkeys(mesh.data_devices):
+        if d.type != "cuda" or d.index == torch.cuda.current_device():
+            continue
+        t0 = time.perf_counter()
+        with torch.cuda.device(d):
+            errs[str(d)] = (phase_kernel_checks(d), phase_dense_checks(d),
+                            phase_attention_checks(d))
+        _log(f"[multi] kernel checks on {d}: every kernel equal to its plain version (max abs "
+             f"errors {errs[str(d)]}) in {time.perf_counter() - t0:.1f}s")
+    return errs
+
+
+def load_bucket_pairs(paths, stems, overlaps=5):
+    """(stem, rows0, ids0, rows1, ids1) of each pair written by
+    :func:`write_synthetic_corpus`, loaded as the batched stage-5.4 CLI
+    loads them (fp16 rows, overlap id maps) and sorted as it buckets them."""
+    from svecalign_tpu_torch.utils.embedding_utils import make_doc_ids, read_in_embeddings
+
+    root, out = paths["root"], []
+    for stem in stems:
+        item = [stem]
+        for lang in (SRC_LANG, TGT_LANG):
+            name = f"{stem}_{lang}"
+            sent2id, rows = read_in_embeddings(
+                str(root / "cat_segs" / lang / f"{name}.txt"),
+                str(root / "embeds" / lang / f"{name}.embed"), use_stopes=True)
+            lines = (root / "segments" / lang / f"{name}.txt").read_text().splitlines(True)
+            item += [rows.astype(np.float16),
+                     make_doc_ids(sent2id, rows.shape[0], lines, overlaps, overlap_segments=True)]
+        out.append(tuple(item))
+    out.sort(key=lambda it: it[2].shape[1] + it[4].shape[1])
+    return out
+
+
+def _align_kwargs_cli(alignment_max_size=6, **over):
+    """The batched CLI's pyramid arguments at its defaults (``over``
+    replaces some)."""
+    import math
+
+    from svecalign_tpu_torch.vecalign.vecalign import make_alignment_types
+
+    kw = dict(final_alignment_types=make_alignment_types(alignment_max_size),
+              del_percentile_frac=0.2, width_over2=math.ceil((alignment_max_size - 1) / 2) + 5,
+              max_size_full_dp=300, costs_sample_size=20000, num_samps_for_norm=100, seed=42)
+    kw.update(over)
+    return kw
+
+
+def _multi_align(workdir, device, mesh, sizes, dim, kw, pair_batch=PAIR_BATCH, corpus=None):
+    """Stage 5.4's buckets staged over the mesh against the same buckets
+    on one device, in paired and in shared mode: every alignment and cost
+    bit-equal, and on the card each shard launching the dense DP and walk
+    once a bucket and the banded DP and walk once a banded level. Then the
+    warm walls per pair, one device and the mesh in turns. ``corpus``:
+    (paths, stems) of pairs of ``sizes`` already written (else they are
+    written here)."""
+    from svecalign_tpu_torch.ops import _build
+    from svecalign_tpu_torch.parallel import mesh as mesh_mod
+    from svecalign_tpu_torch.vecalign import batch
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    paths, stems = corpus or write_synthetic_corpus(workdir / "corpus", sizes, dim=dim)[:2]
+    pairs = load_bucket_pairs(paths, stems)
+    buckets = [pairs[k:k + pair_batch] for k in range(0, len(pairs), pair_batch)]
+    _log(f"[multi] stage 5.4: {len(pairs)} pairs written and loaded in "
+         f"{time.perf_counter() - t0:.1f}s; buckets of {[len(b) for b in buckets]} pairs")
+    sharding, n_shards = mesh_mod.batch_sharding(mesh), len(mesh.data_devices)
+    plan = bucket_plan(sizes, pair_batch)
+    n_levels = sum(max(depth, 1) for *_, depth in plan)
+    want = {"dense_dp": len(plan), "dense_traceback_walk": len(plan), "banded_dp": n_levels,
+            "banded_dp_warp": n_levels, "banded_traceback_walk": n_levels}
+
+    def run(sampling, sharded):
+        return [r for b in buckets for r in batch.run_staged(
+            batch.stage_rows_upload([p[1:] for p in b], sharding=sharding) if sharded
+            else batch.stage_rows_upload([p[1:] for p in b], device=device),
+            sampling=sampling, **kw)]
+
+    def hold(what, got, whole):
+        for (stem, *_), (a, c), (wa, wc) in zip(pairs, got, whole):
+            if a != wa or not np.array_equal(c, wc):
+                k = next((j for j, (x, y) in enumerate(zip(a, wa)) if x != y), None)
+                raise AssertionError(
+                    f"{what}, {stem}: the sharded bucket differs from the unsharded one (first "
+                    f"alignment difference at {k}, max cost difference "
+                    f"{np.abs(np.asarray(c) - np.asarray(wc)).max() if len(c) == len(wc) else 'n/a'})")
+
+    for sampling in ("paired", "shared"):
+        whole = run(sampling, False)
+        _reset_launches()
+        _build.SHARD_LAUNCHES.clear()
+        got = run(sampling, True)
+        per_shard = {k: [_build.SHARD_LAUNCHES[(i, k)] for i in range(n_shards)] for k in want}
+        hold(f"{sampling} mode", got, whole)
+        if cuda and any(v != [want[k]] * n_shards for k, v in per_shard.items()):
+            raise AssertionError(f"{sampling} mode: launches per shard {per_shard}, want "
+                                 f"{want} on each of {n_shards} shards")
+        _log(f"[multi] stage 5.4, sampling={sampling!r}: {len(pairs)} pairs over {n_shards} shards "
+             f"bit-equal to the unsharded buckets (alignments and costs); launches per shard "
+             f"{per_shard if cuda else 'none (CPU)'}")
+
+    walls = {"one": [], "mesh": []}
+    for label in ("one", "mesh", "mesh", "one"):
+        t0 = time.perf_counter()
+        got = run("shared", label == "mesh")
+        walls[label].append(time.perf_counter() - t0)
+        hold(f"shared mode, {label}", got, whole)
+    one, multi = (float(np.mean(walls[k])) / len(pairs) for k in ("one", "mesh"))
+    _log(f"[time] multi stage 5.4, {len(pairs)} pairs at --pair_batch {pair_batch}, shared "
+         f"mode, warm, staging included: one device {one:.4f}s a pair, {n_shards} shards "
+         f"{multi:.4f}s a pair ({one / multi:.2f}x); runs "
+         + ", ".join(f"{k} {v:.3f}s" for k, vs in walls.items() for v in vs))
+    return {"one_s": one, "mesh_s": multi}
+
+
+def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
+    """Stage 5.3's encoders on the document of phases 5-7, on one device
+    and data-parallel over the mesh, through the model loader the CLI
+    calls: every row finite, per-row cosine >= MULTI_MIN_COSINE to the
+    one-device rows; SONAR launching the rel-key kernel on every shard for
+    every layer of every chunk and the plain attention never. Then warm
+    walls per minute of audio, in turns; with ``pipeline_chunks``, LASER
+    also at the pipeline's 600 s chunks (``--embed_max_tokens``)."""
+    import copy
+
+    import torch
+
+    from svecalign_tpu_torch.models import w2v_bert
+    from svecalign_tpu_torch.ops import _build
+    from svecalign_tpu_torch.parallel.mesh import Mesh
+    from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.audio_utils import load_waveform
+
+    cuda = device.type == "cuda"
+    paths, lines = write_synthetic_document(workdir / "doc", seconds, seed=0)
+    waveform = load_waveform(str(paths["wav"]), sr=16000)
+    spans = [tuple(map(int, line.split())) for line in lines]
+    n_shards = len(mesh.data_devices)
+    out = {}
+    for kind in kinds:
+        kw = dict(max_tokens=150 * 16000, batch_size=16, upload_precision="int16", device=device)
+        t0 = time.perf_counter()
+        one = embed_model_utils.load_embed_model(kind, mesh=Mesh([mesh.first]), **kw)
+        dp = embed_model_utils.load_embed_model(kind, mesh=mesh, **kw)
+        if dp.data_shards != n_shards or one.data_shards != 1:
+            raise AssertionError(f"{kind}: {dp.data_shards} and {one.data_shards} data shards")
+        _log(f"[multi] {kind}: models on one device and over {n_shards} shards in "
+             f"{time.perf_counter() - t0:.1f}s (weights loaded once, then replicated)")
+
+        def encode(model):
+            t = time.perf_counter()
+            rows = model.encode_spans(waveform, spans, fp16_pull=True)
+            if cuda:
+                for d in dict.fromkeys(mesh.data_devices):
+                    torch.cuda.synchronize(d)
+            return rows, time.perf_counter() - t
+
+        want, first_one = encode(one)
+        _reset_launches()
+        _build.SHARD_LAUNCHES.clear()
+        with _counting((type(dp), "_forward")) as calls:
+            got, first_mesh = encode(dp)
+        got32 = got.astype(np.float32)
+        if got.shape != want.shape or not np.isfinite(got32).all():
+            raise AssertionError(f"{kind}: data-parallel rows {got.shape}, want {want.shape}, "
+                                 "all finite")
+        cos = _row_cosines(got32, want.astype(np.float32))
+        if cos.min() < MULTI_MIN_COSINE:
+            raise AssertionError(f"{kind}: data-parallel rows against one device's: min cosine "
+                                 f"{cos.min():.6f} < {MULTI_MIN_COSINE}")
+        msg = ""
+        if kind == "sonar":
+            chunks = calls["_forward"] // n_shards
+            per_shard = [_build.SHARD_LAUNCHES[(i, "relkey_attention")] for i in range(n_shards)]
+            want_launches = dp.config.n_layers * chunks
+            if cuda and (per_shard != [want_launches] * n_shards
+                         or w2v_bert.ATTENTION_CALLS["torch"]):
+                raise AssertionError(f"SONAR data-parallel: rel-key launches per shard "
+                                     f"{per_shard}, want {want_launches} ({chunks} chunks); "
+                                     f"plain attention calls {w2v_bert.ATTENTION_CALLS}")
+            msg = (f"; {chunks} chunks of {dp.batch_size} rows, rel-key launches per shard "
+                   f"{per_shard if cuda else 'none (CPU)'}, plain attention calls "
+                   f"{w2v_bert.ATTENTION_CALLS['torch'] if cuda else 'all (CPU)'}")
+        _log(f"[multi] {kind} stage 5.3 over {n_shards} shards: {got.shape[0]} rows, all finite, "
+             f"per-row cosine to one device min {cos.min():.6f}{msg}")
+
+        walls = {"mesh": [encode(dp)[1]], "one": [encode(one)[1]]}  # warm, after the gate's runs
+        minutes = seconds / 60
+        w1, wm = (float(np.mean(walls[k])) / minutes for k in ("one", "mesh"))
+        _log(f"[time] multi stage 5.3 {kind}, encode_spans of the {seconds} s document, warm: "
+             f"one device {w1:.4f}s per minute of audio, {n_shards} shards {wm:.4f}s "
+             f"({w1 / wm:.2f}x); first runs {first_one:.3f}s and {first_mesh:.3f}s")
+        out[kind] = {"one_s_per_min": w1, "mesh_s_per_min": wm, "min_cos": float(cos.min())}
+        if pipeline_chunks and kind == "speech_laser":
+            big = [copy.copy(m) for m in (one, dp)]
+            for m in big:
+                m.max_tokens = PIPE_MAX_TOKENS
+            walls = [[encode(m)[1] for _ in range(2)] for m in big]  # first, warm
+            w1, wm = (w[1] / minutes for w in walls)
+            _log(f"[time] multi stage 5.3 speech_laser at the pipeline's {PIPE_MAX_TOKENS // 16000} s "
+                 "chunks, warm: one "
+                 f"device {w1:.4f}s per minute of audio, {n_shards} shards {wm:.4f}s "
+                 f"({w1 / wm:.2f}x); first runs {walls[0][0]:.3f}s and {walls[1][0]:.3f}s")
+            out["speech_laser_600s"] = {"one_s_per_min": w1, "mesh_s_per_min": wm}
+    return out
+
+
+def _sorted_ids_equal(a, b):
+    return np.array_equal(np.sort(a, axis=1), np.sort(b, axis=1))
+
+
+def _hold_search(what, d, i, d_ref, i_ref):
+    rtol, atol = MULTI_SEARCH_TOL
+    if not np.allclose(d, d_ref, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: distances off one device's by up to "
+                             f"{np.abs(d - d_ref).max():.3e}")
+    if not _sorted_ids_equal(i, i_ref):
+        bad = int(np.sum(np.any(np.sort(i, 1) != np.sort(i_ref, 1), axis=1)))
+        raise AssertionError(f"{what}: {bad} rows hold other neighbours than one device's")
+    return float(np.abs(d - d_ref).max())
+
+
+def _multi_search(workdir, device, mesh, n_rows, sub_rows, dim, mining_root=None):
+    """Stage 6.7's kNN tiers sharded over the mesh against one device:
+    ``ShardedFlatIndex`` over the mining phase's corpus (``n_rows`` rows a
+    language), one direction; ``ShardedIVFIndex`` and the int8 tier on its
+    coverage corpus (``sub_rows``). Gates: distances within
+    MULTI_SEARCH_TOL and the same neighbour sets; then stage 6.7's margins
+    through the CLI with ``--sharded_index`` (Flat, IVF at the default
+    probe, int8) within MARGIN_RTOL of the same CLI without it.
+    ``mining_root``: phase 9's directory, whose corpus files, coverage
+    indexes and margins are read instead of made again."""
+    import torch
+
+    from svecalign_tpu_torch.ops import topk
+    from svecalign_tpu_torch.utils.index_utils import load_index
+
+    dev, n_shards = device.type, len(mesh.data_devices)
+    t0 = time.perf_counter()
+    if mining_root is not None:
+        queries, corpus = (topk.normalize_l2(_mining_rows(mining_root, side, [0] * MINING_PAIRS))
+                           for side in ("src", "tgt"))
+        made = "read from phase 9's files"
+    else:
+        rows = {side: [] for side in ("src", "tgt")}
+        for pair in mining_pair_rows(MINING_PAIRS, n_rows, dim, seed=200):
+            for side, r in pair.items():
+                rows[side].append(r.astype(np.float16))
+        queries, corpus = (topk.normalize_l2(np.concatenate(rows[s])) for s in ("src", "tgt"))
+        del rows
+        made = "made"
+    n_rows = len(corpus)
+    _log(f"[multi] stage 6.7: the mining phase's corpus, {n_rows} rows a language, {made} in "
+         f"{time.perf_counter() - t0:.1f}s")
+
+    def timed(index, q):
+        """The search in stage 6.7's chunks of queries (its CHUNK_ROWS)."""
+        from svecalign_tpu_torch.postprocess.score_align import CHUNK_ROWS
+
+        index.search(q[:8], MINING_K)  # the corpus upload, outside the timed search
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        parts = [index.search(q[q0:q0 + CHUNK_ROWS], MINING_K)
+                 for q0 in range(0, len(q), CHUNK_ROWS)]
+        wall = time.perf_counter() - t
+        return np.concatenate([d for d, _ in parts]), np.concatenate([i for _, i in parts]), wall
+
+    flat = topk.FlatIndex(dim, device=device)
+    flat.add(corpus)
+    d1, i1, one_s = timed(flat, queries)
+    del flat
+    sharded = topk.ShardedFlatIndex(corpus, mesh, device=device)
+    d2, i2, mesh_s = timed(sharded, queries)
+    del sharded
+    err = _hold_search("ShardedFlatIndex", d2, i2, d1, i1)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    _log(f"[multi] ShardedFlatIndex over {n_shards} shards, {n_rows} x {n_rows}, k {MINING_K}: "
+         f"distances within {err:.3e} of one device's, the same neighbour sets")
+    _log(f"[time] multi stage 6.7 Flat search, one direction, {n_rows} queries over {n_rows} rows: "
+         f"one device {one_s:.3f}s, {n_shards} shards {mesh_s:.3f}s ({one_s / mesh_s:.2f}x)")
+
+    # the coverage corpus: phase 9's, with its indexes and unsharded margins
+    tiers = (("flat", "flat", "m_flat", ()), ("ivf", "ivf", "m_ivf128", ("--num_probe", "128")),
+             ("int8", "flat", "m_int8", ("--corpus_quant", "int8")))
+    if mining_root is not None:
+        sub = Path(mining_root) / "subset"
+    else:
+        sub = workdir / "subset"
+        write_mining_corpus(sub, MINING_SUBSET_PAIRS, sub_rows, dim, seed=201)
+        _run_prep_index(sub, "flat", dev)
+        _run_prep_index(sub, "ivf", dev, ["--index_type", MINING_IVF])
+        for _, index, out, extra in tiers:
+            _run_score_align(sub, index, out, dev, extra)
+    q_sub, c_sub = (topk.normalize_l2(_mining_rows(sub, side, [0] * MINING_SUBSET_PAIRS))
+                    for side in ("src", "tgt"))
+    idx = sub / "ivf" / f"{SRC_LANG}-{TGT_LANG}"
+    one_ivf = load_index(next((idx / TGT_LANG).glob("*.populate.idx")), device=device)
+    d1, i1 = one_ivf.search(q_sub, MINING_K)
+    d2, i2 = topk.ShardedIVFIndex(one_ivf, mesh).search(q_sub, MINING_K)
+    errs = {"ivf": _hold_search("ShardedIVFIndex", d2, i2, d1, i1)}
+    q8 = topk.FlatIndex(dim, corpus_quant="int8", device=device)
+    q8.add(c_sub)
+    d1, i1 = q8.search(q_sub, MINING_K)
+    d2, i2 = topk.ShardedFlatIndex(c_sub, mesh, corpus_quant="int8", device=device).search(
+        q_sub, MINING_K)
+    errs["int8"] = _hold_search("ShardedFlatIndex int8", d2, i2, d1, i1)
+    margins = {}
+    for label, index, out, extra in tiers:
+        want, cols = _read_margins(sub, out)
+        _, got, got_cols = _run_score_align(sub, index, f"{out}_sharded", dev,
+                                            (*extra, "--sharded_index"), mesh=mesh)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        if got_cols != cols or rel > MARGIN_RTOL:
+            raise AssertionError(f"score_align --sharded_index ({label}): margins {rel:.3e} from "
+                                 f"the unsharded CLI's (rtol {MARGIN_RTOL}), columns equal: "
+                                 f"{got_cols == cols}")
+        margins[label] = rel
+    _log(f"[multi] on the {len(c_sub)}-row coverage corpus: ShardedIVFIndex ({MINING_IVF}, the "
+         f"default probe) and the int8 ShardedFlatIndex within {errs} of one device's, the same "
+         "neighbour sets; score_align --sharded_index margins within "
+         + ", ".join(f"{k} {v:.3e}" for k, v in margins.items()) + " of the unsharded CLI's")
+    return {"one_s": one_s, "mesh_s": mesh_s}
+
+
+def _one_card_pipeline(meta, out, dev):
+    """Stages 4.1-5.3 of the pipeline in a process of its own that sees one
+    card (``CUDA_VISIBLE_DEVICES=0``). Returns its stage breakdown line."""
+    repo = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    argv = [sys.executable, "-m", "svecalign_tpu_torch.pipeline", str(meta), str(out),
+            "--src_lang", SRC_LANG, "--tgt_lang", TGT_LANG, "--stages", MULTI_PIPE_STAGES,
+            "--device", dev]
+    proc = subprocess.run(argv, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the one-card pipeline failed:\n{proc.stderr[-3000:]}")
+    return next((line.split("stage breakdown: ", 1)[1]
+                 for line in (proc.stdout + proc.stderr).splitlines() if "stage breakdown: " in line),
+                "not logged")
+
+
+def _multi_pipeline(workdir, device, mesh, seconds, one_card=_one_card_pipeline):
+    """The whole graph with ``--data_parallel 0 --sharded_index --fused``
+    over every local device (full-width SpeechLASER on the documents of
+    phase 7) against one card: stages 4.1-5.2 byte-identical to a one-card
+    run's, its ``.embed`` rows at per-row cosine >= MULTI_MIN_COSINE; a
+    one-device stage 5.4 on the run's own ``.embed`` files equal to its
+    stage-5.4 output, and a one-device stage 6.7 on its own index files
+    within MARGIN_RTOL of its margins. ``one_card(meta, out, dev)`` runs
+    stages 4.1-5.3 on one device (and may return its stage breakdown)."""
+    from svecalign_tpu_torch.ops import _build
+    from svecalign_tpu_torch.postprocess import score_align
+    from svecalign_tpu_torch.seg_align import align
+    from svecalign_tpu_torch.utils.embedding_utils import load_stopes_embeddings
+
+    dev, root = device.type, Path(workdir) / "pipeline"
+    write_synthetic_document(root / "in", seconds, seed=0)
+    paths, _ = write_synthetic_document(root / "in", seconds, seed=1, lang=TGT_LANG)
+    meta, out = paths["metadata"], root / "multi"
+    _build.SHARD_LAUNCHES.clear()
+    run = run_pipeline(meta, out, dev, ["--data_parallel", "0", "--sharded_index", "--fused"])
+    n_shards = len(mesh.data_devices)
+    per_shard = [_build.SHARD_LAUNCHES[(i, "banded_dp")] for i in range(n_shards)]
+    if dev == "cuda" and (min(per_shard) < 1 or len(set(per_shard)) != 1):
+        raise AssertionError(f"the pipeline's stage 5.4 launched the banded DP {per_shard} times "
+                             "on the shards")
+    s = run["stats"]
+    if s["hit"] != 2 or s["miss"] or s["rejected"]:
+        raise AssertionError(f"the sharded pipeline's cache stats {s}")
+    _log(f"[multi] pipeline --data_parallel 0 --sharded_index --fused over {n_shards} devices: "
+         f"{run['wall']:.3f}s wall; banded DP launches per shard {per_shard}; cache stats {s}; "
+         "stage seconds: " + " | ".join(f"{k} {v:.3f}" for k, v in run["stages"].items()))
+
+    t0 = time.perf_counter()
+    breakdown = one_card(meta, root / "one", dev)
+    n_host = compare_pipeline_runs(out, root / "one", only=MULTI_HOST_DIRS)
+    worst = 1.0
+    for lang in (SRC_LANG, TGT_LANG):
+        name = f"{lang}/{STEM}_{lang}.embed"
+        a, b = (load_stopes_embeddings(str(r / "embeds" / name)).astype(np.float32)
+                for r in (out, root / "one"))
+        worst = min(worst, float(_row_cosines(a, b).min()))
+    if worst < MULTI_MIN_COSINE:
+        raise AssertionError(f"the sharded pipeline's .embed rows against one card's: min "
+                             f"cosine {worst:.6f} < {MULTI_MIN_COSINE}")
+    _log(f"[multi] one-card stages 4.1-5.3 ({time.perf_counter() - t0:.1f}s with the process "
+         f"start; stage seconds, each encoder's build included: {breakdown}): {n_host} files of "
+         f"stages 4.1-5.2 byte-identical; .embed rows at per-row cosine >= {worst:.6f}")
+
+    rerun = root / "rerun"
+    align.main([str(meta), str(rerun / "alignments"), "--src_lang", SRC_LANG, "--tgt_lang",
+                TGT_LANG, "--seg_dir", str(out / "segments"), "--concat_dir",
+                str(out / "cat_segs"), "--embed_dir", str(out / "embeds"), "--is_stopes_embed",
+                "-a", "6", "--ign_indices_dir", str(out / "untrans_cat_seg_ids"),
+                "--pair_batch", "2", "--device", dev])
+    n_align = compare_pipeline_runs(out, rerun, only=("alignments",))
+    mrg = next(p.name for p in out.iterdir() if p.name.endswith("_margin"))
+    base = mrg[:-len("_margin")]
+    score_align.main([str(meta), str(rerun / mrg), "--embed_dir", str(out / f"{base}_embed"),
+                      "--align_dir", str(out / base), "--src_lang", SRC_LANG, "--tgt_lang",
+                      TGT_LANG, "--index_dir", str(out / f"{base}_embed_indexes"),
+                      "--embed_fp16", "--k", str(MINING_K), "--embed_stopes", "--device", dev])
+    n_mrg = compare_pipeline_runs(out, rerun, margin_rtol=MARGIN_RTOL, only=(mrg,))
+    _log(f"[multi] one-device stage 5.4 on the run's .embed files: {n_align} alignment files "
+         f"identical; one-device stage 6.7 on its index files: {n_mrg} margin files within "
+         f"rtol {MARGIN_RTOL}")
+    return run["wall"]
+
+
+def phase_multi(workdir, device, mesh=None, sizes=BUCKET_SIZES, dim=1024, doc_seconds=DOC_SECONDS,
+                kinds=("speech_laser", "sonar"), search_rows=MINING_ROWS,
+                sub_rows=MINING_SUBSET_ROWS, align_kw=None, pipeline=None, corpus=None,
+                mining_root=None, **pipe_kw):
+    """Phase 12: every sharded path of the port against the same path on
+    one device. On a machine of one card the mesh is
+    ``MULTI_ONE_CARD_SHARDS`` shards of that card, built through the same
+    library entries the CLIs call, and the pipeline bullet (which needs
+    the CLIs' own meshes: every card) is skipped; with two or more cards
+    the mesh is every card. ``pipeline`` (default: whether the shards have
+    cards of their own) runs the pipeline bullet. ``corpus`` (phase 3's
+    (paths, stems)) and ``mining_root`` (phase 9's directory) are read
+    instead of written again. Returns the walls."""
+    t_phase = time.perf_counter()
+    if mesh is None:
+        mesh, shared = multi_mesh(device)
+    else:
+        shared = len(set(mesh.data_devices)) < len(mesh.data_devices)
+    n_shards = len(mesh.data_devices)
+    _log(f"[multi] mesh {mesh}: {n_shards} data shards"
+         + (" sharing one device (the machine has one card)" if shared else ""))
+    times = {}
+    t0 = time.perf_counter()
+    checks = _multi_kernel_checks(mesh) if device.type == "cuda" else {}
+    times["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    align = _multi_align(workdir, device, mesh, sizes, dim, align_kw or _align_kwargs_cli(),
+                         corpus=corpus)
+    times["align"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encode = _multi_encode(workdir, device, mesh, doc_seconds, kinds, pipeline_chunks=not shared)
+    times["encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    search = _multi_search(workdir, device, mesh, search_rows, sub_rows, dim, mining_root)
+    times["search"] = time.perf_counter() - t0
+    if pipeline is None:
+        pipeline = not shared
+    if pipeline:
+        t0 = time.perf_counter()
+        _multi_pipeline(workdir, device, mesh, doc_seconds, **pipe_kw)
+        times["pipeline"] = time.perf_counter() - t0
+    else:
+        _log("[multi] the pipeline bullet is skipped: its CLIs shard over every card, and this "
+             "machine has one")
+    _log(f"[time] multi phase: {time.perf_counter() - t_phase:.1f}s; "
+         + " | ".join(f"{k} {v:.1f}s" for k, v in times.items()))
+    return {"align": align, "encode": encode, "search": search, "checks": checks,
+            "times": times}
+
+
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
     ("relkey_attention kernel", ("relkey_attention",)),
     ("SDPA attention (LASER)", ("fmha", "flash", "attention")),
@@ -3524,6 +4046,10 @@ def main(argv=None):
                       help="only build, the kernel checks and the pipeline (phases 1, 2, 11: "
                            "all 16 stages on two hour-long pairs, unfused and fused, then "
                            "SONAR fused); prints no result line")
+    mode.add_argument("--multi", action="store_true",
+                      help="only build, the kernel checks and the sharded paths (phases 1, 2, "
+                           "12: stages 5.4, 5.3 and 6.7 over a mesh against one device, and with "
+                           "two or more cards the whole pipeline); prints no result line")
     mode.add_argument("--front", action="store_true",
                       help="only build, the kernel checks and the front of the pipeline "
                            "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
@@ -3567,11 +4093,18 @@ def main(argv=None):
             phase_pipeline(Path(td), device)
         _log(f"[done] pipeline phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.multi:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as td:
+            phase_multi(Path(td), device)
+        _log(f"[done] multi phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if not args.laser:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
-            stack, launches, single_paths, per_pair_warm = phase_main_path(Path(td), N_SRC, N_TGT)
-            bucket_launches, plan = phase_bucket_path(Path(td), single_paths, per_pair_warm)
-            phase_paired_gate(Path(td))
+        # kept until phase 12, which reads the 16-pair corpus again
+        dp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+        td = Path(dp_dir.name)
+        stack, launches, single_paths, per_pair_warm = phase_main_path(td, N_SRC, N_TGT)
+        bucket_launches, plan = phase_bucket_path(td, single_paths, per_pair_warm)
+        phase_paired_gate(td)
         t = phase_times(stack, device)
         phase_route_times(device)
         fused = phase_slice_times(stack, plan, t["probe"], device)
@@ -3589,14 +4122,21 @@ def main(argv=None):
     if args.laser:
         _log(f"[done] LASER and chain phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mining_") as td:
-        phase_mining(Path(td), device)
+    mining_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mining_")  # read by phase 12
+    phase_mining(Path(mining_dir.name), device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as td:
         probe = t["probe"]
         phase_front(Path(td), device, latencies=(probe["handover"], probe["alu"]),
                     clock_hz=probe["clock"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as td:
         pipe = phase_pipeline(Path(td), device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as td:
+        phase_multi(Path(td), device, corpus=(
+            {"root": Path(dp_dir.name) / "corpus"},
+            [f"{STEM}-{k:02d}" for k in range(len(BUCKET_SIZES))]),
+            mining_root=Path(mining_dir.name) / "mining")
+    dp_dir.cleanup()
+    mining_dir.cleanup()
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",

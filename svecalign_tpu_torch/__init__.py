@@ -24,7 +24,10 @@ Ported so far:
   port's own libvorbis binding, ``csrc/ogg_io.cpp``).
 - the one-command pipeline over all 16 stages (``pipeline.py``) with its
   fused handoff: ``--fused`` keeps each document's rows on the card from
-  stage 5.3 to stages 5.4, 6.6 and 6.7 (``utils/embed_cache.py``).
+  stage 5.3 to stages 5.4, 6.6 and 6.7 (``utils/embed_cache.py``);
+- several cards in one process (``parallel/mesh.py``): data-parallel
+  encoding in stages 5.3 and 6.5, the data-parallel aligner
+  (``--data_parallel``) and the sharded kNN index (``--sharded_index``).
 Every stage CLI of the JAX package has its counterpart here. It imports
 neither ``jax`` nor ``svecalign_tpu``.
 
@@ -40,6 +43,7 @@ Subpackages
 - ``seg_align``: the stage-5.1 to 5.4 CLIs
 - ``postprocess``: the stage-6 CLIs
 - ``analysis`` : the alignment audit dump (clips and HTML pages)
+- ``parallel`` : the device mesh, placement and per-shard runs
 - ``utils``    : file/audio/embedding/index IO, sharding and worker
                  processes, phase timers, the device/fp32 setup and the
                  fused pipeline's row cache

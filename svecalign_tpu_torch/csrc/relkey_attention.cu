@@ -733,19 +733,15 @@ namespace {
 
 // The bf16 kernel's table rows (C rounded up to whole 32-row products), its
 // bias row stride (= 9 mod 64: conflict-free bias reads) and its dynamic
-// shared memory, which is raised to that size once.
+// shared memory, to which the kernel's limit is raised on every call: the
+// attribute belongs to the current device, and one process may launch on
+// several cards.
 cudaError_t bf16_layout(int C, int* table_rows, int* p_ld, size_t* smem) {
     *table_rows = (C + 31) / 32 * 32;
     *p_ld = C + ((9 - C) % 64 + 64) % 64;
     *smem = smem_bytes(*table_rows, *p_ld);
-    static size_t smem_set = 0;
-    if (*smem > smem_set) {
-        const cudaError_t err = cudaFuncSetAttribute(relkey_attention_wgmma,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-        if (err != cudaSuccess) return err;
-        smem_set = *smem;
-    }
-    return cudaSuccess;
+    return cudaFuncSetAttribute(relkey_attention_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)*smem);
 }
 
 }  // namespace

@@ -14,11 +14,26 @@ through the same hooks as in JAX:
     _rows_per_chunk(bucket)   -> batch rows for that bucket
     _span_forward(rows, scales, lengths, bucket) -> (rows, dim) embeddings
 
-plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``.
+plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``;
+``_span_forward`` calls the model's ``_forward(module, rows, scales,
+lengths, bucket, tick)`` on its replica of the weights.
+
+Data parallelism (the JAX package's mesh branch): with a mesh of more
+than one data shard (``parallel/mesh.py``; by default every local card
+when there is more than one, as in JAX), the weights are replicated on
+every shard's device (:func:`place_model`), each chunk's rows are split
+into contiguous slices, one per shard, each slice is copied to its device
+and encoded there, and the rows come back to the mesh's first device,
+``self.device``, in row order. Chunks keep a row count that is a multiple
+of the shard count. One thread issues every shard's forward in turn
+(``parallel.mesh.run_on_shards``): the launches are asynchronous and the
+forward never waits on the device, so distinct cards overlap, as far as
+the host keeps up with issuing several eager trunks (``PERF.md``).
 
 ``keep_device`` (the fused pipeline's handoff, ``utils/embed_cache.py``)
 also writes every chunk's rows, as fp16, into one (embed_cache.max_rows,
-dim) buffer on the device and returns it beside the host rows.
+dim) buffer on the device (the mesh's first) and returns it beside the
+host rows.
 
 Left out, as TPU workarounds whose flags keep their meaning: the compile
 prewarm threads, the ``SVECALIGN_FUSED_CHUNK`` one-program chunk, the
@@ -32,14 +47,17 @@ synchronise (so the timers cost a sync per phase while on, and nothing
 while ``encode_profile`` is None).
 """
 
+import copy
 import time
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from svecalign_tpu_torch.parallel.mesh import Mesh, default_mesh, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.log_utils import logging
+from svecalign_tpu_torch.utils.torch_setup import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +98,31 @@ def phase_clock(device: torch.device) -> Callable[[str], None]:
         last[0] = now
 
     return tick
+
+
+def _copy_to(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """``module`` itself where it already lives on ``device``, else a copy there."""
+    p = next(module.parameters(), None)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return module if p is not None and p.device == device else copy.deepcopy(module).to(device)
+
+
+def place_model(model: torch.nn.Module, device, mesh: Optional[Mesh], move: bool = True):
+    """Put an encoder's weights where it runs: ``(device, mesh, replicas)``.
+    ``mesh`` None takes :func:`parallel.mesh.default_mesh`; with no mesh,
+    or one of a single data shard, the model runs on that one device and
+    the returned mesh is None. Otherwise the device is the mesh's first
+    and ``replicas`` holds one copy of ``model`` per data shard, made once
+    per distinct device. ``move``: ``model`` itself goes to the first
+    device (a model just built); else it stays where it is, untouched."""
+    if mesh is None:
+        mesh = default_mesh(device)
+    devs = [resolve_device(device)] if mesh is None else mesh.data_devices
+    distinct = list(dict.fromkeys(devs))
+    placed = {d: _copy_to(model, d) for d in distinct[1:]}
+    placed[distinct[0]] = model.to(distinct[0]) if move else _copy_to(model, distinct[0])
+    return devs[0], (mesh if len(devs) > 1 else None), [placed[d] for d in devs]
 
 
 def stage_rows(pieces, rows: int, width: int, fp32: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -140,6 +183,46 @@ def pull_rows(pending: Sequence[Tuple[List[int], torch.Tensor]], n: int, dim: in
 
 class SpanEncoderMixin:
     """encode_spans() for models exposing the hook set described above."""
+
+    mesh: Optional[Mesh] = None
+    _replicas: Sequence[torch.nn.Module] = ()
+
+    @property
+    def data_shards(self) -> int:
+        return 1 if self.mesh is None else len(self.mesh.data_devices)
+
+    def _fit_rows_to_mesh(self) -> None:
+        """Hook for a model with a fixed chunk row count: round it up to a
+        multiple of :attr:`data_shards`."""
+
+    def with_mesh(self, mesh: Optional[Mesh]) -> "SpanEncoderMixin":
+        """The same model, its weights placed over ``mesh`` (None: the
+        default mesh); ``self`` is left as it is. Replicas are copies of
+        this model's weights: nothing is initialised or read again."""
+        other = copy.copy(self)
+        other.device, other.mesh, other._replicas = place_model(
+            self.model, self.device, mesh, move=False)
+        other.model = other._replicas[0]
+        other._fit_rows_to_mesh()
+        return other
+
+    @torch.inference_mode()
+    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+        """(rows, width) int16 or fp32 waveforms, (rows,) scales and
+        lengths on ``self.device`` -> (rows, dim) fp32 there; with a mesh,
+        each shard's slice of the rows on its own replica and device."""
+        if self.mesh is None:
+            return self._forward(self._replicas[0], rows_q, row_scales, lengths, bucket,
+                                 phase_clock(self.device))
+        tick = phase_clock(self.device)
+
+        def shard(i, dev, sl):
+            return self._forward(self._replicas[i], rows_q[sl].to(dev), row_scales[sl].to(dev),
+                                 lengths[sl].to(dev), bucket, lambda key: None).to(self.device)
+
+        out = torch.cat(run_on_shards(self.mesh, shard, shard_slices(rows_q.shape[0], self.mesh)))
+        tick("trunk_s")  # the whole sharded forward; no split by phase
+        return out
 
     def encode_spans(self, waveform, spans, keep_device: bool = False,
                      fp16_pull: bool = False):

@@ -33,8 +33,11 @@ embedding depends on its bucket's width: the buckets are the JAX ones.
 for ``seed``, so both packages hold the same random weights.
 ``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
 on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
-Left out, as in the SONAR port: the mesh/data-parallel branch (ROADMAP
-Queue 1 item 20), buffer donation and the staging thread.
+With more than one card (or a given ``mesh``), each chunk's rows are split
+over the mesh's data axis, the weights replicated on every card, and the
+chunk's row count rounded up to a multiple of the shard count, as in JAX
+(``models/encode_common.py``). Left out, as in the SONAR port: buffer
+donation and the staging thread.
 """
 
 import dataclasses
@@ -278,13 +281,14 @@ class SpeechLaserModel(SpanEncoderMixin):
         seed: int = 0,
         upload_dtype: str = "int16",
         device="cuda",
+        mesh=None,
     ):
         if upload_dtype not in ("int16", "fp32"):
             raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
         self.config = config
         self.max_tokens = max_tokens
         self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
-        self.device = resolve_device(device)
+        resolve_device(device)  # no card and no device="cpu": raise before the init
 
         with torch.device("meta"):
             model = LaserSpeechEncoder(config)
@@ -302,7 +306,10 @@ class SpeechLaserModel(SpanEncoderMixin):
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv1d)):
                 mod.to(dt)
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        # data-parallel inference: weights on every data shard's card
+        self.device, self.mesh, self._replicas = encode_common.place_model(
+            model.eval().requires_grad_(False), device, mesh)
+        self.model = self._replicas[0]
 
     def _bucket(self, n: int) -> int:
         for b in self.BUCKETS:
@@ -311,7 +318,9 @@ class SpeechLaserModel(SpanEncoderMixin):
         return self.BUCKETS[-1]
 
     def _rows_for_bucket(self, bucket: int) -> int:
-        return max(1, self.max_tokens // bucket)
+        rows = max(1, self.max_tokens // bucket)
+        # round up so that a chunk splits evenly over the data axis
+        return -(-rows // self.data_shards) * self.data_shards
 
     # --- SpanEncoderMixin hooks (units: samples at 16 kHz) ---
 
@@ -328,16 +337,14 @@ class SpeechLaserModel(SpanEncoderMixin):
         bucket = self._bucket(ln)
         return bucket, (start, ln, min(ln, bucket)), ln > self.BUCKETS[-1]
 
-    @torch.inference_mode()
-    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+    def _forward(self, model, rows_q, row_scales, lengths, bucket, tick):
         """(rows, bucket) int16 or fp32 waveforms, (rows,) scales and
-        sample lengths on the device -> (rows, encoder_dim) fp32."""
-        tick = encode_common.phase_clock(self.device)
+        sample lengths on ``model``'s device -> (rows, encoder_dim) fp32."""
         wav = rows_q.float() * row_scales[:, None]
-        feats = self.model.feature_extractor(wav)
+        feats = model.feature_extractor(wav)
         tick("frontend_s")
         mask = frame_mask(self.config, lengths, feats.shape[1])
-        x = self.model.trunk(feats, mask)
+        x = model.trunk(feats, mask)
         tick("trunk_s")
         out = masked_max_pool(x, mask)
         tick("pooler_s")

@@ -19,8 +19,11 @@ featurised and encoded on the device.
 ``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
 on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
 
-Left out, as TPU workarounds: the mesh/data-parallel branch (multi-GPU is
-ROADMAP Queue 1 item 20), the staging thread pool and buffer donation.
+With more than one card (or a given ``mesh``), each chunk's rows are split
+over the mesh's data axis and the weights replicated on every card, the
+rel-key kernel launching on each; ``batch_size`` rounds up to a multiple
+of the shard count, as in JAX (``models/encode_common.py``). Left out, as
+TPU workarounds: the staging thread pool and buffer donation.
 """
 
 import dataclasses
@@ -170,13 +173,13 @@ class SonarSpeechModel(SpanEncoderMixin):
         seed: int = 0,
         upload_dtype: str = "int16",
         device="cuda",
+        mesh=None,
     ):
         if upload_dtype not in ("int16", "fp32"):
             raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
         self.config = config
-        self.batch_size = batch_size
         self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
-        self.device = resolve_device(device)
+        resolve_device(device)  # no card and no device="cpu": raise before the init
 
         with torch.device("meta"):
             model = SonarSpeechEncoder(config)
@@ -195,7 +198,16 @@ class SonarSpeechModel(SpanEncoderMixin):
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Linear, nn.Conv1d)) and name != "pooler.out_proj":
                 mod.to(dt)
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        # data-parallel inference: weights on every data shard's card, and
+        # chunk rows that split evenly over the data axis
+        self.device, self.mesh, self._replicas = encode_common.place_model(
+            model.eval().requires_grad_(False), device, mesh)
+        self.model = self._replicas[0]
+        self.batch_size = batch_size
+        self._fit_rows_to_mesh()
+
+    def _fit_rows_to_mesh(self) -> None:
+        self.batch_size = -(-self.batch_size // self.data_shards) * self.data_shards
 
     def _bucket(self, n: int) -> int:
         for b in self.BUCKET_FRAMES:
@@ -221,17 +233,15 @@ class SonarSpeechModel(SpanEncoderMixin):
         return (bucket, (start, min(ln, width), min(n_frames, bucket)),
                 n_frames > self.BUCKET_FRAMES[-1])
 
-    @torch.inference_mode()
-    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+    def _forward(self, model, rows_q, row_scales, lengths, bucket, tick):
         """(rows, samples) int16 or fp32 waveforms, (rows,) scales and
-        frame lengths on the device -> (rows, pool_dim) fp32."""
-        tick = encode_common.phase_clock(self.device)
+        frame lengths on ``model``'s device -> (rows, pool_dim) fp32."""
         wav = rows_q.float() * row_scales[:, None]
         feats, mask2 = sonar_frontend(wav, lengths, bucket, self.config.n_mels)
         tick("frontend_s")
-        x = self.model.trunk(feats, mask2)
+        x = model.trunk(feats, mask2)
         tick("trunk_s")
-        out = self.model.pooler(x, mask2).float()
+        out = model.pooler(x, mask2).float()
         tick("pooler_s")
         return out
 

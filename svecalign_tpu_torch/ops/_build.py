@@ -13,8 +13,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from svecalign_tpu_torch.parallel.mesh import current_shard
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,6 +36,22 @@ SOURCE_FLAGS = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+SHARD_LAUNCHES: Counter = Counter()
+"""Launches by ``(data shard, counter key)``, for work issued inside
+``parallel.mesh.shard_scope``: each wrapper's ``LAUNCHES`` counts every
+launch, this counts those of each shard of a mesh."""
+
+
+def count_launch(launches: dict, *keys: str) -> None:
+    """Add one launch to ``launches[key]`` for each key, and to
+    :data:`SHARD_LAUNCHES` under the shard being issued. A wrapper calls
+    it where it launches its kernel, and nowhere else."""
+    shard = current_shard()
+    for key in keys:
+        launches[key] += 1
+        if shard is not None:
+            SHARD_LAUNCHES[(shard, key)] += 1
 
 
 def kernel_names():

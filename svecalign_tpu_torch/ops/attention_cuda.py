@@ -140,5 +140,5 @@ def relkey_attention_cuda(
     if err != 0:
         why = _ENCODE_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"relkey_attention kernel launch failed: {why}")
-    LAUNCHES[KERNEL] += 1
+    _build.count_launch(LAUNCHES, KERNEL)
     return out

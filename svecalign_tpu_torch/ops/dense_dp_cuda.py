@@ -102,5 +102,5 @@ def dense_dp_cuda(
         )
     if err != 0:
         raise RuntimeError(f"dense_dp kernel launch failed: CUDA error {err}")
-    LAUNCHES[KERNEL] += 1
+    _build.count_launch(LAUNCHES, KERNEL)
     return csum, bp

@@ -209,8 +209,7 @@ def banded_dp_cuda_batched(
                 *head, None if ring is None else ring.data_ptr(), threads, stream)
     if err != 0:
         raise RuntimeError(f"banded_dp kernel launch ({route} route) failed: CUDA error {err}")
-    LAUNCHES[KERNEL] += 1
-    LAUNCHES[f"{KERNEL}_{route}"] += 1
+    _build.count_launch(LAUNCHES, KERNEL, f"{KERNEL}_{route}")
     return csum, xp, yp
 
 

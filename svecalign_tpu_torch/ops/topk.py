@@ -27,16 +27,26 @@ margins do not depend on the tie order at all.
 The fused pipeline hands rows that stay on the card: a Flat corpus
 gathered from the embed cache (``FlatIndex.set_device_corpus``, normalised
 on the device; re-quantised there for ``corpus_quant="int8"``) and query
-rows (:func:`normalize_rows_device`). Left out (they raise, naming the
-ROADMAP item they wait on): the sharded tiers ``ShardedFlatIndex`` /
-``ShardedIVFIndex`` and their helper functions (item 20).
+rows (:func:`normalize_rows_device`).
+
+The sharded tiers (``ShardedFlatIndex``, ``ShardedIVFIndex``: faiss's
+fp16-shard in the reference) split the corpus row-wise over a mesh's data
+axis (``parallel/mesh.py``). Each shard searches its rows on its own
+device with the single-device code (the tiled Flat search; the IVF probe,
+gather and product), the ids offset to global rows; the per-shard
+``(nq, k)`` candidates are copied to the mesh's first device and merged
+there by a stable sort on distance in shard order, so ties resolve to the
+lower global row, as in single-device Flat (the JAX package all-gathers
+them and runs one ``top_k``). One thread issues every shard's search
+before anything waits: the launches are asynchronous.
 """
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from svecalign_tpu_torch.parallel.mesh import Mesh, make_mesh
 from svecalign_tpu_torch.utils.phase_clock import PhaseClock
 from svecalign_tpu_torch.utils.torch_setup import resolve_device
 
@@ -73,12 +83,6 @@ def _normalize_corpus(rows: torch.Tensor, n: int):
 
 def _exact_in_fp16(x: np.ndarray) -> bool:
     return np.array_equal(x, x.astype(np.float16).astype(np.float32))
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to svecalign_tpu_torch yet (ROADMAP.md Queue 1 item {item})"
-    )
 
 
 def _clock(device: torch.device) -> PhaseClock:
@@ -279,10 +283,11 @@ class FlatIndex:
         self._device_cache = None  # (corpus, corpus_sq) on device
         self._device_cache_q8 = None  # (codes, scales, corpus_sq) on device
         self._fp16_exact = True  # all added vectors round-trip through fp16
+        self._installed_rows = 0  # rows of a device corpus with no host rows
 
     @property
     def ntotal(self) -> int:
-        return sum(c.shape[0] for c in self._chunks)
+        return sum(c.shape[0] for c in self._chunks) if self._chunks else self._installed_rows
 
     def add(self, vectors: np.ndarray) -> None:
         vectors = np.asarray(vectors, dtype=np.float32)
@@ -359,6 +364,20 @@ class FlatIndex:
         self._device_cache = _normalize_corpus(rows_fp16.to(self.device), n_valid)
         self._device_cache_q8 = None
 
+    def _install(self, rows: torch.Tensor, corpus_sq: torch.Tensor) -> None:
+        """Hold ``rows`` (normalized, on this index's device; no host rows
+        behind them) and their ``corpus_sq`` as the whole corpus, padded
+        to whole blocks with ``corpus_sq = inf``: a shard of a device
+        corpus (``ShardedFlatIndex.from_index``)."""
+        n = rows.shape[0]
+        pad = (-n) % self.BLOCK
+        self._chunks = []
+        self._installed_rows = n
+        self._device_cache = (
+            torch.nn.functional.pad(rows, (0, 0, 0, pad)),
+            torch.cat([corpus_sq, corpus_sq.new_full((pad,), float("inf"))]))
+        self._device_cache_q8 = None
+
     def _search_core(self, queries: torch.Tensor, k_eff: int):
         """Search over device-resident queries -> device (d2, idx)."""
         tiled = self.ntotal * queries.shape[0] > self.TILE_THRESHOLD
@@ -402,11 +421,175 @@ class FlatIndex:
         return _pad_to_k(d2.cpu().numpy(), idx.cpu().numpy(), k)
 
 
-class ShardedFlatIndex:
-    """Not ported: the Flat corpus sharded over several cards (item 20)."""
+# ---------------------------------------------------------------------------
+# sharded Flat: the corpus row-sharded over a mesh's data axis
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        _not_ported("ShardedFlatIndex (a corpus sharded over several cards)", "20")
+
+def _mesh_or_all(mesh: Optional[Mesh], device="cuda") -> Mesh:
+    return mesh if mesh is not None else make_mesh(device=device)
+
+
+def _merge_shards(parts, k: int, device: torch.device):
+    """Per-shard ``(d2, global ids)``, each sorted by (distance, id), to
+    the k best of all on ``device``: concatenated in shard order (a
+    device-to-device copy each) and stably sorted by distance, so a tie
+    goes to the lower global row."""
+    cand_d = torch.cat([d.to(device) for d, _ in parts], dim=1)
+    cand_i = torch.cat([i.to(device) for _, i in parts], dim=1)
+    d, pos = torch.sort(cand_d, dim=1, stable=True)
+    k = min(k, cand_d.shape[1])
+    return d[:, :k].contiguous(), torch.gather(cand_i, 1, pos[:, :k])
+
+
+class ShardedCorpus:
+    """A corpus row-sharded over a mesh's data axis: shard s holds rows
+    ``[s * per_shard, (s + 1) * per_shard)`` of the corpus (the last ones
+    short; a shard past the end holds none) as a :class:`FlatIndex` on its
+    device, which keeps the single-device layout and search (fp16 rows
+    when exact, ``corpus_sq`` summed on the host, 32768-row tiles)."""
+
+    def __init__(self, mesh: Mesh, shards: List[Optional[FlatIndex]], per_shard: int,
+                 ntotal: int):
+        self.mesh, self.shards, self.per_shard, self.ntotal = mesh, shards, per_shard, ntotal
+
+    def search(self, queries: torch.Tensor, k: int):
+        """Device queries -> the merged (d2, global ids) on the mesh's
+        first device: each shard's k best (fewer where it holds fewer
+        rows), then :func:`_merge_shards`."""
+        parts = []
+        for s, shard in enumerate(self.shards):
+            if shard is None:
+                continue
+            d, i = shard._search_core(queries.to(shard.device), min(k, shard.ntotal))
+            parts.append((d, i + s * self.per_shard))
+        return _merge_shards(parts, k, self.mesh.first)
+
+
+def shard_corpus(corpus: np.ndarray, mesh: Optional[Mesh] = None, corpus_quant: str = "none",
+                 query_upload: str = "float32", device="cuda") -> ShardedCorpus:
+    """Row-shard a host corpus over the mesh's data devices (every local
+    device of ``device``'s type when ``mesh`` is None): ``ceil(n / shards)``
+    rows a shard, each uploaded straight to its device. Reusable across
+    searches. ``corpus_quant="int8"`` quantizes each shard's rows per row,
+    as one device would (:func:`shard_corpus_q8`)."""
+    mesh = _mesh_or_all(mesh, device)
+    corpus = np.asarray(corpus, dtype=np.float32)
+    devs = mesh.data_devices
+    n, dim = corpus.shape
+    per = -(-n // len(devs))
+    shards = []
+    for s, dev in enumerate(devs):
+        rows = corpus[s * per:(s + 1) * per]
+        if not len(rows):
+            shards.append(None)
+            continue
+        shard = FlatIndex(dim, query_upload, corpus_quant, dev)
+        shard.add(rows)
+        shards.append(shard)
+    return ShardedCorpus(mesh, shards, per, n)
+
+
+def shard_corpus_q8(corpus: np.ndarray, mesh: Optional[Mesh] = None,
+                    device="cuda") -> ShardedCorpus:
+    """int8 tier of :func:`shard_corpus`: each shard's rows quantized per
+    row (codes, scales, the dequantized rows' ``corpus_sq``), half fp16's
+    memory a shard."""
+    return shard_corpus(corpus, mesh, corpus_quant="int8", device=device)
+
+
+def sharded_search(queries, corpus: Optional[np.ndarray], k: int, mesh: Optional[Mesh] = None,
+                   prepared: Optional[ShardedCorpus] = None, query_upload: str = "float32",
+                   device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-NN with the corpus row-sharded over a mesh: each shard's
+    tiled search on its device, the per-shard candidates merged on the
+    first device (:class:`ShardedCorpus`); ``prepared`` (from
+    :func:`shard_corpus`) reuses the device-resident shards. Returns host
+    (d2, ids), ``min(k, n)`` columns."""
+    if prepared is None:
+        prepared = shard_corpus(corpus, mesh, query_upload=query_upload, device=device)
+    q = _upload_queries(queries, query_upload, prepared.mesh.first)
+    d2, idx = prepared.search(q, min(k, prepared.ntotal))
+    return d2.cpu().numpy(), idx.cpu().numpy()
+
+
+def sharded_search_q8(queries, n_total: int, k: int, prepared: ShardedCorpus,
+                      query_upload: str = "float32") -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`sharded_search` over an int8 corpus (:func:`shard_corpus_q8`):
+    each shard's bf16 GEMM search, merged as in the fp path."""
+    if prepared.ntotal != n_total:
+        raise ValueError(f"{n_total} rows asked for a corpus of {prepared.ntotal}")
+    return sharded_search(queries, None, k, prepared=prepared, query_upload=query_upload)
+
+
+class ShardedFlatIndex:
+    """Flat index whose corpus is row-sharded over a mesh's data axis.
+
+    The :class:`FlatIndex` ``search`` contract; for corpora past one
+    card's memory (faiss's fp16-shard). Shards hold fp16 rows when every
+    row is exact in fp16 (checked per shard, as ``FlatIndex.add`` does);
+    ``corpus_quant="int8"`` composes row-sharding with int8 rows (~1e-3
+    distance noise). :meth:`from_index` shards a live index, taking a
+    corpus the fused pipeline installed on the device by device-to-device
+    copies."""
+
+    def __init__(self, corpus, mesh: Optional[Mesh] = None, query_upload: str = "float32",
+                 corpus_quant: str = "none", device="cuda"):
+        if corpus_quant not in ("none", "int8"):
+            raise ValueError(f"corpus_quant must be 'none' or 'int8', got {corpus_quant!r}")
+        self.query_upload = query_upload
+        self.corpus_quant = corpus_quant
+        if isinstance(corpus, ShardedCorpus):
+            self._prepared = corpus
+            self.dim = next(s.dim for s in corpus.shards if s is not None)
+        else:
+            corpus = np.asarray(corpus, dtype=np.float32)
+            self.dim = corpus.shape[1]
+            self._prepared = shard_corpus(corpus, mesh, corpus_quant, query_upload, device)
+        self.mesh = self._prepared.mesh
+
+    @classmethod
+    def from_index(cls, index: FlatIndex, mesh: Optional[Mesh] = None,
+                   corpus_quant: str = "none") -> "ShardedFlatIndex":
+        """Shard a loaded or live :class:`FlatIndex`. A corpus already on
+        the device (``set_device_corpus`` in the fused pipeline, or an
+        earlier search's upload) is sliced there and each slice copied to
+        its shard's device; otherwise the host rows are uploaded shard by
+        shard."""
+        mesh = _mesh_or_all(mesh, index.device)
+        dev_corpus = index._device_cache
+        if dev_corpus is None:
+            return cls(index.corpus, mesh, index.query_upload, corpus_quant)
+        rows, sq = dev_corpus
+        n, devs = index.ntotal, mesh.data_devices
+        per = -(-n // len(devs))
+        shards = []
+        for s, dev in enumerate(devs):
+            lo, hi = s * per, min((s + 1) * per, n)
+            if lo >= hi:
+                shards.append(None)
+                continue
+            shard = FlatIndex(index.dim, index.query_upload, corpus_quant, dev)
+            shard._install(rows[lo:hi].to(dev), sq[lo:hi].to(dev))
+            shards.append(shard)
+        return cls(ShardedCorpus(mesh, shards, per, n), query_upload=index.query_upload,
+                   corpus_quant=corpus_quant)
+
+    @property
+    def ntotal(self) -> int:
+        return self._prepared.ntotal
+
+    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = _upload_queries(queries, self.query_upload, self.mesh.first)
+        d2, idx = self._prepared.search(q, min(k, self.ntotal))
+        return _pad_to_k(d2.cpu().numpy(), idx.cpu().numpy(), k)
+
+    def search_device_queries(self, queries: torch.Tensor, k: int):
+        """Device queries (any device; copied to each shard's), results on
+        the mesh's first device. Requires ``ntotal >= k``."""
+        if self.ntotal < k:
+            raise ValueError(f"index holds {self.ntotal} rows, fewer than k = {k}")
+        return self._prepared.search(queries, k)
 
 
 # ---------------------------------------------------------------------------
@@ -680,8 +863,137 @@ class IVFIndex:
         return d_out, i_out
 
 
-class ShardedIVFIndex:
-    """Not ported: the IVF corpus sharded over several cards (item 20)."""
+# ---------------------------------------------------------------------------
+# sharded IVF: the list-sorted corpus blocks spread row-wise over the mesh
+# (the reference's fp16-shard spreads whatever index was loaded, IVF too)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        _not_ported("ShardedIVFIndex (a corpus sharded over several cards)", "20")
+
+class ShardedIVFIndex:
+    """IVF index whose list-sorted corpus blocks are sharded over a mesh's
+    data axis.
+
+    The probe semantics of :class:`IVFIndex` (the same result sets): each
+    shard holds a contiguous run of the list-sorted blocks, plus one
+    all-padding block, and per query chunk probes the lists with its copy
+    of the centroids, gathers its own needed blocks (padded to a power of
+    two with its padding block) and scores them; the per-shard candidates
+    merge on the first device (:func:`_merge_shards`).
+
+    Snapshot semantics, as in JAX: the wrapped index's vectors,
+    assignments and nprobe are copied at construction, and a search over
+    a wrapped index that has since grown or changed its nprobe raises."""
+
+    BLOCK = IVFIndex.BLOCK
+    QUERY_CHUNK = IVFIndex.QUERY_CHUNK
+
+    def __init__(self, ivf: IVFIndex, mesh: Optional[Mesh] = None,
+                 query_upload: Optional[str] = None):
+        if not ivf.is_trained or ivf.ntotal == 0:
+            raise ValueError("shard a trained, populated IVFIndex")
+        self.mesh = _mesh_or_all(mesh, ivf.device)
+        self.dim = ivf.dim
+        self.nlist = ivf.nlist
+        self.nprobe = ivf.nprobe
+        self.query_upload = query_upload or ivf.query_upload
+        self._ntotal = ivf.ntotal
+        self._source = ivf
+        self._source_nprobe = ivf.nprobe
+
+        devs = self.mesh.data_devices
+        bs = self.BLOCK
+        n = ivf.ntotal
+        order = np.argsort(ivf._assignments, kind="stable")
+        nb = -(-max(-(-n // bs), 1) // len(devs)) * len(devs)  # blocks, mesh-divisible
+        nb_shard = nb // len(devs)
+        n_pad = nb * bs
+        dt = np.float16 if ivf._fp16_exact else np.float32
+        vec = np.zeros((n_pad, self.dim), dt)
+        vec[:n] = ivf._vectors[order].astype(dt)
+        sq = np.full((n_pad,), np.inf, np.float32)
+        sq[:n] = np.sum(ivf._vectors[order] * ivf._vectors[order], axis=1)
+        row_list = np.full((n_pad,), -1, np.int64)
+        row_list[:n] = ivf._assignments[order]
+        ids = np.full((n_pad,), -1, np.int64)
+        ids[:n] = order
+        centroids = np.asarray(ivf.centroids, np.float32)
+
+        def blocks(a, s, fill):
+            # the shard's blocks and one all-padding block after them
+            part = a.reshape((nb, bs) + a.shape[1:])[s * nb_shard:(s + 1) * nb_shard]
+            return np.concatenate([part, np.full((1,) + part.shape[1:], fill, a.dtype)])
+
+        self._shards = []
+        for s, dev in enumerate(devs):
+            listb = blocks(row_list, s, -1)
+            self._shards.append(dict(
+                device=dev,
+                vec_blocks=_as_tensor(blocks(vec, s, 0), dev),
+                sq_blocks=_as_tensor(blocks(sq, s, np.inf), dev),
+                list_blocks=_as_tensor(listb, dev),
+                id_blocks=_as_tensor(blocks(ids, s, -1), dev),
+                row_list=_as_tensor(listb.reshape(-1), dev),
+                centroids=_as_tensor(centroids, dev),
+                n_blocks=nb_shard + 1,
+            ))
+
+    @property
+    def ntotal(self) -> int:
+        return self._ntotal
+
+    def _check_fresh(self) -> None:
+        """Refuse to search a stale snapshot (raises, not asserts: the
+        guard must survive ``python -O``)."""
+        if self._source.ntotal != self._ntotal:
+            raise RuntimeError(
+                f"wrapped IVFIndex grew after sharding ({self._source.ntotal}"
+                f" vs {self._ntotal} rows); rebuild the ShardedIVFIndex")
+        if self._source.nprobe != self._source_nprobe:
+            raise RuntimeError(
+                f"wrapped IVFIndex nprobe changed after sharding "
+                f"({self._source.nprobe} vs {self._source_nprobe}); rebuild the ShardedIVFIndex")
+
+    def _search_chunk(self, qj: torch.Tensor, k: int):
+        """One query chunk: each shard's probe, gather and product on its
+        device, then the merge on the first device."""
+        nprobe = min(self.nprobe, self.nlist)
+        parts = []
+        for st in self._shards:
+            q = qj.to(st["device"])
+            probe_mask, blocks = _ivf_probe_and_blocks(q, st["centroids"], st["row_list"],
+                                                       nprobe, self.BLOCK)
+            count, nb = blocks.numel(), st["n_blocks"]
+            g = min(1 << (max(count, 1) - 1).bit_length(), nb)
+            pad_block = torch.tensor([nb - 1], device=q.device)
+            blocks = torch.cat([blocks, pad_block.expand(g - count)])
+            parts.append(_ivf_gather_search(q, probe_mask, blocks, st["vec_blocks"],
+                                            st["sq_blocks"], st["list_blocks"], st["id_blocks"],
+                                            min(k, g * self.BLOCK)))
+        return _merge_shards(parts, k, self.mesh.first)
+
+    def _run_chunks(self, qall: torch.Tensor, nq: int, k: int):
+        self._check_fresh()
+        chunk = self.QUERY_CHUNK
+        if qall.shape[0] % chunk:
+            qall = torch.nn.functional.pad(qall, (0, 0, 0, chunk - qall.shape[0] % chunk))
+        d_out = np.full((nq, k), np.inf, dtype=np.float32)
+        i_out = np.full((nq, k), -1, dtype=np.int64)
+        for q0 in range(0, nq, chunk):
+            m = min(chunk, nq - q0)
+            d2, ids = self._search_chunk(qall[q0:q0 + chunk], k)
+            cols = d2.shape[1]
+            d_out[q0:q0 + m, :cols] = d2[:m].cpu().numpy()
+            i_out[q0:q0 + m, :cols] = ids[:m].cpu().numpy()
+        return d_out, i_out
+
+    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        queries = np.asarray(queries, dtype=np.float32)
+        q = _upload_queries(queries, self.query_upload, self.mesh.first).float()
+        return self._run_chunks(q, queries.shape[0], k)
+
+    def search_device_queries(self, queries: torch.Tensor, k: int):
+        """Device queries, sliced into chunks where they are; the (nq, k)
+        results come back to the host, as :class:`IVFIndex`'s do."""
+        if self.ntotal < k:
+            raise ValueError(f"index holds {self.ntotal} rows, fewer than k = {k}")
+        return self._run_chunks(queries.to(self.mesh.first, torch.float32), queries.shape[0], k)

@@ -78,7 +78,7 @@ def dense_traceback_walk_cuda(bp: torch.Tensor, x_sizes: torch.Tensor, y_sizes: 
         )
     if err != 0:
         raise RuntimeError(f"dense_traceback_walk kernel launch failed: CUDA error {err}")
-    LAUNCHES[DENSE] += 1
+    _build.count_launch(LAUNCHES, DENSE)
     return xs, ys, vs
 
 
@@ -125,5 +125,5 @@ def banded_traceback_walk_cuda(
         )
     if err != 0:
         raise RuntimeError(f"banded_traceback_walk kernel launch failed: CUDA error {err}")
-    LAUNCHES[BANDED] += 1
+    _build.count_launch(LAUNCHES, BANDED)
     return xs, ys, xps, yps, cs

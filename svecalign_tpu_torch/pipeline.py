@@ -17,9 +17,12 @@ during 5.1 and 5.3, joined before 5.4.
 
 The flags are the JAX pipeline's plus ``--device``, forwarded to every
 stage CLI that has it: the pipeline runs on the card unless ``--device
-cpu`` is given, and raises without a card. ``--data_parallel`` other than
-1 and ``--sharded_index`` are forwarded as in JAX; the stages then raise
-naming ROADMAP item 20 (multi-GPU).
+cpu`` is given, and raises without a card. ``--data_parallel`` (other
+than 1) and ``--sharded_index`` are forwarded as in JAX: the align stage
+splits each bucket's pairs over that many local devices and score_align
+shards its corpora over them (``parallel/mesh.py``). The embed stages need
+no flag: both encoders split their chunks' rows over every local card
+when there is more than one.
 
 CLI: ``python -m svecalign_tpu_torch.pipeline METADATA OUT_DIR --src_lang
 en --tgt_lang de [--stages segment,...,sort] [--vad_model energy]
@@ -100,11 +103,13 @@ def parse_args(argv=None):
     parser.add_argument("--alignment_max_size", type=int, default=6)
     parser.add_argument("--pair_batch", type=int, default=1)
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="forwarded to the align stage when not 1; multi-GPU is "
-                             "not ported yet (ROADMAP.md Queue 1 item 20).")
+                        help="shard the align stage's pair axis over this many "
+                             "local devices (0 = all). See seg_align.align. (The "
+                             "embed stages need no flag: both encoders split "
+                             "their batch rows over every visible card.)")
     parser.add_argument("--sharded_index", action="store_true", default=False,
-                        help="forwarded to score_align; not ported yet (ROADMAP.md "
-                             "Queue 1 item 20).")
+                        help="score_align: shard the loaded kNN corpora (Flat "
+                             "or IVF) row-wise over the local devices.")
     parser.add_argument("--fused", action="store_true", default=False,
                         help="fused embed->align handoff: keep each document's "
                              "embedding rows on the card between the stages, so "

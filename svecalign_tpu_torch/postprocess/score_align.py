@@ -19,8 +19,11 @@ there, and normalization, both searches and the margins run there
 (:func:`compute_margin_device`); only the (n,) margins come back. A chunk
 with any row not cached takes the file path, as in JAX.
 
-Left out: ``--sharded_index`` raises (ROADMAP item 20). ``--gpu_type`` is
-accepted and ignored, as in JAX.
+``--sharded_index`` shards whatever index was loaded, Flat or IVF, over
+the local devices' mesh (``ops/topk.py``'s ``ShardedFlatIndex`` and
+``ShardedIVFIndex``, faiss's fp16-shard in the reference); a Flat corpus
+the fused pipeline left on the card is split there, device to device.
+``--gpu_type`` is accepted and ignored, as in JAX.
 
 CLI: ``python -m svecalign_tpu_torch.postprocess.score_align METADATA
 OUT_DIR --embed_dir E --align_dir A --src_lang S --tgt_lang T --index_dir I
@@ -36,7 +39,15 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from svecalign_tpu_torch.ops.topk import FlatIndex, normalize_l2, normalize_rows_device
+from svecalign_tpu_torch.ops.topk import (
+    FlatIndex,
+    IVFIndex,
+    ShardedFlatIndex,
+    ShardedIVFIndex,
+    normalize_l2,
+    normalize_rows_device,
+)
+from svecalign_tpu_torch.parallel.mesh import make_mesh
 from svecalign_tpu_torch.postprocess.prep_index import (
     load_embed_from_entries,
     parse_embed_tsv_entries,
@@ -87,7 +98,8 @@ def parse_args(argv=None):
                         help="query upload precision: fp16 halves the bytes "
                              "(~1e-3 relative margin noise); fp32 is exact.")
     parser.add_argument("--sharded_index", action="store_true", default=False,
-                        help="shard the corpus over several cards (not ported yet).")
+                        help="shard the loaded index (Flat or IVF) row-wise over the "
+                             "local devices (faiss fp16-shard).")
     parser.add_argument("--corpus_quant", type=str, default="fp16",
                         choices=["fp16", "int8"],
                         help="device-corpus precision for Flat indexes: int8 "
@@ -188,13 +200,26 @@ def compute_margin_device(idx_x, idx_y, qx: torch.Tensor, qy: torch.Tensor, n: i
     return m[:n].cpu().numpy().astype(np.float32)
 
 
-def main(argv=None):
+def shard_index(index, mesh, corpus_quant: str):
+    """The ``--sharded_index`` tier of a loaded index: Flat and IVF
+    corpora row-sharded over ``mesh``; int8 applies to Flat only."""
+    if isinstance(index, FlatIndex):
+        return ShardedFlatIndex.from_index(
+            index, mesh, corpus_quant="int8" if corpus_quant == "int8" else "none")
+    if isinstance(index, IVFIndex):
+        if corpus_quant == "int8":
+            logger.warning("--corpus_quant int8 only applies to Flat corpora; "
+                           "sharded IVF keeps fp16")
+        return ShardedIVFIndex(index, mesh, query_upload=index.query_upload)
+    return index
+
+
+def main(argv=None, mesh=None):
+    """Run the stage on ``argv`` (default: the command line). ``mesh``:
+    the devices ``--sharded_index`` shards over (default: every local
+    device of ``--device``'s type, ``parallel.mesh.make_mesh``)."""
     args = parse_args(argv)
     logger.info(args)
-    if args.sharded_index:
-        raise NotImplementedError(
-            "--sharded_index (a corpus sharded over several cards) is not ported to "
-            "svecalign_tpu_torch yet (ROADMAP.md Queue 1 item 20)")
     device = resolve_device(args.device)
     phase_seconds.clear()
 
@@ -229,7 +254,7 @@ def main(argv=None):
         src_index.query_upload = tgt_index.query_upload = "float16"
         logger.info("Queries upload as fp16 (half the bytes)")
 
-    if args.corpus_quant == "int8":
+    if args.corpus_quant == "int8" and not args.sharded_index:
         if isinstance(src_index, FlatIndex) and isinstance(tgt_index, FlatIndex):
             src_index.corpus_quant = tgt_index.corpus_quant = "int8"
             logger.info("Device corpora quantize to int8 (half fp16 memory, "
@@ -238,6 +263,13 @@ def main(argv=None):
             logger.warning("--corpus_quant int8 only applies to Flat "
                            "indexes; loaded %s/%s keep fp16",
                            type(src_index).__name__, type(tgt_index).__name__)
+
+    if args.sharded_index:
+        mesh = mesh if mesh is not None else make_mesh(device=device)
+        src_index = shard_index(src_index, mesh, args.corpus_quant)
+        tgt_index = shard_index(tgt_index, mesh, args.corpus_quant)
+        logger.info(f"Corpora sharded over {mesh} ({type(src_index).__name__} / "
+                    f"{type(tgt_index).__name__})")
 
     if min(src_index.ntotal, tgt_index.ntotal) < args.k:
         # faiss pads missing neighbors with huge distances, so the k-mean

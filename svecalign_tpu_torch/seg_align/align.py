@@ -11,7 +11,12 @@ batched pyramid (``vecalign/batch.py``): each bucket uploads its raw fp16
 the device. In a fused pipeline run (``utils/embed_cache.py`` enabled) the
 pairs whose rows the embed stage left on the card skip the ``.embed``
 read and the upload (``vecalign/batch.py::stage_rows_device``); the
-batched driver then runs even at ``--pair_batch 1``, as in JAX.
+batched driver then runs even at ``--pair_batch 1``, as in JAX. With
+``--data_parallel N`` (0 = every local card) each bucket's pairs split
+over a mesh of N devices (``parallel/mesh.py``), each shard's pyramid on
+its own card; it implies the batched driver, and ``--pair_batch`` rounds
+up to a multiple of N, a short bucket repeating its last pair (whose
+results are dropped), as in JAX.
 
 CLI: ``python -m svecalign_tpu_torch.seg_align.align METADATA OUT_DIR
 --src_lang S --tgt_lang T --seg_dir D --concat_dir C --embed_dir E
@@ -35,7 +40,6 @@ from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.file_utils import check_exist, read_metadata
@@ -45,7 +49,6 @@ from svecalign_tpu_torch.vecalign.vecalign import align as vecalign_func
 
 logger = logging.getLogger(__name__)
 
-_MULTI_GPU = "ROADMAP.md Queue 1 item 20 (multi-GPU, parallel/mesh.py)"
 _NATIVE = "ROADMAP.md Queue 1 item 7b (the native float64 backend)"
 
 
@@ -91,7 +94,11 @@ def parse_args(argv=None):
                         help="align this many document pairs per device program "
                              "(batched pyramid; one launch per level and bucket).")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help=f"values other than 1 are not ported yet: {_MULTI_GPU}.")
+                        help="shard each bucket's pair axis over this many local "
+                             "devices (parallel/mesh.py; the DP is per pair, so no "
+                             "collective is needed). 0 = all local devices. Implies "
+                             "the batched driver; pair_batch is rounded up to a "
+                             "multiple of the device count.")
     parser.add_argument("--upload_quant", type=str, default="fp16",
                         choices=["fp16", "int8", "int4"],
                         help="embedding upload precision of the batched path "
@@ -115,8 +122,6 @@ def check_ported(args) -> None:
     """Exit with an error naming the ROADMAP item for every flag whose path
     this package does not have yet; nothing is quietly ignored."""
     unported = []
-    if args.data_parallel != 1:
-        unported.append(f"--data_parallel {args.data_parallel}: {_MULTI_GPU}")
     if args.dp_backend in ("pallas", "xla"):
         unported.append(
             f"--dp_backend {args.dp_backend}: a JAX backend; this package has "
@@ -246,9 +251,10 @@ def main(argv=None):
         ign_indices_dir,
     )
     with _profile_trace(args.profile_dir, device):
-        # the fused handoff lives in the batched driver, so use it (even at
-        # batch 1) whenever the embed stage may have left rows on the card
-        if args.pair_batch > 1 or embed_cache.enabled:
+        # the fused handoff and the mesh live in the batched driver, so use
+        # it (even at batch 1) whenever the embed stage may have left rows
+        # on the card or a mesh is asked for
+        if args.pair_batch > 1 or embed_cache.enabled or args.data_parallel != 1:
             if args.pair_batch <= 1:
                 logger.info(
                     "fused handoff: using the batched aligner driver even at "
@@ -271,10 +277,13 @@ def _run_pairs_batched(args, valid_pairs):
         read_in_embeddings,
         read_sent2id,
     )
+    from svecalign_tpu_torch.parallel.mesh import batch_sharding, make_mesh
     from svecalign_tpu_torch.vecalign.batch import (
+        bucket_shape,
         run_staged,
         stage_rows_device,
         stage_rows_upload,
+        sync_staged,
     )
     from svecalign_tpu_torch.vecalign.vecalign import (
         load_ignore_index_file,
@@ -358,14 +367,34 @@ def _run_pairs_batched(args, valid_pairs):
             + f" (cache stats: {embed_cache.stats})"
         )
 
+    # several devices: each bucket's pairs split over a mesh's data axis;
+    # every device stage partitions with no cross-pair dependence
+    sharding = None
+    pair_batch = args.pair_batch
+    if args.data_parallel != 1:
+        mesh = make_mesh(n_devices=args.data_parallel or None, device=args.device)
+        n_dev = mesh.shape["data"]
+        sharding = batch_sharding(mesh)
+        pair_batch = -(-max(pair_batch, 1) // n_dev) * n_dev
+        logger.info(f"data-parallel aligner: {mesh}, pair_batch {pair_batch}")
+
+    def pad_bucket(bucket):
+        """With a mesh, repeat the last pair until the bucket splits evenly
+        over it; the repeats' results are dropped by the result zip."""
+        if sharding is None:
+            return bucket
+        return bucket + bucket[-1:] * (-len(bucket) % sharding.mesh.shape["data"])
+
     def stage_upload(bucket):
         return stage_rows_upload(
-            [(e0, i0, e1, i1) for _, e0, i0, e1, i1 in bucket],
-            quantize=args.upload_quant, device=args.device,
+            [(e0, i0, e1, i1) for _, e0, i0, e1, i1 in pad_bucket(bucket)],
+            quantize=args.upload_quant, device=args.device, sharding=sharding,
         )
 
     def stage_device(bucket):
-        return stage_rows_device([(e0, i0, e1, i1) for _, e0, i0, e1, i1 in bucket])
+        return stage_rows_device(
+            [(e0, i0, e1, i1) for _, e0, i0, e1, i1 in pad_bucket(bucket)],
+            sharding=sharding)
 
     # bucket by size so padding stays modest; fused pairs form their own
     # buckets. The JAX CLI pads a device-staged tail bucket up to the full
@@ -374,8 +403,8 @@ def _run_pairs_batched(args, valid_pairs):
     buckets = []
     for items, stage in ((loaded, stage_upload), (fused_loaded, stage_device)):
         items.sort(key=lambda it: it[2].shape[1] + it[4].shape[1])
-        buckets += [(items[s0: s0 + args.pair_batch], stage)
-                    for s0 in range(0, len(items), args.pair_batch)]
+        buckets += [(items[s0: s0 + pair_batch], stage)
+                    for s0 in range(0, len(items), pair_batch)]
 
     # bucket i + 1 is staged after bucket i's pyramid, on the same thread:
     # the stage time is logged so that overlapping the two can be judged
@@ -383,8 +412,7 @@ def _run_pairs_batched(args, valid_pairs):
         bucket, stage = buckets[bi]
         t0 = time.perf_counter()
         handle = stage(bucket)
-        if handle[0].is_cuda:
-            torch.cuda.synchronize()
+        sync_staged(handle)
         t1 = time.perf_counter()
         results = run_staged(handle, **kwargs)
         t2 = time.perf_counter()
@@ -396,10 +424,9 @@ def _run_pairs_batched(args, valid_pairs):
         prof["pyramid"] += t2 - t1
         prof["write"] += t3 - t2
         if profile:
-            v0 = handle[0]
+            P, n_pad, m_pad = bucket_shape(handle)
             logger.info(
-                f"align profile: bucket {bi} P={v0.shape[0]} "
-                f"n={v0.shape[2]} m={handle[1].shape[2]} "
+                f"align profile: bucket {bi} P={P} n={n_pad} m={m_pad} "
                 f"stage={t1 - t0:.3f}s pyramid={t2 - t1:.3f}s "
                 f"write={t3 - t2:.3f}s"
             )

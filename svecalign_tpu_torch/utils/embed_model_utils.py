@@ -65,8 +65,13 @@ def add_embed_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
-# one model per argument tuple: in-process runs of the stage reuse it
+# one model per argument tuple: in-process runs of the stage reuse it, so
+# that stages 5.3 and 6.5 of one pipeline share one model (and its replicas)
 _model_memo = {}
+
+
+def _mesh_key(mesh):
+    return None if mesh is None else (tuple(map(str, mesh.devices.flat)), mesh.devices.shape)
 
 
 def load_embed_model(
@@ -80,16 +85,26 @@ def load_embed_model(
     batch_size: int = 16,
     upload_precision: str = "int16",
     device="cuda",
+    mesh=None,
 ):
+    """The stage's model, built once per argument tuple. ``mesh``: the
+    devices of data-parallel encoding (``parallel/mesh.py``); None takes
+    the encoders' default, every local card when there is more than one."""
     key = (embed_model_type, sl_ckpt_dir, sl_ckpt_name, max_tokens,
            sonar_name, sonar_fp16, compile_sonar, batch_size,
-           upload_precision, str(device))
+           upload_precision, str(device), _mesh_key(mesh))
     if key in _model_memo:
         logger.info(f"Reusing the loaded {embed_model_type} model")
         return _model_memo[key]
+    same_weights = next((m for k, m in _model_memo.items() if k[:-1] == key[:-1]), None)
+    if same_weights is not None:
+        # the same arguments on other devices: replicate the loaded weights
+        logger.info(f"Placing the loaded {embed_model_type} model over {mesh}")
+        _model_memo[key] = same_weights.with_mesh(mesh)
+        return _model_memo[key]
     model = _build_embed_model(
         embed_model_type, sl_ckpt_dir, sl_ckpt_name, max_tokens, sonar_name,
-        sonar_fp16, compile_sonar, batch_size, upload_precision, device,
+        sonar_fp16, compile_sonar, batch_size, upload_precision, device, mesh,
     )
     _model_memo[key] = model
     return model
@@ -106,6 +121,7 @@ def _build_embed_model(
     batch_size: int = 16,
     upload_precision: str = "int16",
     device="cuda",
+    mesh=None,
 ):
     if embed_model_type == "speech_laser":
         from svecalign_tpu_torch.models.laser_encoder import SpeechLaserModel
@@ -119,7 +135,7 @@ def _build_embed_model(
                 logger.warning(f"{candidate} not found; using random weights.")
         return SpeechLaserModel(
             ckpt_path=ckpt, max_tokens=max_tokens or 150 * SAMPLE_RATE,
-            upload_dtype=upload_precision, device=device,
+            upload_dtype=upload_precision, device=device, mesh=mesh,
         )
     if embed_model_type == "sonar":
         from svecalign_tpu_torch.models.sonar_encoder import SonarSpeechModel
@@ -127,7 +143,7 @@ def _build_embed_model(
         ckpt = sonar_name if sonar_name and Path(sonar_name).exists() else None
         return SonarSpeechModel(
             ckpt_path=ckpt, batch_size=batch_size,
-            upload_dtype=upload_precision, device=device,
+            upload_dtype=upload_precision, device=device, mesh=mesh,
         )
     raise NotImplementedError(f"Unsupported model {embed_model_type}")
 

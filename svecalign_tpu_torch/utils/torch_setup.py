@@ -7,12 +7,48 @@ The counterpart of the JAX package's ``utils/jax_setup.py``. Two things:
   flip DP ties);
 - device resolution: entry points run on the card unless the caller asks
   for the CPU. There is no fallback: asking for CUDA on a machine without
-  a usable card raises.
+  a usable card raises;
+- the multi-host hook (JAX ``jax_setup.py:32-47``): with
+  ``SVECALIGN_COORDINATOR=host:port`` set, plus ``SVECALIGN_NUM_PROCESSES``
+  and ``SVECALIGN_PROCESS_ID``, the first entry point to resolve a device
+  joins a ``torch.distributed`` process group (``nccl`` for the cards,
+  ``gloo`` for the CPU). The JAX package logs a failed join and goes on;
+  here it raises, since running alone when a pod was asked for would be a
+  hidden fallback. The file-level ``--rank/--n_shard`` sharding stays the
+  cross-job mechanism; the devices of one process form a mesh
+  (``parallel/mesh.py``).
 """
+
+import os
+from datetime import timedelta
 
 import torch
 
 DEVICES = ("cuda", "cpu")
+COORDINATOR_ENV = "SVECALIGN_COORDINATOR"
+JOIN_TIMEOUT_S = 300
+
+
+def join_coordinator(device_type: str) -> bool:
+    """Join the process group that ``SVECALIGN_COORDINATOR`` names, once
+    per process; False when the variable is unset. Raises when the join
+    fails or the variables disagree."""
+    import torch.distributed as dist
+
+    coord = os.environ.get(COORDINATOR_ENV)
+    if not coord:
+        return False
+    if dist.is_initialized():
+        return True
+    world = int(os.environ.get("SVECALIGN_NUM_PROCESSES", "1"))
+    rank = int(os.environ.get("SVECALIGN_PROCESS_ID", "0"))
+    if not 0 <= rank < world:
+        raise ValueError(f"SVECALIGN_PROCESS_ID={rank} is not a rank of "
+                         f"SVECALIGN_NUM_PROCESSES={world}")
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"tcp://{coord}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=JOIN_TIMEOUT_S))
+    return True
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -29,4 +65,5 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is false; "
             "pass device='cpu' (or --device cpu) to run on the CPU"
         )
+    join_coordinator(dev.type)
     return dev

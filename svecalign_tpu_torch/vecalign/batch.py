@@ -18,14 +18,15 @@ tensors their wrappers run the plain versions of ``ops/dp.py``.
 Semantics match pyramid.vecalign per pair, with one deliberate deviation in
 the default mode: the pyramid's mean-removal during downsampling is computed
 with per-pair validity masks (so padding rows don't shift the mean), making
-padded and unpadded pairs equivalent; sampling draws come from one seeded
-generator on the device, so a pair's deletion penalty depends on its bucket
-(same distribution, same percentile target). The draws are torch's, not
-``jax.random``'s: shared mode agrees with the JAX package in quality, not
-bit for bit. Pairs whose size product is below costs_sample_size use the
-exhaustive index cross product for the deletion knob (masked on device),
-matching make_del_knob's small-problem branch (reference
-dp_utils.py:278-323).
+padded and unpadded pairs equivalent; sampling draws come from seeded
+generators on the device, one per depth and role, drawn once per bucket
+and shared by its pairs (each scales them to its own sizes, as each pair's
+own stream starts from the seed in paired mode), so a pair's draws do not
+depend on its bucket. The draws are torch's, not ``jax.random``'s: shared
+mode agrees with the JAX package in quality, not bit for bit. Pairs whose
+size product is below costs_sample_size use the exhaustive index cross
+product for the deletion knob (masked on device), matching
+make_del_knob's small-problem branch (reference dp_utils.py:278-323).
 
 ``sampling="paired"`` instead gives every pair its own seeded numpy stream
 reproducing pyramid.vecalign's exact draw order (norm samples for every
@@ -37,13 +38,24 @@ pull per depth.
 Staging: :func:`stage_rows_upload` uploads a bucket's rows from the host;
 :func:`stage_rows_device` gathers them from rows the embed stage left on
 the device (the fused pipeline, ``utils/embed_cache.py``), uploading only
-the id maps. Single device: the multi-GPU mesh is not ported and raises
-naming its ROADMAP item.
+the id maps.
+
+Several devices (``sharding=parallel.mesh.batch_sharding(mesh)``, the
+counterpart of the JAX package's pair-axis ``NamedSharding``): the
+bucket's pairs split into contiguous slices over the mesh's data axis,
+each shard staged on its own device at the whole bucket's padded shapes,
+and :func:`run_staged` runs the pyramid of each shard on its device, the
+shards in turn on the calling thread (a shard's pyramid pulls each
+level's paths to the host, so the shards overlap little; a worker thread
+per shard was measured slower still: ``parallel/mesh.py::run_on_shards``).
+No collective is needed: the DP has no cross-pair dependence. The shared
+mode's draws are made once per bucket, before the split, so a sharded
+bucket equals the unsharded one; results come back in pair order.
 """
 
 import math
 import os
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +63,7 @@ import torch
 from svecalign_tpu_torch.ops import costs as costs_ops
 from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda, traceback_cuda
 from svecalign_tpu_torch.ops import dp as dp_ops
+from svecalign_tpu_torch.parallel.mesh import Mesh, Sharding, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils.log_utils import logging
 from svecalign_tpu_torch.utils.phase_clock import PhaseClock
 from svecalign_tpu_torch.utils.torch_setup import resolve_device
@@ -71,8 +84,6 @@ from svecalign_tpu_torch.vecalign.traceback import (
 logger = logging.getLogger("vecalign.batch")
 
 Alignment = Tuple[List[int], List[int]]
-
-_MULTI_GPU = "ROADMAP.md Queue 1 item 20 (multi-GPU, parallel/mesh.py)"
 
 # the gate lives with the walks (ops.dp); re-exported for callers
 device_traceback_enabled = dp_ops.device_traceback_enabled
@@ -123,7 +134,7 @@ def _batched_gather_sample(vecs1: torch.Tensor, idxs: torch.Tensor) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# device-side sampling (shared mode): indices come from a generator on the
+# device-side sampling (shared mode): uniforms come from generators on the
 # device, so nothing but the (P,) size vectors is uploaded per depth
 # ---------------------------------------------------------------------------
 
@@ -139,35 +150,56 @@ def _stream(device: torch.device, seed: int, depth: int, role: int) -> torch.Gen
     return gen
 
 
-def _uniform_index(gen, shape, hi: torch.Tensor, device) -> torch.Tensor:
-    """Uniform indices in [0, hi) (hi >= 1, broadcast over ``shape``'s
-    trailing axes) drawn on the device."""
-    u = torch.rand(shape, generator=gen, device=device)
-    hi = hi.reshape(hi.shape + (1,) * (len(shape) - hi.dim()))
-    return torch.minimum((u * hi).long(), hi.long() - 1)
+def _draw(device: torch.device, seed: int, depth: int, role: int, shape) -> torch.Tensor:
+    """Uniforms in [0, 1) of ``shape`` from the (depth, role) stream."""
+    return torch.rand(shape, generator=_stream(device, seed, depth, role), device=device)
 
 
-def _device_norm_sample(gen, vecs1, h_sizes1, samps: int) -> torch.Tensor:
-    """Draw ceil(num_samps/overlaps) indices per overlap plane per pair on
-    the device and gather the sample matrix. Size-0 pairs gather row 0 (zero
+def _shared_draws(device, seed: int, max_depth: int, o0: int, o1: int, num_samps_for_norm: int,
+                  S: int) -> dict:
+    """Every uniform a shared-mode bucket draws, for each depth: the norm
+    samples of both sides and the knob's (x, y) pairs. No axis is the
+    bucket's: every pair scales the same draws to its own sizes, so a
+    pair's draws depend neither on the bucket's size nor on its other
+    pairs, and a bucket drawn once before it is split over a mesh equals
+    the unsharded one."""
+    samps1 = math.ceil(num_samps_for_norm / o1)
+    samps0 = math.ceil(num_samps_for_norm / o0)
+    out = {}
+    for depth in range(max_depth + 1):
+        out[depth, _ROLE_NORM1] = _draw(device, seed, depth, _ROLE_NORM1, (o1, samps1))
+        out[depth, _ROLE_NORM0] = _draw(device, seed, depth, _ROLE_NORM0, (o0, samps0))
+        out[depth, _ROLE_KNOB] = _draw(device, seed, depth, _ROLE_KNOB, (2, S))
+    return out
+
+
+def _uniform_index(u: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Indices in [0, hi) for each pair: (P,) ``hi`` (>= 1) times the
+    uniforms ``u`` shared by the pairs -> (P,) + u.shape."""
+    hi = hi.reshape(hi.shape + (1,) * u.dim())
+    return torch.minimum((u[None] * hi).long(), hi.long() - 1)
+
+
+def _device_norm_sample(u, vecs1, h_sizes1) -> torch.Tensor:
+    """Index every pair's overlap planes with the (o1, samps) uniforms
+    ``u`` and gather the sample matrix. Size-0 pairs gather row 0 (zero
     padding -> the compute_norms 'ones' fallback)."""
-    p, o1, _, _ = vecs1.shape
-    idx = _uniform_index(gen, (p, o1, samps), h_sizes1.clamp(min=1), vecs1.device)
+    idx = _uniform_index(u, h_sizes1.clamp(min=1))
     return _batched_gather_sample(vecs1, idx)
 
 
-def _device_knob_penalty(gen, v0, v1, n0, n1, h0, h1, S: int, frac: float) -> torch.Tensor:
+def _device_knob_penalty(u, v0, v1, n0, n1, h0, h1, S: int, frac: float) -> torch.Tensor:
     """Deletion penalties for a bucket with NO index upload: random pair
-    draws (or the exhaustive cross product for pairs smaller than the
-    sample budget, reference dp_utils.py:278-323) are generated on device,
-    scored, histogrammed, and percentile-interpolated on device."""
+    draws from the (2, S) uniforms ``u`` (or the exhaustive cross product
+    for pairs smaller than the sample budget, reference
+    dp_utils.py:278-323) are indexed, scored, histogrammed and
+    percentile-interpolated on device."""
     dev = v0.device
-    p = v0.shape[0]
     h0, h1 = h0.long(), h1.long()
     hx = h0.clamp(min=1)
     hy = h1.clamp(min=1)
-    xs = _uniform_index(gen, (p, S), hx, dev)
-    ys = _uniform_index(gen, (p, S), hy, dev)
+    xs = _uniform_index(u[0], hx)
+    ys = _uniform_index(u[1], hy)
     small = (h0 * h1 < S) & (h0 > 0) & (h1 > 0)
     ar = torch.arange(S, device=dev)
     ex_x = torch.minimum(ar[None, :] // hy[:, None], hx[:, None] - 1)
@@ -257,11 +289,11 @@ def _batched_banded_costs(
     return out
 
 
-def _banded_chunk_for_batch(p: int) -> int:
-    """Anti-diagonal chunk for banded costs in shared mode: P * chunk is
-    capped, as in the JAX package, where one chunk's tile spans the bucket."""
-    c = 4096 // max(p, 1)
-    return max(64, 1 << (c.bit_length() - 1)) if c >= 64 else 64
+# anti-diagonals per windowed cost tile, in both sampling modes: the
+# per-pair aligner's chunk, so a pair's banded costs are the per-pair
+# path's, whatever its bucket. (The JAX package takes 4096 / P in shared
+# mode: there one chunk's tile spans the bucket; here the loop is per pair.)
+BANDED_CHUNK = 512
 
 
 def _band_pad(n_level: int, m_level: int) -> int:
@@ -284,10 +316,36 @@ def _prep_band_offsets(boff_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return b, torch.cat([first, first, b + 1], dim=1)
 
 
-def _pair_mesh(arr):
-    """The JAX package's test for a bucket sharded over a device mesh. This
-    package runs on one device."""
-    raise NotImplementedError(f"not ported yet: {_MULTI_GPU}")
+class ShardedBucket(NamedTuple):
+    """A bucket staged over a mesh's data axis: ``shards[i]`` is the
+    ``(v0, v1, sizes0, sizes1)`` handle of the i-th contiguous slice of
+    the pairs, on the i-th data device, padded to the whole bucket's
+    shapes."""
+
+    mesh: Mesh
+    shards: list
+
+
+def _pair_mesh(handle):
+    """The mesh a staged bucket is sharded over, or None (the JAX
+    package's test of a pair-sharded array)."""
+    return handle.mesh if isinstance(handle, ShardedBucket) else None
+
+
+def bucket_shape(handle) -> Tuple[int, int, int]:
+    """(pairs, padded source segments, padded target segments) of a
+    staged bucket, sharded or not."""
+    shards = handle.shards if isinstance(handle, ShardedBucket) else [handle]
+    v0, v1 = shards[0][0], shards[0][1]
+    return sum(h[0].shape[0] for h in shards), v0.shape[2], v1.shape[2]
+
+
+def sync_staged(handle) -> None:
+    """Wait for a staged bucket's device work (the stage phase's end)."""
+    shards = handle.shards if isinstance(handle, ShardedBucket) else [handle]
+    for h in shards:
+        if h[0].is_cuda:
+            torch.cuda.synchronize(h[0].device)
 
 
 def _run_batched_banded_dp(
@@ -411,7 +469,9 @@ and walked paths (device walks)."""
 
 phase_seconds = {}
 """With SVECALIGN_ALIGN_PROFILE=1: cumulative wall seconds of the batched
-pyramid by phase, the device synchronised at each phase's end."""
+pyramid by phase, the device synchronised at each phase's end (summed over
+the shards of a sharded bucket)."""
+
 
 
 def shape_grid_mode() -> str:
@@ -481,10 +541,17 @@ def _pad_id_maps(pairs):
     return ids0, ids1, sizes0, sizes1
 
 
+def _check_sharding(sharding, n_pairs: int):
+    if not isinstance(sharding, Sharding) or not sharding.batch:
+        raise TypeError("sharding must be parallel.mesh.batch_sharding(mesh)")
+    return shard_slices(n_pairs, sharding.mesh)  # raises unless P splits evenly
+
+
 def stage_rows_upload(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]],
     quantize=False,
     device="cuda",
+    sharding=None,
 ):
     """Pad a bucket of (emb_rows0, ids0, emb_rows1, ids1) pairs, upload it
     to ``device`` and build the overlap tensors there. Returns an opaque
@@ -493,14 +560,30 @@ def stage_rows_upload(
     ``quantize``: False/"fp16" uploads the raw dtype; True/"int8" per-row
     symmetric int8 (+ fp32 scales) — half the fp16 bytes, ~0.3% cosine
     noise; "int4" packs two codes per byte — quarter of fp16, ~2% cosine
-    noise."""
-    dev = resolve_device(device)
+    noise.
 
-    def put(a):
-        return torch.from_numpy(a).to(dev)
+    ``sharding``: ``parallel.mesh.batch_sharding(mesh)`` splits the pairs
+    over the mesh's data axis (``len(pairs)`` must divide evenly): each
+    shard's rows travel straight to its device, padded to the whole
+    bucket's shapes, and ``device`` is not used."""
+    if sharding is not None:
+        slices = _check_sharding(sharding, len(pairs))
+        padded = _pad_bucket_rows(pairs)
+        devs = sharding.mesh.data_devices
+        shards = [_upload_padded(tuple(a[sl] for a in padded), quantize, d)
+                  for sl, d in zip(slices, devs)]
+        handle = ShardedBucket(sharding.mesh, shards)
+    else:
+        handle = _upload_padded(_pad_bucket_rows(pairs), quantize, resolve_device(device))
+    upload_stats["buckets"] += 1
+    return handle
 
+
+def _pad_bucket_rows(pairs):
+    """The host side of :func:`stage_rows_upload`: (emb0, emb1, ids0, ids1,
+    sizes0, sizes1), each with a leading pair axis, padded to the bucket's
+    (gridded) shapes."""
     P = len(pairs)
-    mode = {False: "fp16", True: "int8"}.get(quantize, quantize)
     dim = pairs[0][0].shape[1]
     in_dtype = pairs[0][0].dtype
 
@@ -516,6 +599,17 @@ def stage_rows_upload(
         # NaN rows are zeroed on device in _build_doc_tensors
         emb0[i, : e0.shape[0]] = e0
         emb1[i, : e1.shape[0]] = e1
+    return emb0, emb1, ids0, ids1, sizes0, sizes1
+
+
+def _upload_padded(padded, quantize, dev: torch.device):
+    """Upload one padded bucket (or shard of one) to ``dev`` and build its
+    overlap tensors there; counts the bytes in ``upload_stats``."""
+    emb0, emb1, ids0, ids1, sizes0, sizes1 = padded
+    mode = {False: "fp16", True: "int8"}.get(quantize, quantize)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     if mode in ("int4", "int8"):
         quant, build = {
@@ -534,7 +628,6 @@ def stage_rows_upload(
     else:
         raise ValueError(f"quantize must be fp16, int8 or int4, got {quantize!r}")
     upload_stats["bytes"] += sum(a.nbytes for a in staged)
-    upload_stats["buckets"] += 1
     return (v0, v1, sizes0, sizes1)
 
 
@@ -549,12 +642,29 @@ def stage_rows_device(pairs, sharding=None):
     to bank rows and the overlap tensors gathered from the bank in fp16
     (:func:`_build_doc_tensors_flat`). The JAX package pads the bank's
     document count to a power of two, an XLA shape rule; here the bank
-    holds the distinct documents only. ``sharding`` (a pair-axis mesh) is
-    not ported and raises."""
-    if sharding is not None:
-        raise NotImplementedError(f"not ported yet: {_MULTI_GPU}")
-    ids0, ids1, sizes0, sizes1 = _pad_id_maps(pairs)
+    holds the distinct documents only.
 
+    ``sharding`` (``parallel.mesh.batch_sharding(mesh)``): the pairs split
+    over the mesh's data axis as in :func:`stage_rows_upload`, and each
+    shard's bank holds the documents of its own pairs, copied from the
+    device that caches them to the shard's device. (The JAX package
+    replicates the whole bank on every device.)"""
+    ids0, ids1, sizes0, sizes1 = _pad_id_maps(pairs)
+    if sharding is None:
+        handle = _stage_bank(pairs, ids0, ids1, sizes0, sizes1, None)
+    else:
+        slices = _check_sharding(sharding, len(pairs))
+        handle = ShardedBucket(sharding.mesh, [
+            _stage_bank(pairs[sl], ids0[sl], ids1[sl], sizes0[sl], sizes1[sl], dev)
+            for sl, dev in zip(slices, sharding.mesh.data_devices)])
+    upload_stats["buckets"] += 1
+    return handle
+
+
+def _stage_bank(pairs, ids0, ids1, sizes0, sizes1, device):
+    """One device's part of :func:`stage_rows_device`: the bank of the
+    pairs' distinct documents on ``device`` (None: where they are cached),
+    and the overlap tensors gathered from it."""
     slot_of, unique = {}, []
     for p in pairs:
         for rows in (p[0], p[2]):
@@ -568,6 +678,8 @@ def stage_rows_device(pairs, sharding=None):
                          "and device")
     rows = first.shape[0]
     bank = torch.cat(unique) if len(unique) > 1 else first
+    if device is not None:
+        bank = bank.to(device)
 
     slot0 = np.array([slot_of[id(p[0])] for p in pairs], np.int32)
     slot1 = np.array([slot_of[id(p[2])] for p in pairs], np.int32)
@@ -576,15 +688,31 @@ def stage_rows_device(pairs, sharding=None):
     v0 = _build_doc_tensors_flat(bank, torch.from_numpy(gids0).to(bank.device))
     v1 = _build_doc_tensors_flat(bank, torch.from_numpy(gids1).to(bank.device))
     upload_stats["bytes"] += gids0.nbytes + gids1.nbytes
-    upload_stats["buckets"] += 1
     return (v0, v1, sizes0, sizes1)
 
 
 def run_staged(handle, **kwargs) -> List[Tuple[List[Alignment], np.ndarray]]:
     """Run the batched pyramid on a bucket staged by stage_rows_upload or
-    stage_rows_device."""
-    v0, v1, sizes0, sizes1 = handle
-    return _vecalign_batched_core(v0, v1, sizes0, sizes1, **kwargs)
+    stage_rows_device. A sharded bucket runs each shard's pyramid on its
+    device, shard after shard, and returns every pair's result in pair
+    order."""
+    if not isinstance(handle, ShardedBucket):
+        v0, v1, sizes0, sizes1 = handle
+        return _vecalign_batched_core(v0, v1, sizes0, sizes1, **kwargs)
+    draws = None
+    if kwargs.get("sampling", "shared") == "shared":
+        # drawn once, before the split, on the first shard's device
+        v0, v1 = handle.shards[0][0], handle.shards[0][1]
+        draws = _shared_draws(
+            v0.device, kwargs.get("seed", 42), _max_depth(v0, v1, kwargs["max_size_full_dp"]),
+            v0.shape[1], v1.shape[1], kwargs["num_samps_for_norm"], kwargs["costs_sample_size"])
+
+    def run(_, dev, shard):
+        v0, v1, sizes0, sizes1 = shard
+        mine = None if draws is None else {key: u.to(dev) for key, u in draws.items()}
+        return _vecalign_batched_core(v0, v1, sizes0, sizes1, draws=mine, **kwargs)
+
+    return [r for part in run_on_shards(handle.mesh, run, handle.shards) for r in part]
 
 
 def vecalign_batched_from_rows(
@@ -667,6 +795,17 @@ def _pull(tensors, kind: str):
     return out
 
 
+def _max_depth(v0: torch.Tensor, v1: torch.Tensor, max_size_full_dp: int) -> int:
+    """The bucket's pyramid depth, from its padded shapes."""
+    s0, s1 = v0.shape[2], v1.shape[2]
+    depth = 0
+    while s0 * s1 > max_size_full_dp**2:
+        depth += 1
+        s0 //= 2
+        s1 //= 2
+    return depth
+
+
 def _vecalign_batched_core(
     v0: torch.Tensor,
     v1: torch.Tensor,
@@ -681,27 +820,24 @@ def _vecalign_batched_core(
     seed: int = 42,
     sampling: str = "shared",
     dp_backend: str = "auto",
+    draws=None,
 ) -> List[Tuple[List[Alignment], np.ndarray]]:
-    """Shared pyramid over device-resident normalized (P, o, n, d) tensors."""
+    """Shared pyramid over device-resident normalized (P, o, n, d) tensors.
+    ``draws``: shared mode's uniforms (:func:`_shared_draws`), when the
+    caller drew them for a bucket it split; else they are drawn here."""
     if sampling not in ("shared", "paired"):
         raise ValueError(f"sampling must be 'shared' or 'paired', got {sampling!r}")
     if width_over2 < 3:
         width_over2 = 3
     dev = v0.device
     P = v0.shape[0]
-    n_pad, m_pad = v0.shape[2], v1.shape[2]
     clock = PhaseClock(dev, phase_seconds, "SVECALIGN_ALIGN_PROFILE")
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     # shared pyramid depth from the padded shapes
-    s0, s1 = n_pad, m_pad
-    max_depth = 0
-    while s0 * s1 > max_size_full_dp**2:
-        max_depth += 1
-        s0 //= 2
-        s1 //= 2
+    max_depth = _max_depth(v0, v1, max_size_full_dp)
 
     # sizes live twice: numpy for host bookkeeping (traceback bounds, paired
     # draws) and ONE device copy per side reused by every level
@@ -723,6 +859,9 @@ def _vecalign_batched_core(
 
     paired = sampling == "paired"
     pair_rngs = [np.random.default_rng(seed) for _ in range(P)] if paired else None
+    if not paired and draws is None:
+        draws = _shared_draws(dev, seed, max_depth, v0.shape[1], v1.shape[1],
+                              num_samps_for_norm, costs_sample_size)
 
     # margin normalizers for every depth BEFORE any knob draw (the per-pair
     # aligner's order, so "paired" RNG streams line up with pyramid.vecalign)
@@ -749,11 +888,9 @@ def _vecalign_batched_core(
             sample1 = _batched_gather_sample(e["v1"], put(idx1))
             sample0 = _batched_gather_sample(e["v0"], put(idx0))
         else:
-            # shared mode: the device generator draws the indices — no upload
-            sample1 = _device_norm_sample(
-                _stream(dev, seed, depth, _ROLE_NORM1), e["v1"], e["d_sizes1"], samps1)
-            sample0 = _device_norm_sample(
-                _stream(dev, seed, depth, _ROLE_NORM0), e["v0"], e["d_sizes0"], samps0)
+            # shared mode: the indices come from device uniforms — no upload
+            sample1 = _device_norm_sample(draws[depth, _ROLE_NORM1], e["v1"], e["d_sizes1"])
+            sample0 = _device_norm_sample(draws[depth, _ROLE_NORM0], e["v0"], e["d_sizes0"])
         e["n0"] = _batched_norms_from_sample(e["v0"], sample1)
         e["n1"] = _batched_norms_from_sample(e["v1"], sample0)
     clock.mark("norms")
@@ -808,7 +945,7 @@ def _vecalign_batched_core(
         else:
             # fully on device: draws -> scores -> histogram -> percentile
             e["del_penalty"] = _device_knob_penalty(
-                _stream(dev, seed, depth, _ROLE_KNOB),
+                draws[depth, _ROLE_KNOB],
                 e["v0"][:, 0], e["v1"][:, 0], e["n0"][:, 0], e["n1"][:, 0],
                 e["d_sizes0"], e["d_sizes1"],
                 S=S, frac=del_percentile_frac,
@@ -884,9 +1021,7 @@ def _vecalign_batched_core(
         band_costs = _batched_banded_costs(
             e["v0"], e["v1"], e["n0"], e["n1"], boff_in, [len(p) for p in paths],
             e["h_sizes0"], e["h_sizes1"], x_offsets, y_offsets, width_over2,
-            # paired mode matches the per-pair aligner's chunking so the
-            # windowed matmul tiles (and thus float rounding) line up
-            chunk=512 if paired else _banded_chunk_for_batch(P),
+            chunk=BANDED_CHUNK,
         )
         clock.mark("banded costs")
         csum, xp, yp = _run_batched_banded_dp(

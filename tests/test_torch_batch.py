@@ -296,8 +296,10 @@ def test_band_offsets_prep_and_chunk_rule():
     np.testing.assert_array_equal(b_in.numpy(), np.asarray(want_in))
     np.testing.assert_array_equal(b_out.numpy(), np.asarray(want_out))
     assert b_out.dtype == torch.int32
-    for p in (1, 2, 7, 8, 32, 64, 100, 4096):
-        assert tbatch._banded_chunk_for_batch(p) == jbatch._banded_chunk_for_batch(p)
+    # the per-pair aligner's chunk in both sampling modes, whatever the
+    # bucket's size (JAX's shared mode takes 4096 / P: its tile spans the bucket)
+    assert tbatch.BANDED_CHUNK == 512
+    assert jbatch._banded_chunk_for_batch(8) == tbatch.BANDED_CHUNK
 
 
 # ---------------------------------------------------------------------------
@@ -388,12 +390,34 @@ def test_upload_byte_accounting(monkeypatch):
 
 
 def test_unported_staging_names_its_roadmap_item():
-    emb = torch.zeros((8, 4), dtype=torch.float16)
-    ids = np.zeros((3, 2), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
-        tbatch.stage_rows_device([(emb, ids, emb, ids)], sharding=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
-        tbatch._pair_mesh(torch.zeros(1))
+    """The upload staging's mesh branch (once a stub naming its ROADMAP
+    item): each shard holds its slice of the bucket, padded to the whole
+    bucket's shapes, bit-equal to the unsharded staging, in every upload
+    precision; the bytes are those of the unsharded bucket; a sharding
+    other than ``batch_sharding`` or an uneven split raises."""
+    from svecalign_tpu_torch.parallel.mesh import Mesh, batch_sharding, replicated
+
+    rng = np.random.default_rng(13)
+    pairs = []
+    for n0, n1 in [(30, 28), (12, 40), (25, 25), (40, 9)]:
+        e0, e1 = _rows_with_nan(rng, n0 + 4, 16), _rows_with_nan(rng, n1 + 4, 16)
+        pairs.append((e0, rng.integers(-1, n0 + 4, (3, n0)).astype(np.int32),
+                      e1, rng.integers(-1, n1 + 4, (3, n1)).astype(np.int32)))
+    mesh = Mesh(["cpu", "cpu"])
+    for mode in ("fp16", "int8", "int4"):
+        before = tbatch.upload_stats["bytes"]
+        whole = tbatch.stage_rows_upload(pairs, quantize=mode, device="cpu")
+        nbytes = tbatch.upload_stats["bytes"] - before
+        sharded = tbatch.stage_rows_upload(pairs, quantize=mode, sharding=batch_sharding(mesh))
+        assert tbatch.upload_stats["bytes"] - before == 2 * nbytes
+        assert tbatch._pair_mesh(sharded) is mesh and tbatch._pair_mesh(whole) is None
+        for i, shard in enumerate(sharded.shards):
+            for got, want in zip(shard, whole):
+                np.testing.assert_array_equal(np.asarray(got), np.asarray(want)[2 * i:2 * i + 2])
+    with pytest.raises(TypeError, match="batch_sharding"):
+        tbatch.stage_rows_upload(pairs, sharding=replicated(mesh))
+    with pytest.raises(ValueError, match="evenly"):
+        tbatch.stage_rows_upload(pairs[:3], sharding=batch_sharding(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +593,7 @@ def test_device_knob_uses_the_exhaustive_cross_product_for_small_pairs():
     n0 = n1 = torch.ones(2, 30)
     h0, h1 = _t([12, 30], torch.int32), _t([14, 30], torch.int32)
     pens = [tbatch._device_knob_penalty(
-        tbatch._stream(torch.device("cpu"), seed, 0, 2), _t(v0), _t(v1), n0, n1, h0, h1,
+        tbatch._draw(torch.device("cpu"), seed, 0, 2, (2, 500)), _t(v0), _t(v1), n0, n1, h0, h1,
         S=500, frac=0.2) for seed in (1, 2)]
     assert pens[0][0] == pens[1][0] and pens[0][1] != pens[1][1]
     x, y = np.meshgrid(np.arange(12), np.arange(14), indexing="ij")

@@ -117,7 +117,26 @@ def test_batched_default_device_raises_without_card(corpus, tmp_path, monkeypatc
         talign.main(argv)
 
 
-def test_data_parallel_still_exits_naming_its_item(corpus, tmp_path):
-    paths, _, _ = corpus
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 20"):
-        talign.main(cli_argv(paths, tmp_path, "cpu", EXTRA + ["--data_parallel", "2"]))
+def test_data_parallel_still_exits_naming_its_item(corpus, tmp_path, monkeypatch):
+    """--data_parallel (once an exit naming its ROADMAP item) on a CPU
+    mesh: at --pair_batch 3 over 2 shards the batch rounds up to 4, the
+    tail bucket of one pair repeats it to split evenly, and every file
+    equals a one-device run at --pair_batch 4 (a pair's result depends on
+    neither its shard nor its bucket-mates). --data_parallel 0 takes every
+    local device (SVECALIGN_CPU_DEVICES); more cards than are present
+    raise."""
+    paths, stems, _ = corpus
+    prof = talign.main(cli_argv(paths, tmp_path / "dp2", "cpu", EXTRA + ["--data_parallel", "2"]))
+    assert prof["buckets"] == 2
+    monkeypatch.setenv("SVECALIGN_CPU_DEVICES", "4")
+    talign.main(cli_argv(paths, tmp_path / "dp0", "cpu", EXTRA + ["--data_parallel", "0"]))
+    one = EXTRA[:-1] + ["4"]
+    talign.main(cli_argv(paths, tmp_path / "one", "cpu", one))
+    for stem in stems:
+        want = output_path(tmp_path / "one", stem).read_text()
+        assert output_path(tmp_path / "dp2", stem).read_text() == want
+        assert output_path(tmp_path / "dp0", stem).read_text() == want
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="asked for 2 cards, 1 present"):
+        talign.main(cli_argv(paths, tmp_path / "x", "cuda", EXTRA + ["--data_parallel", "2"]))

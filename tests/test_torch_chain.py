@@ -46,9 +46,10 @@ def tiny_card(monkeypatch):
         if p["embed_model_type"] == "speech_laser":
             return tlaser.SpeechLaserModel(LASER_TINY, max_tokens=p["max_tokens"],
                                            upload_dtype=p["upload_precision"],
-                                           device=p["device"])
+                                           device=p["device"], mesh=p["mesh"])
         return tsonar.SonarSpeechModel(SONAR_TINY, batch_size=4,
-                                       upload_dtype=p["upload_precision"], device=p["device"])
+                                       upload_dtype=p["upload_precision"], device=p["device"],
+                                       mesh=p["mesh"])
 
     def plain_kernel(q, k, v, table, lengths=None, left=64, right=8):
         attention_cuda.LAUNCHES["relkey_attention"] += 1

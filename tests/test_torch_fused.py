@@ -189,10 +189,39 @@ def test_stage_rows_device_equals_upload_and_jax(monkeypatch):
 
 
 def test_stage_rows_device_mesh_names_its_roadmap_item():
+    """The mesh branch of device staging (once a stub naming its ROADMAP
+    item): 8 pairs of 3 documents over a 4-shard CPU mesh give each shard
+    a bank of its own pairs' documents, stage exactly what the unsharded
+    call stages, and run to the same alignments and costs in both sampling
+    modes; a bad sharding or an uneven split raises."""
+    from svecalign_tpu_torch.parallel.mesh import Mesh, batch_sharding
+
     rng = np.random.default_rng(2)
-    a, b = _doc(rng, 10), _doc(rng, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
-        tbatch.stage_rows_device([(a[1], a[2], b[1], b[2])], sharding=object())
+    a, b, c = _doc(rng, 10), _doc(rng, 9), _doc(rng, 12)
+    pairs = [(x[1], x[2], y[1], y[2]) for x, y in [(a, b), (a, c), (b, c), (c, a)] * 2]
+    mesh = Mesh(["cpu"] * 4)
+    whole = tbatch.stage_rows_device(pairs)
+    before = dict(tbatch.upload_stats)
+    sharded = tbatch.stage_rows_device(pairs, sharding=batch_sharding(mesh))
+    assert tbatch.upload_stats["buckets"] == before["buckets"] + 1
+    n_pad, m_pad = whole[0].shape[2], whole[1].shape[2]
+    assert tbatch.upload_stats["bytes"] - before["bytes"] == 8 * N_OVER * (n_pad + m_pad) * 4
+    assert tbatch._pair_mesh(sharded) is mesh and tbatch._pair_mesh(whole) is None
+    assert tbatch.bucket_shape(sharded) == tbatch.bucket_shape(whole)
+    for i, shard in enumerate(sharded.shards):
+        for got, want in zip(shard, whole):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want)[2 * i:2 * i + 2])
+    for sampling in ("paired", "shared"):
+        res_whole = tbatch.run_staged(whole, sampling=sampling, **KWARGS)
+        res_sharded = tbatch.run_staged(sharded, sampling=sampling, **KWARGS)
+        assert len(res_sharded) == len(pairs)
+        for (a0, s0), (a1, s1) in zip(res_whole, res_sharded):
+            assert a0 == a1
+            np.testing.assert_array_equal(s0, s1)
+    with pytest.raises(TypeError, match="batch_sharding"):
+        tbatch.stage_rows_device(pairs, sharding=object())
+    with pytest.raises(ValueError, match="evenly"):
+        tbatch.stage_rows_device(pairs[:7], sharding=batch_sharding(mesh))
     with pytest.raises(ValueError, match="one"):
         tbatch.stage_rows_device([(a[1], a[2], b[1][:20], b[2])])
 

@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "preprocess.segment", "preprocess.detect_untranslate_segs",
                  "postprocess.filter_untrans_align", "models.vad", "analysis.dump_alignments",
                  "utils.audio_utils", "utils.mp_utils", "ops.fbank", "utils.audio_io",
-                 "utils.embed_cache", "pipeline"):
+                 "utils.embed_cache", "pipeline", "parallel.mesh"):
         assert f"svecalign_tpu_torch.{name}" in res["imported"]
     mods = res["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib"]

@@ -328,25 +328,34 @@ def test_fused_cache_autosizes_for_large_documents(tmp_path, monkeypatch):
 
 
 def test_mesh_flags_forwarded_and_the_stages_name_item_20(tmp_path, monkeypatch):
+    """--data_parallel reaches the align stage (only when not 1) and
+    --sharded_index score_align, with the JAX pipeline's argv; the stages
+    (which once raised, naming ROADMAP item 20) take them: on 8 CPU
+    shards, with no pair to align or score here."""
     meta = tmp_path / "md.tsv"
     meta.write_text("/a_en.ogg\t/a_de.ogg\n")
     base = [str(meta), str(tmp_path / "out"), "--src_lang", "en", "--tgt_lang", "de",
-            "--stages", "align,score_align", "--device", "cpu"]
-    plain = _record(monkeypatch, tpl, *base)
+            "--stages", "align,score_align"]
+    plain = _record(monkeypatch, tpl, *base, "--device", "cpu")
     assert "--data_parallel" not in plain["align"][0]
     assert "--sharded_index" not in plain["score_align"][0]
-    meshy = _record(monkeypatch, tpl, *base, "--data_parallel", "8", "--sharded_index")
+    meshy = _record(monkeypatch, tpl, *base, "--device", "cpu", "--data_parallel", "8",
+                    "--sharded_index")
     a = meshy["align"][0]
     assert a[a.index("--data_parallel") + 1] == "8"
     assert "--sharded_index" in meshy["score_align"][0]
+    want = _record(monkeypatch, jpl, *base, "--data_parallel", "8", "--sharded_index",
+                   port=False)
+    for stage in ("align", "score_align"):
+        assert [_drop_device(x) for x in meshy[stage]] == [tuple(x) for x in want[stage]]
 
     from svecalign_tpu_torch.postprocess import score_align
     from svecalign_tpu_torch.seg_align import align
 
-    with pytest.raises(SystemExit, match="item 20"):
-        align.main(list(a))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        score_align.main(list(meshy["score_align"][0]))
+    monkeypatch.setenv("SVECALIGN_CPU_DEVICES", "8")
+    assert align.main(list(a))["buckets"] == 0
+    (tmp_path / "out").mkdir(exist_ok=True)
+    score_align.main(list(meshy["score_align"][0]))
 
 
 def test_no_card_raises_and_unknown_stages_are_refused(tmp_path, monkeypatch):

@@ -208,7 +208,7 @@ def test_cuda_without_card_raises(monkeypatch):
     for make in (lambda: ttopk.FlatIndex(dim=8), lambda: ttopk.IVFIndex(dim=8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(RuntimeError, match="CUDA"):  # its default mesh: every card
         ttopk.ShardedFlatIndex(np.zeros((4, 8), np.float32))
     with pytest.raises(ValueError, match="multiple of"):
         ttopk.FlatIndex(dim=8, device=CPU).set_device_corpus(torch.zeros((3, 8)), 0)
