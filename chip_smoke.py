@@ -7,8 +7,13 @@ Phases, in order; any failure exits non-zero:
    limit;
 2. hold each kernel against its plain PyTorch version on the card, in
    every geometry its original admits: the banded DP (both routes), the
-   dense DP and the dense walk on ragged buckets, the banded walk on every
-   banded case's planes, the rel-key attention (up to T = 3000);
+   dense DP and the dense walk on ragged buckets (both orientations, sizes
+   off the strip width, strips past the last warp, empty sides), the
+   banded walk on every banded case's planes and on its own edge cases
+   (a ring that wraps, int32 planes, a long tail, buckets of 1-64 pairs,
+   walks past the shared-memory records, corrupt pointers and starts),
+   the rel-key attention (up to T = 3000); the dense DP's and the banded
+   walk's launch plans against the sources' own;
 3. run the stage-5.4 CLI (``svecalign_tpu_torch.seg_align.align``) on a
    synthetic hour-scale plenary pair written from a seed: the launch
    counts show it went through the kernels, its output must equal a run
@@ -22,7 +27,10 @@ Phases, in order; any failure exits non-zero:
    paths' shapes, both stage-5.4 runs by phase, and the traceback walks on
    the card against pull + host walk in turns; the DPs' and walks' latency
    bounds are chains of dependent steps, at latencies that a probe
-   (``csrc/chain_latency_probe.cu``) measures on the card;
+   (``csrc/chain_latency_probe.cu``) measures on the card; the dense DP and
+   the walks by CUDA-graph replay and eagerly, the dense DP and the banded
+   walk against their first designs' times (it fails if either is not
+   under them);
 5. run the stage-5.3 CLI (``svecalign_tpu_torch.seg_align.embed``) with the
    full-width 24-layer SONAR encoder (bf16, random weights from a seed) on
    a synthetic 10-minute document written from a seed: the rel-key kernel
@@ -96,6 +104,11 @@ pipeline-settings traffic.
 
 ``--checks`` runs phases 1-2 only; ``--dp`` runs phases 1-4 (stage 5.4
 alone: no SONAR model is built) and prints their ``[time]`` lines;
+``--ablation`` runs what ``--dp`` does and, in phase 4, measurement builds
+that no path of the port runs: the dense DP's first design in ablation
+modes (``measure/dense_dp_ablation.cu``), the shipped dense DP by strip
+count, and the banded walk with 1-15 producer warps (its source built
+with ``-DWALK_PRODUCERS=k``);
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
 ``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
 phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12; ``--profile``
@@ -601,6 +614,7 @@ def phase_kernel_checks(device):
                  + (f" ({smem} bytes of shared memory)" if route == "warp" else "")
                  + (" (forced)" if forced else "") + f" ok (max abs err {err})")
         _check_banded_walk(name, got, args[2], args[6], args[7])
+    phase_walk_checks(device)
     return max_err
 
 
@@ -656,6 +670,122 @@ def _check_banded_walk(name, planes, boff_out, x_sizes, y_sizes):
          f"{xp.dtype} pointers: five arrays equal, alignments and scores equal to the host walk's")
 
 
+P32_SIZES = P64_SIZES[:32]
+# (name, pair sizes, types, width_over2, a_pad): the banded walk's edges
+# beyond KERNEL_CASES' planes: a ring that wraps several times (A2 far over
+# the ring's 1024 rows of B = 16), int32 planes over a long band, a walk
+# that reaches the origin in a handful of steps beside a long one (a long
+# tail), the buckets of 1, 8, 32 and 64 pairs of the main path's band, a
+# band of one row a chunk (B = 1200), and a walk longer than the records
+# that shared memory holds
+WALK_CASES = [
+    ("a ring that wraps five times (A2 = 6002, B = 16)", [(3100, 2900)], DEFAULT_TYPES, 8, 0),
+    ("int32 planes over a long band (a type offset of 130)", [(1500, 60)],
+     [(1, 1), (130, 1)], 8, 0),
+    ("a walk of a handful of steps and a long tail", [(2000, 1900), (3, 2)], DEFAULT_TYPES, 8, 0),
+    ("P = 1 at the main path's band", [(1200, 1100)], DEFAULT_TYPES, 8, 0),
+    ("P = 8 padded past the longest pair", P8_SIZES, DEFAULT_TYPES, 8, 700),
+    ("P = 32", P32_SIZES, DEFAULT_TYPES, 8, 0),
+    ("P = 64", P64_SIZES, DEFAULT_TYPES, 8, 0),
+    ("a chunk of one row (B = 1200)", [(200, 150)], [(1, 1), (1, 2), (2, 1)], 600, 0),
+    ("a walk past the shared-memory records (over 16384 steps)", [(17000, 16800)], [(1, 1)],
+     8, 0),
+]
+# (name, what is done to the first case's planes or sizes) for the steps
+# whose successor is no band cell of a lower row: the walker follows them
+# from device memory, clamped, as the plain version does
+WALK_FAULTS = [
+    ("an unreached cell's pointers (-42) mid-path", "neg"),
+    ("zero pointers mid-path (the walk stays there)", "zero"),
+    ("pointers that move up a row mid-path", "up"),
+    ("a start past the band's last lane", "start_b"),
+    ("a start past the last row", "start_a"),
+]
+
+
+def _walk_fault(kind, planes, boff_out, x_sizes, y_sizes):
+    """Planes and sizes with one fault of WALK_FAULTS put in at the middle
+    step of each pair's plain walk."""
+    from svecalign_tpu_torch.ops import dp as dp_ops
+
+    csum, xp, yp = (t.clone() for t in planes)
+    x_sizes, y_sizes = x_sizes.clone(), y_sizes.clone()
+    if kind == "start_b":
+        y_sizes += xp.shape[2]
+        x_sizes -= xp.shape[2]
+    elif kind == "start_a":
+        x_sizes += xp.shape[1]
+    else:
+        xs, ys = dp_ops.banded_traceback_walk(csum, xp, yp, boff_out, x_sizes, y_sizes)[:2]
+        for i in range(xp.shape[0]):
+            taken = int(((xs[i] != 0) | (ys[i] != 0)).sum())
+            x, y = int(xs[i, taken // 2]), int(ys[i, taken // 2])
+            a = x + y
+            b = y - int(boff_out[i, a])
+            vx, vy = {"neg": (dp_ops.NEG_BP, dp_ops.NEG_BP), "zero": (0, 0), "up": (-1, 0)}[kind]
+            xp[i, a, b], yp[i, a, b] = vx, vy
+    return (csum, xp, yp), x_sizes, y_sizes
+
+
+def phase_walk_checks(device):
+    """The banded walk kernel on the planes of WALK_CASES, and on the first
+    case's planes with each fault of WALK_FAULTS: all five arrays equal to
+    the plain walk's (and, without faults, the alignments to the host
+    walk's); the wrapper's ring plan equal to the source's over the shapes
+    of both and a band too wide for it refused by both."""
+    import ctypes
+
+    import torch
+
+    from svecalign_tpu_torch.ops import dp as dp_ops
+    from svecalign_tpu_torch.ops import dp_cuda, traceback_cuda
+
+    lib = traceback_cuda._lib()
+    optin = dp_cuda._smem_optin(device.index or 0)
+    plan = (ctypes.c_int * 5)()
+    for a2, B in ((2693, 16), (6002, 16), (2, 6), (974, 140), (212, 1200), (50, 1 << 14),
+                  (50, 1 << 15), (50, 1 << 16), (40000, 16)):
+        refused = lib.banded_walk_plan(a2, B, optin, plan)
+        try:
+            want = tuple(traceback_cuda.banded_walk_plan(a2, B, optin))
+        except ValueError:
+            want = None
+        if (want is None) != bool(refused) or (want is not None and tuple(plan) != want):
+            raise AssertionError(f"banded_walk_plan({a2}, {B}): the source gives "
+                                 f"{tuple(plan)} (refused {refused}), the wrapper {want}")
+    # the wrapper raises, launching nothing, where the source's plan refuses
+    wide = torch.zeros((1, 3, 1 << 16), dtype=torch.int8, device=device)
+    ones = torch.ones(1, dtype=torch.int32, device=device)
+    before = traceback_cuda.LAUNCHES["banded_traceback_walk"]
+    try:
+        traceback_cuda.banded_traceback_walk_cuda(
+            wide.float(), wide, wide, torch.zeros((1, 3), dtype=torch.int32, device=device),
+            ones, ones)
+    except ValueError as e:
+        _log(f"[check] banded_traceback_walk, a band of 2**16 lanes: refused ({e})")
+    else:
+        raise AssertionError("banded_traceback_walk_cuda took a band of 2**16 lanes")
+    if traceback_cuda.LAUNCHES["banded_traceback_walk"] != before:
+        raise AssertionError("banded_traceback_walk_cuda counted a launch it refused")
+    rng = np.random.default_rng(97531)
+    first = None
+    for name, sizes, types, w2, a_pad in WALK_CASES:
+        args = _random_band_problem(rng, sizes, types, w2, device, a_pad=a_pad)
+        planes = dp_cuda.banded_dp_cuda_batched(*args)
+        wplan = traceback_cuda.banded_walk_plan(planes[1].shape[1], planes[1].shape[2], optin)
+        _check_banded_walk(f"{name} ({wplan.slots} slots of {1 << wplan.chunk_shift} rows)",
+                           planes, args[2], args[6], args[7])
+        first = first or (planes, args[2], args[6], args[7])
+    planes, boff_out, x_sizes, y_sizes = first
+    for name, kind in WALK_FAULTS:
+        f_planes, f_x, f_y = _walk_fault(kind, planes, boff_out, x_sizes, y_sizes)
+        got = traceback_cuda.banded_traceback_walk_cuda(*f_planes, boff_out, f_x, f_y)
+        torch.cuda.synchronize()
+        _assert_all_equal(f"banded_traceback_walk {name}", got,
+                          dp_ops.banded_traceback_walk(*f_planes, boff_out, f_x, f_y))
+        _log(f"[check] banded_traceback_walk {name}: five arrays equal to the plain walk's")
+
+
 P8_DENSE_SIZES = [(300 - 17 * k, 275 - 11 * ((5 * k) % 8)) for k in range(8)]
 # (name, pair sizes; the bucket is padded to the largest of each side):
 # the main path's 300 x 275, N != M either way, a side of 1, the smallest
@@ -672,6 +802,12 @@ DENSE_CASES = [
     ("a diagonal over the block's threads (1100 x 1300)", [(1100, 1300)]),
     ("P = 8, ragged sizes, distinct pens", P8_DENSE_SIZES),
     ("P = 3 with an empty side and a (1, 1)", [(0, 7), (1, 1), (12, 9)]),
+    ("off the strip width, n <= m (97 x 131)", [(97, 131)]),
+    ("off the strip width, n > m (131 x 97)", [(131, 97)]),
+    ("one strip and one row over (33 x 200)", [(33, 200)]),
+    ("strips past the last warp, n > m (800 x 530)", [(800, 530)]),
+    ("both orientations in one bucket", [(40, 97), (97, 40), (64, 64), (1, 200), (200, 1)]),
+    ("empty sides, P = 3", [(0, 0), (9, 0), (0, 33)]),
 ]
 
 
@@ -704,6 +840,24 @@ def phase_dense_checks(device):
     from svecalign_tpu_torch.ops import dp as dp_ops
     from svecalign_tpu_torch.vecalign.traceback import dense_alignments_from_steps, dense_traceback
 
+    import ctypes
+
+    from svecalign_tpu_torch.ops import dp_cuda
+
+    optin = dp_cuda._smem_optin(device.index or 0)
+    lib = dense_dp_cuda._lib()
+    plan = (ctypes.c_int * 4)()
+    for N, M, limit in ((300, 275, optin), (176, 160, optin), (1100, 1300, optin), (0, 7, optin),
+                        (1500, 40, optin), (4000, 4000, optin), (300, 275, 60000),
+                        (20, 30, 20000), (131, 97, optin), (800, 530, optin)):
+        refused = lib.dense_dp_plan(N, M, limit, plan)
+        try:
+            want = tuple(dense_dp_cuda.dense_dp_plan(N, M, limit))
+        except ValueError:
+            want = None
+        if (want is None) != bool(refused) or (want is not None and tuple(plan) != want):
+            raise AssertionError(f"dense_dp_plan({N}, {M}, {limit}): the source gives "
+                                 f"{tuple(plan)} (refused {refused}), the wrapper {want}")
     rng = np.random.default_rng(2468)
     max_err = 0.0
     for name, sizes in DENSE_CASES:
@@ -726,8 +880,11 @@ def phase_dense_checks(device):
             if not torch.equal(csum, want_csum):
                 raise AssertionError(f"dense_dp {name}: csum not bit-equal (max abs err {err})")
             P, N, M = args[0].shape
+            dplan = dense_dp_cuda.dense_dp_plan(N, M, optin)
+            strips = -(-N // (32 * dplan.rows))
             _log(f"[check] dense_dp {name}{'' if ties else ', no ties'}: P={P} N={N} M={M} "
-                 f"{dense_dp_cuda.block_threads(N, M)} threads: bp and csum equal")
+                 f"{dplan.rows} rows a lane, {dplan.warps} warps for {strips} strips: bp and "
+                 "csum equal")
 
             got = traceback_cuda.dense_traceback_walk_cuda(bp, args[2], args[3])
             torch.cuda.synchronize()
@@ -1318,9 +1475,191 @@ def _route_times(label, fetch_device, fetch_host, rebuild_device, rebuild_host):
 
 
 WALK_ROUTE_BUCKETS = (32, 64)  # synthetic buckets beyond the CLI run's, walk routes only
+WALK_PRODUCER_SWEEP = (1, 3, 6, 9, 12, 15)  # producer warps of the banded walk (--ablation)
+# The first designs' kernel ms per launch at the main path's shapes (P = 1
+# and P = 8; _cuda_time_ms of the wrapper, NVIDIA H100 80GB HBM3, 700 W):
+# the redesigned kernels' device times must come in under them
+FIRST_DESIGN_MS = {"dense_dp": {1: 0.1984, 8: 0.1007},
+           "banded_traceback_walk": {1: 0.3047, 8: 0.2609}}
 
 
-def phase_slice_times(stack, plan, probe, device):
+def _kernel_times(fn):
+    """(device ms per call by CUDA-graph replay, eager ms per call) of a
+    wrapper whose only device work is its kernel's launch (outputs from
+    torch.empty): graph replay leaves the host's per-call work out, the
+    eager time keeps it."""
+    graph = float(np.mean([_graph_time_ms(fn) for _ in range(2)]))
+    eager = float(np.mean([_cuda_time_ms(fn, reps=50) for _ in range(2)]))
+    return graph, eager
+
+
+SLOWER_THAN_FIRST_DESIGN = []
+
+
+def _faster_than_first_design(name, P, ms):
+    """Note a redesigned kernel's device time that is not under its first
+    design's; phase_slice_times fails at its end if any is."""
+    if ms >= FIRST_DESIGN_MS[name][P]:
+        SLOWER_THAN_FIRST_DESIGN.append(f"{name} at P = {P}: {ms:.4f} ms, not under the first "
+                                        f"design's {FIRST_DESIGN_MS[name][P]} ms")
+
+
+def _measurement_builds():
+    """Build the measurement libraries of ``--ablation``, which no path of
+    the port runs: ``measure/dense_dp_ablation.cu`` with the dense DP's
+    flags, and ``csrc/traceback_walk.cu`` with ``-DWALK_PRODUCERS=k`` for
+    each k of WALK_PRODUCER_SWEEP; one nvcc each, all started together,
+    into the port's build directory. Returns {name: ctypes.CDLL}; raises
+    if a build fails."""
+    import ctypes
+    import hashlib
+
+    from svecalign_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parent
+    builds = {"dense_dp_ablation": (root / "measure" / "dense_dp_ablation.cu",
+                                    _build.nvcc_flags("dense_dp"))}
+    for k in WALK_PRODUCER_SWEEP:
+        builds[f"traceback_walk_p{k}"] = (_build.CSRC_DIR / "traceback_walk.cu",
+                                          _build.nvcc_flags("traceback_walk")
+                                          + (f"-DWALK_PRODUCERS={k}",))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0, outs, procs = time.perf_counter(), {}, {}
+    for name, (src, flags) in builds.items():
+        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+        outs[name] = _build.BUILD_DIR / f"lib{name}-{digest}.so"
+        if not outs[name].exists():
+            procs[name] = subprocess.Popen(
+                [_build.find_nvcc(), *flags, "-o", str(outs[name]), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    failed = [f"{name}: nvcc exit {proc.returncode}\n{proc.communicate()[0]}"
+              for name, proc in procs.items() if proc.wait() != 0]
+    if failed:
+        raise RuntimeError("measurement build failed\n" + "\n".join(failed))
+    _log(f"[build] {len(procs)} measurement build(s) in {time.perf_counter() - t0:.1f}s")
+    return {name: ctypes.CDLL(str(out)) for name, out in outs.items()}
+
+
+def _walk_by_producers(label, walk_args, libs):
+    """The banded walk in the measurement builds with k producer warps
+    (``libs`` from _measurement_builds): each held to the plain version,
+    then timed by CUDA-graph replay of its launch."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import dp as dp_ops
+
+    xp = walk_args[1]
+    P, a2, B = xp.shape
+    outs = [torch.empty((P, a2), dtype=t, device=xp.device)
+            for t in (torch.int32, torch.int32, xp.dtype, xp.dtype, torch.float32)]
+    optin = dp_cuda._smem_optin(xp.device.index or 0)
+    argtypes = traceback_cuda._lib().banded_walk_launch.argtypes
+    want = dp_ops.banded_traceback_walk(*walk_args)
+    times = {}
+    for k in WALK_PRODUCER_SWEEP:
+        fn = libs[f"traceback_walk_p{k}"].banded_walk_launch
+        fn.argtypes = argtypes
+
+        def launch(fn=fn):
+            err = fn(*(t.data_ptr() for t in walk_args), P, a2, B, int(xp.dtype == torch.int8),
+                     optin, *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"banded walk with {k} producer warps: CUDA error {err}")
+
+        launch()
+        _assert_all_equal(f"banded_traceback_walk with {k} producer warps, {label}", outs, want)
+        times[k] = _graph_time_ms(launch)
+    _log(f"[time] banded_traceback_walk {label}, graph replay by producer warps: "
+         + ", ".join(f"{k}: {v:.4f} ms" for k, v in times.items()))
+
+
+DENSE_STRIP_ROWS = (32, 64, 128, 160, 256, 300)
+ABLATION_MODES = ("first design", "no bp or csum store", "costs pre-staged",
+                  "costs pre-staged, no store", "barrier only")
+
+
+def _diag_major_costs(costs, x_sizes, y_sizes):
+    """The (P, N + M + 2, min(N, M) + 1) copy of ``costs`` that the first
+    design's thread s reads at anti-diagonal d as [p, d, s] (measure/
+    dense_dp_ablation.cu, modes 2-3), +inf where its cell has no cost."""
+    import torch
+
+    P, N, M = costs.shape
+    w = min(N, M) + 1
+    out = torch.full((P, N + M + 2, w), float("inf"), dtype=torch.float32, device=costs.device)
+    d = torch.arange(N + M + 2, device=costs.device)[:, None]
+    slot = torch.arange(w, device=costs.device)[None, :]
+    for p, (n, m) in enumerate(zip(x_sizes.tolist(), y_sizes.tolist())):
+        r = slot.expand(len(d), w) if n <= m else d - slot
+        c = d - r
+        ok = (slot <= min(n, m)) & (r >= 1) & (c >= 1) & (r <= n) & (c <= m)
+        out[p] = torch.where(ok, costs[p, (r - 1).clamp(0, N - 1), (c - 1).clamp(0, M - 1)],
+                             out[p])
+    return out
+
+
+def phase_dense_ablation(label, args, sizes, latency_bound, libs):
+    """The first design's ablation builds (measure/dense_dp_ablation.cu,
+    ``libs`` from _measurement_builds) on the same inputs, graph-replay ms
+    each and cycles per step of the longest pair, beside the shipped
+    kernel: what the first design's ~680 cycles a step were spent on.
+    Modes 0 and 2 are held to the plain version first; at P = 1 also the
+    shipped kernel by strip count."""
+    import ctypes
+
+    import torch
+
+    from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda
+    from svecalign_tpu_torch.ops import dp as dp_ops
+
+    lib = libs["dense_dp_ablation"]
+    lib.dense_dp_ablation_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    lib.dense_dp_ablation_launch.restype = ctypes.c_int
+    costs, pens, xs, ys = args
+    P, N, M = costs.shape
+    staged = _diag_major_costs(costs, xs, ys)
+    bp = torch.full((P, N + 1, M + 1), -1, dtype=torch.int8, device=costs.device)
+    threads = min(1024, -(-(min(N, M) + 1) // 32) * 32)
+    steps = max(n + m + 1 for n, m in sizes)
+    clock = _sm_clock_hz()
+
+    def launch(mode):
+        err = lib.dense_dp_ablation_launch(
+            mode, (staged if mode in (2, 3) else costs).data_ptr(), pens.data_ptr(),
+            xs.data_ptr(), ys.data_ptr(), P, N, M, bp.data_ptr(), None, threads,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"dense_dp_ablation mode {mode}: CUDA error {err}")
+
+    for mode in (0, 2):
+        bp.fill_(-1)
+        launch(mode)
+        if not torch.equal(bp, dp_ops.dense_dp_batched(*args)[1]):
+            raise AssertionError(f"dense_dp_ablation mode {mode} ({ABLATION_MODES[mode]}): bp "
+                                 "differs from the plain version's")
+    times = {m: _graph_time_ms(lambda m=m: launch(m)) for m in range(len(ABLATION_MODES))}
+    times["shipped"] = _graph_time_ms(lambda: dense_dp_cuda.dense_dp_cuda(*args))
+    if P == 1:
+        # the shipped kernel by strip count: one pair of S rows x 275 columns
+        rng = np.random.default_rng(1357)
+        per = []
+        for S in DENSE_STRIP_ROWS:
+            sargs = _dense_problem(rng, [(S, 275)], costs.device, ties=False)
+            ms = _graph_time_ms(lambda: dense_dp_cuda.dense_dp_cuda(*sargs))
+            sp = dense_dp_cuda.dense_dp_plan(S, 275, dp_cuda._smem_optin(costs.device.index or 0))
+            per.append(f"{S} rows ({sp.rows} a lane, {sp.warps} warps) {ms:.4f} ms, "
+                       f"{ms * 1e-3 * clock / (S + 275 + 1):.0f} cycles an anti-diagonal")
+        _log("[time] dense_dp by strips, graph replay: " + "; ".join(per))
+    _log(f"[time] dense_dp ablation, {label} ({P} x {N} x {M}, {threads} threads, longest pair "
+         f"{steps} steps), graph replay, ms (cycles a step at {clock / 1e6:.0f} MHz): "
+         + ", ".join(f"{ABLATION_MODES[k] if k != 'shipped' else 'the shipped kernel'} "
+                     f"{v:.4f} ({v * 1e-3 * clock / steps:.0f})" for k, v in times.items())
+         + f"; latency bound {latency_bound:.6f} ({latency_bound * 1e-3 * clock / steps:.1f})")
+
+
+def phase_slice_times(stack, plan, probe, device, ablation=False):
     """The dense-DP and walk kernels at the main paths' shapes, P = 1 (the
     per-pair run's own dense level and final banded level) and the last
     bucket's (P = 8): kernel ms against the plain version and the bounds,
@@ -1328,8 +1667,10 @@ def phase_slice_times(stack, plan, probe, device):
     (kernel, pull of the path, rebuilding the alignments) against the host
     route (pull of the planes, host walk), the banded walk's also at
     buckets of WALK_ROUTE_BUCKETS pairs, and the banded DP per bucket
-    launch at each of the bucket's levels. Returns the ``kernels`` line's
-    numbers for the three kernels: times at P = 8, the error over all."""
+    launch at each of the bucket's levels; with ``ablation``, the
+    measurement builds of _measurement_builds beside the dense DP and the
+    banded walk. Returns the ``kernels`` line's numbers for the three
+    kernels: times at P = 8, the error over all."""
     import torch
 
     from svecalign_tpu_torch.ops import dense_dp_cuda, dp_cuda, traceback_cuda
@@ -1337,6 +1678,7 @@ def phase_slice_times(stack, plan, probe, device):
     from svecalign_tpu_torch.vecalign import traceback as tb
     from svecalign_tpu_torch.vecalign.batch import _band_pad
 
+    libs = _measurement_builds() if ablation else None
     rng = np.random.default_rng(8642)
     pairs, n_pad, m_pad, depth = plan[-1]
     P = len(pairs)
@@ -1361,18 +1703,22 @@ def phase_slice_times(stack, plan, probe, device):
         dense_err = max(dense_err, err)
         if not (torch.equal(bp, want_bp) and torch.equal(csum, want_csum)):
             raise AssertionError(f"dense_dp {label}: differs from the plain version's by {err}")
-        runs = [_cuda_time_ms(lambda: dense_dp_cuda.dense_dp_cuda(*args), reps=50) for _ in range(2)]
-        ms = float(np.mean(runs))
+        ms, eager = _kernel_times(lambda: dense_dp_cuda.dense_dp_cuda(*args))
         plain = _cuda_time_ms(lambda: dp_ops.dense_dp_batched(*args), reps=2, warmup=1)
         bounds = _dense_bounds(sizes, Pn, N, M, probe)
         _log(f"[time] dense_dp {label} ({Pn} x {N} x {M}, longest pair "
-             f"{max(n + m + 1 for n, m in sizes)} steps): kernel {ms:.4f} ms ({runs[0]:.4f}, "
-             f"{runs[1]:.4f}), plain loop {plain:.3f} ms, max abs difference {err}, bounds: bytes "
-             f"{bounds['bytes']:.6f}, operations {bounds['operations']:.6f}, latency "
-             f"{bounds['latency']:.6f} ms ({probe['smem']:.2f} + 3 x {probe['alu']:.2f} cycles a "
-             f"step at {probe['clock'] / 1e6:.0f} MHz); kernel / latency bound "
+             f"{max(n + m + 1 for n, m in sizes)} steps): kernel {ms:.4f} ms by graph replay, "
+             f"{eager:.4f} ms eager (the first design's eager: "
+             f"{FIRST_DESIGN_MS['dense_dp'][Pn]}), plain loop "
+             f"{plain:.3f} ms, max abs difference {err}, bounds: bytes {bounds['bytes']:.6f}, "
+             f"operations {bounds['operations']:.6f}, latency {bounds['latency']:.6f} ms "
+             f"({probe['smem']:.2f} + 3 x {probe['alu']:.2f} cycles a step at "
+             f"{probe['clock'] / 1e6:.0f} MHz); kernel / latency bound "
              f"{ms / bounds['latency']:.2f}")
-        out["dense_dp"] = {"ms": ms, "plain_ms": plain, "bounds": bounds}
+        _faster_than_first_design("dense_dp", Pn, ms)
+        out["dense_dp"] = {"ms": ms, "eager_ms": eager, "plain_ms": plain, "bounds": bounds}
+        if ablation:
+            phase_dense_ablation(label, args, sizes, bounds["latency"], libs)
 
         walk_args = (bp, args[2], args[3])
         got = traceback_cuda.dense_traceback_walk_cuda(*walk_args)
@@ -1381,14 +1727,15 @@ def phase_slice_times(stack, plan, probe, device):
         walk_err = max(walk_err, err)
         taken = [int(((x != 0) | (y != 0)).sum()) + 1
                  for x, y in zip(got[0].cpu().numpy(), got[1].cpu().numpy())]
-        wms = float(np.mean([_cuda_time_ms(
-            lambda: traceback_cuda.dense_traceback_walk_cuda(*walk_args), reps=50) for _ in range(2)]))
+        wms, weager = _kernel_times(lambda: traceback_cuda.dense_traceback_walk_cuda(*walk_args))
         wplain = _cuda_time_ms(lambda: dp_ops.dense_traceback_walk(*walk_args), reps=2, warmup=1)
         wbounds = _walk_bounds(taken, Pn, N + M + 1, 1, 9, probe)
         _log(f"[time] dense_traceback_walk {label} ({N + M + 1} steps emitted, longest walk "
-             f"{max(taken)}): kernel {wms:.4f} ms, plain loop {wplain:.3f} ms, max abs difference "
-             f"{err}, bounds: bytes {wbounds['bytes']:.6f}, operations "
-             f"{wbounds['operations']:.6f}, latency {wbounds['latency']:.6f} ms")
+             f"{max(taken)}): kernel {wms:.4f} ms by graph replay, {weager:.4f} ms eager, plain "
+             f"loop {wplain:.3f} ms, max abs difference {err}, bounds: bytes "
+             f"{wbounds['bytes']:.6f}, operations {wbounds['operations']:.6f}, latency "
+             f"{wbounds['latency']:.6f} ms; kernel / latency bound "
+             f"{wms / wbounds['latency']:.2f}")
         _route_times(
             f"the dense level, {label}",
             lambda: [t.cpu().numpy() for t in traceback_cuda.dense_traceback_walk_cuda(*walk_args)],
@@ -1397,7 +1744,8 @@ def phase_slice_times(stack, plan, probe, device):
                            for i in range(Pn)],
             lambda bp_h: [tb.dense_traceback(bp_h[i][:n + 1, :m + 1])
                           for i, (n, m) in enumerate(sizes)])
-        out["dense_traceback_walk"] = {"ms": wms, "plain_ms": wplain, "bounds": wbounds}
+        out["dense_traceback_walk"] = {"ms": wms, "eager_ms": weager, "plain_ms": wplain,
+                                       "bounds": wbounds}
     out["dense_dp"]["err"], out["dense_traceback_walk"]["err"] = dense_err, walk_err
 
     # banded walk: the per-pair run's final level, the bucket's, and larger buckets
@@ -1419,15 +1767,21 @@ def phase_slice_times(stack, plan, probe, device):
         walk_err = max(walk_err, err)
         taken = [int(((x != 0) | (y != 0)).sum()) + 1
                  for x, y in zip(got[0].cpu().numpy(), got[1].cpu().numpy())]
-        wms = float(np.mean([_cuda_time_ms(
-            lambda: traceback_cuda.banded_traceback_walk_cuda(*walk_args), reps=50)
-            for _ in range(2)]))
+        wms, weager = _kernel_times(
+            lambda: traceback_cuda.banded_traceback_walk_cuda(*walk_args))
         wplain = _cuda_time_ms(lambda: dp_ops.banded_traceback_walk(*walk_args), reps=2, warmup=1)
         wbounds = _walk_bounds(taken, Pn, a2, 10, 14, probe)
+        was = FIRST_DESIGN_MS["banded_traceback_walk"].get(Pn)
         _log(f"[time] banded_traceback_walk {label} (P={Pn}, {a2} steps emitted, B={B}, longest "
-             f"walk {max(taken)}): kernel {wms:.4f} ms, plain loop {wplain:.3f} ms, max abs "
-             f"difference {err}, bounds: bytes {wbounds['bytes']:.6f}, operations "
-             f"{wbounds['operations']:.6f}, latency {wbounds['latency']:.6f} ms")
+             f"walk {max(taken)}): kernel {wms:.4f} ms by graph replay, {weager:.4f} ms eager"
+             + (f" (the first design's eager: {was})" if was else "") + f", plain loop {wplain:.3f} ms, "
+             f"max abs difference {err}, bounds: bytes {wbounds['bytes']:.6f}, operations "
+             f"{wbounds['operations']:.6f}, latency {wbounds['latency']:.6f} ms; kernel / latency "
+             f"bound {wms / wbounds['latency']:.2f}")
+        if was:
+            _faster_than_first_design("banded_traceback_walk", Pn, wms)
+            if ablation:
+                _walk_by_producers(label, walk_args, libs)
         x_sizes, y_sizes = args[6].tolist(), args[7].tolist()
         boff_h = args[2].cpu().numpy()
         routes[Pn] = _route_times(
@@ -1440,7 +1794,8 @@ def phase_slice_times(stack, plan, probe, device):
             lambda h: [tb.sparse_traceback(h[0][i].astype(np.float64), h[1][i], h[2][i], boff_h[i],
                                            x_sizes[i], y_sizes[i])[0] for i in range(Pn)])
         if Pn == P:
-            out["banded_traceback_walk"] = {"ms": wms, "plain_ms": wplain, "bounds": wbounds}
+            out["banded_traceback_walk"] = {"ms": wms, "eager_ms": weager, "plain_ms": wplain,
+                                            "bounds": wbounds}
     out["banded_traceback_walk"]["err"] = walk_err
     _log("[time] final banded level, walk on the card against pull + host walk, ms (device "
          "route / host route): "
@@ -1458,6 +1813,8 @@ def phase_slice_times(stack, plan, probe, device):
         Pn, T, A, B = args[0].shape
         _log(f"[time] banded_dp per bucket launch, the bucket's level {d} (P={Pn} T={T} A={A} "
              f"B={B}, {route} route): {ms:.4f} ms, {ms / Pn:.4f} ms a pair")
+    if SLOWER_THAN_FIRST_DESIGN:
+        raise AssertionError("; ".join(SLOWER_THAN_FIRST_DESIGN))
     return out
 
 
@@ -4035,6 +4392,10 @@ def main(argv=None):
                       help="only stage 5.4: build, hold the DP and walk kernels against "
                            "their plain versions, run the stage per pair and in buckets and "
                            "time the kernels (no SONAR model is built); prints no result line")
+    mode.add_argument("--ablation", action="store_true",
+                      help="what --dp does, and in phase 4 the measurement builds: the dense "
+                           "DP's first design in ablation modes, the dense DP by strip count, "
+                           "the banded walk by producer warps; prints no result line")
     mode.add_argument("--laser", action="store_true",
                       help="only build, the kernel checks, LASER stage 5.3, the post-align "
                            "chain, SONAR's long spans and the attention kernel at the long "
@@ -4055,6 +4416,7 @@ def main(argv=None):
                            "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
                            "is built); prints no result line")
     args = parser.parse_args(argv)
+    args.dp = args.dp or args.ablation
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -4107,7 +4469,7 @@ def main(argv=None):
         phase_paired_gate(td)
         t = phase_times(stack, device)
         phase_route_times(device)
-        fused = phase_slice_times(stack, plan, t["probe"], device)
+        fused = phase_slice_times(stack, plan, t["probe"], device, ablation=args.ablation)
         if args.dp:
             _log(f"[done] stage-5.4 phases passed in {time.perf_counter() - t_start:.1f}s")
             return 0
@@ -4166,7 +4528,8 @@ def main(argv=None):
             "replaces": replaces, "launches": bucket_launches[name],
             "pipeline_launches": pipe["laser"][name],
             "max_abs_err": max(row["err"], dense_err) if name == "dense_dp" else row["err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "ms": row["ms"], "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bound, "bound_by": by,
             "bytes_bound_ms": max(row["bounds"]["bytes"], row["bounds"]["operations"]),
             "library_ms": None,
         })
@@ -4174,8 +4537,9 @@ def main(argv=None):
          "times per stage-5.4 run of one pair (sum over its banded levels), launches of that "
          f"run ({bucket_launches['banded_dp']} over the bucket run); no single PyTorch call "
          "computes it, so library_ms is null. dense_dp and the two walks: launches of the "
-         f"--pair_batch {PAIR_BATCH} run of {len(BUCKET_SIZES)} pairs, times per launch at its "
-         "last bucket's shapes, max_abs_err measured there and at P = 1 against the plain "
+         f"--pair_batch {PAIR_BATCH} run of {len(BUCKET_SIZES)} pairs, device times per launch "
+         "(CUDA-graph replay; eager_ms the wrapper called back to back) at its last bucket's "
+         "shapes, max_abs_err measured there and at P = 1 against the plain "
          "versions, bound_ms the largest of bytes, operations and the dependent steps' latency "
          "(bytes_bound_ms: the larger of the first two). relkey_attention: device times per launch "
          "(CUDA-graph replay) at the stage-5.3 modal bucket (every bucket, and eager times, "

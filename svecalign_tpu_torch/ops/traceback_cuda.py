@@ -5,8 +5,13 @@ The kernels are the fused forms of the JAX package's
 ``banded_traceback_scan`` (``lax.scan`` programs of N + M + 1 and A + 2
 steps): every pair of a bucket follows its backpointers from
 (x_size, y_size) to the origin on the card, and only the visited path is
-pulled instead of the planes. Each is a chain of dependent loads
-(latency-bound); see the source.
+pulled instead of the planes. Each is a chain of dependent steps
+(latency-bound). The banded walk takes every device-memory load off its
+chain: producer warps turn the planes into a ring of successor indices in
+shared memory ahead of the walking thread, which then follows one
+shared-memory load a step and stops at the origin; the block writes the
+outputs afterwards. The wrapper launches by the source's own ring plan;
+:func:`banded_walk_plan` is its Python copy. See the source.
 
 On CPU tensors the wrappers run the plain versions
 (:func:`svecalign_tpu_torch.ops.dp.dense_traceback_walk`,
@@ -15,17 +20,26 @@ they launch the kernels or raise. ``LAUNCHES`` counts launches by kernel.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from svecalign_tpu_torch.ops import _build
 from svecalign_tpu_torch.ops import dp as dp_ops
-from svecalign_tpu_torch.ops.dp_cuda import _check
+from svecalign_tpu_torch.ops.dp_cuda import _check, _smem_optin
 
 SOURCE = "traceback_walk"
 DENSE, BANDED = "dense_traceback_walk", "banded_traceback_walk"
 
 LAUNCHES = {DENSE: 0, BANDED: 0}
+
+# the source's WALK_CHUNK_SHIFT, WALK_RING_BYTES, WALK_MAX_SLOTS,
+# WALK_MAX_RECORDS, WALK_STATIC_SMEM
+WALK_CHUNK_SHIFT = 9
+WALK_RING_BYTES = 1 << 16
+WALK_MAX_SLOTS = 64
+WALK_MAX_RECORDS = 1 << 14
+WALK_STATIC_SMEM = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,14 +53,63 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P,  # xs, ys, vs, stream
         ]
         lib.dense_walk_launch.restype = _I
+        lib.banded_walk_plan.argtypes = [_I, _I, _I, _P]
+        lib.banded_walk_plan.restype = _I
         lib.banded_walk_launch.argtypes = [
             _P, _P, _P, _P, _P, _P,  # csum, xp, yp, boff_out, x_sizes, y_sizes
-            _I, _I, _I, _I,  # P, A + 2, B, bp_int8
+            _I, _I, _I, _I, _I,  # P, A + 2, B, bp_int8, smem_optin
             _P, _P, _P, _P, _P, _P,  # xs, ys, xps, yps, cs, stream
         ]
         lib.banded_walk_launch.restype = _I
         lib._typed = True
     return lib
+
+
+class WalkPlan(NamedTuple):
+    row_shift: int  # a ring row holds 1 << row_shift successors (>= B)
+    chunk_shift: int  # a chunk of the ring is 1 << chunk_shift rows
+    slots: int  # chunks in the ring (a power of two)
+    smem_bytes: int  # dynamic shared memory: the ring, then the records
+    records: int  # the walk's first steps recorded in shared memory
+
+
+def _ceil_log2(v: int) -> int:
+    return max(int(v) - 1, 0).bit_length()
+
+
+def banded_walk_plan(a2: int, B: int, smem_optin: int) -> WalkPlan:
+    """The banded walk's ring for planes of ``a2`` rows of B cells, a copy of the
+    source's ``banded_walk_plan`` for the CPU tests, which have no nvcc to
+    build the source (the wrapper calls the source's own;
+    ``chip_smoke.py`` holds the two to each other): rows of 2**ceil(log2
+    B) int32 successors, chunks of 2**WALK_CHUNK_SHIFT cells (whole rows,
+    one at least), and as many rows as WALK_RING_BYTES hold, or the
+    plane's rows rounded up to a power of two, whichever is less; after
+    the ring, room for the walk's records (a2 + 3 rounded up to 4, for the
+    three steps a turn of four may overrun; at most WALK_MAX_RECORDS, past
+    which a walk records into its output instead). Raises ValueError where
+    one chunk, the records and the kernel's static shared memory do not
+    fit ``smem_optin`` bytes (B over 2**15 on an H100), or where a cell
+    index does not fit 31 bits."""
+    row_shift = _ceil_log2(B)
+    chunk_shift = max(WALK_CHUNK_SHIFT - row_shift, 0)
+    row_bytes = 4 << row_shift
+    cap_rows = max(1 << chunk_shift, 1 << _ceil_log2(a2))
+    rows = 1 << chunk_shift
+    while (rows * 2 <= cap_rows and rows * 2 * row_bytes <= WALK_RING_BYTES
+           and (rows * 2) >> chunk_shift <= WALK_MAX_SLOTS):
+        rows *= 2
+    records = (a2 + 6) & ~3 if a2 + 3 < WALK_MAX_RECORDS else WALK_MAX_RECORDS
+    nbytes = rows * row_bytes + 4 * records
+    if nbytes + WALK_STATIC_SMEM > smem_optin:
+        raise ValueError(
+            f"banded_traceback_walk_cuda: a band of B={B} needs {nbytes} bytes of shared "
+            f"memory for one ring chunk and the walk's records, more than the {smem_optin} "
+            "a block may have")
+    if a2 << row_shift > 2**31 - 1:
+        raise ValueError(f"banded_traceback_walk_cuda: {a2} rows of B={B} cells do not fit "
+                         "31-bit cell indices")
+    return WalkPlan(row_shift, chunk_shift, rows >> chunk_shift, nbytes, records)
 
 
 def dense_traceback_walk_cuda(bp: torch.Tensor, x_sizes: torch.Tensor, y_sizes: torch.Tensor):
@@ -92,7 +155,8 @@ def banded_traceback_walk_cuda(
 ):
     """Walk the banded planes from (x_sizes[p], y_sizes[p]) to the origin.
     Returns (xs, ys (P, A+2) int32, xps, yps (P, A+2) in the planes' dtype,
-    cs (P, A+2) float32)."""
+    cs (P, A+2) float32). Raises ValueError where the band does not fit
+    the ring's shared memory (B over 2**15 on an H100)."""
     dev = xp.device
     if dev.type == "cpu":
         return dp_ops.banded_traceback_walk(csum, xp, yp, b_offset_out, x_sizes, y_sizes)
@@ -116,11 +180,20 @@ def banded_traceback_walk_cuda(
     cs = torch.empty((P, a2), dtype=torch.float32, device=dev)
     if P == 0:
         return xs, ys, xps, yps, cs
+    lib = _lib()
+    smem_optin = _smem_optin(dev.index or 0)
+    plan = (ctypes.c_int * 5)()
+    if lib.banded_walk_plan(a2, B, smem_optin, plan) != 0:
+        raise ValueError(
+            f"banded_traceback_walk_cuda: {a2} rows of a band of B={B} need {plan[3]} bytes of "
+            f"shared memory for one ring chunk and the walk's records (at most {smem_optin} a "
+            "block) and cell indices of 31 bits")
     with torch.cuda.device(dev):
-        err = _lib().banded_walk_launch(
+        err = lib.banded_walk_launch(
             csum.data_ptr(), xp.data_ptr(), yp.data_ptr(), b_offset_out.data_ptr(),
             x_sizes.data_ptr(), y_sizes.data_ptr(), P, a2, B, int(xp.dtype == torch.int8),
-            xs.data_ptr(), ys.data_ptr(), xps.data_ptr(), yps.data_ptr(), cs.data_ptr(),
+            smem_optin, xs.data_ptr(), ys.data_ptr(), xps.data_ptr(),
+            yps.data_ptr(), cs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

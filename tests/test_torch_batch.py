@@ -52,6 +52,8 @@ def _t(a, dtype=None):
 # ---------------------------------------------------------------------------
 
 
+H100_SMEM_OPTIN = 232448  # shared memory a block of an H100 may opt in to
+
 RAGGED = [
     [(12, 9), (7, 12), (12, 12)],
     [(1, 5), (30, 1), (1, 1), (30, 41)],
@@ -107,10 +109,21 @@ def test_dense_dp_wrapper_on_cpu_takes_the_plain_version():
 @pytest.mark.parametrize("N,M,n,m", [(300, 275, 300, 275), (1500, 40, 1500, 40), (40, 1500, 7, 900),
                                      (2000, 3000, 5, 5), (1, 1, 1, 1)])
 def test_dense_dp_block_threads(N, M, n, m):
-    """A thread per cell of the longest anti-diagonal, whole warps, capped."""
-    t = dense_dp_cuda.block_threads(N, M)
-    assert t % 32 == 0 and 32 <= t <= dense_dp_cuda.MAX_THREADS
-    assert t >= min(min(N, M) + 1, dense_dp_cuda.MAX_THREADS)
+    """A block's threads over an N x M bucket holding an n x m pair: a warp
+    per strip of 32 x rows rows (ceil(N / 256) rows a lane, at most 2), at
+    most 8; strips past the eighth warp go round again (wrap), so every
+    shape gets a block."""
+    rows, warps, wrap = {
+        (300, 275): (2, 5, False),  # 5 strips of 64 rows
+        (1500, 40): (2, 8, True),  # 24 strips
+        (40, 1500): (1, 2, False),  # 2 strips of 32
+        (2000, 3000): (2, 8, True),  # 32 strips
+        (1, 1): (1, 1, False),
+    }[(N, M)]
+    assert n <= N and m <= M
+    plan = dense_dp_cuda.dense_dp_plan(N, M, H100_SMEM_OPTIN)
+    assert (plan.rows, plan.warps, plan.wrap) == (rows, warps, wrap)
+    assert plan.smem_bytes == plan.warps * dense_dp_cuda.warp_smem(plan.rows) <= H100_SMEM_OPTIN
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (3, 9), (17, 13), (64, 41)])
