@@ -828,12 +828,105 @@ def _dense_problem(rng, sizes, device, ties=True, pad=(0, 0)):
             torch.tensor([m for _, m in sizes], dtype=torch.int32, device=device))
 
 
+# (name, kind) of the dense walk's checks beyond the planes the dense DP
+# writes. Each kind up to "origin" is put into every DENSE_CASES bucket's
+# planes or starts, on each pair's plain walk (at its middle step where it
+# is a cell's): pointers that do not move, moves clamped at row 0 and column
+# 0, starts clamped into the plane. The rest are planes of their own: one of
+# several MB (the ring reused many times over), a walk longer than the
+# records shared memory holds, and a bucket of 64 pairs.
+DENSE_WALK_FAULTS = [
+    ("a pointer of 3 at the middle step", "p3"),
+    ("a pointer of 4 at the middle step", "p4"),
+    ("a pointer of -1 at the middle step", "pm1"),
+    ("a pointer of 127 at the middle step", "p127"),
+    ("a pointer of -128 at the middle step", "m128"),
+    ("up on a row-0 cell (up a column to row 0)", "up_row0"),
+    ("left on a column-0 cell (left along a row to column 0)", "left_col0"),
+    ("diag at (1, 0) (up column 0 to it)", "diag_10"),
+    ("diag down column 0", "diag_col0"),
+    ("diag along row 0 (the origin's pointer 0)", "diag_row0"),
+    ("starts past N", "start_n"),
+    ("starts past M", "start_m"),
+    ("negative starts", "start_neg"),
+    ("a start at (0, 0)", "origin"),
+    ("a plane of several MB (2000 x 3000, P = 2)", "plane_mb"),
+    ("a walk past the shared-memory records (90000 x 1)", "long"),
+    ("P = 64", "p64"),
+]
+DENSE_WALK_OWN_PLANES = ("plane_mb", "long", "p64")
+
+
+def _dense_walk_fault(kind, bp, x_sizes, y_sizes, walk):
+    """A bucket's planes and starts (on the CPU) with one fault of
+    DENSE_WALK_FAULTS put in; ``walk`` is their plain walk."""
+    b, xs, ys = bp.clone(), x_sizes.clone(), y_sizes.clone()
+    if kind == "start_n":
+        xs += b.shape[1] + 4
+    elif kind == "start_m":
+        ys += b.shape[2] + 6
+    elif kind == "start_neg":
+        xs[0::2] = -3
+        ys[1::2] = -5
+    elif kind == "origin":
+        xs[:] = 0
+        ys[:] = 0
+    else:
+        px, py, _ = walk
+        for i in range(b.shape[0]):
+            taken = int(((px[i] != 0) | (py[i] != 0)).sum())
+            if not taken:
+                continue
+            xm, ym = int(px[i, taken // 2]), int(py[i, taken // 2])
+            if kind in ("p3", "p4", "pm1", "p127", "m128"):
+                b[i, xm, ym] = {"p3": 3, "p4": 4, "pm1": -1, "p127": 127, "m128": -128}[kind]
+            elif kind == "up_row0" and ym > 0:
+                b[i, :xm + 1, ym] = 2
+            elif kind == "left_col0" and xm > 0:
+                b[i, xm, :ym + 1] = 1
+            elif kind == "diag_10" and xm > 0:
+                b[i, xm, 1:ym + 1] = 1
+                b[i, 2:xm + 1, 0] = 2
+                b[i, 1, 0] = 0
+            elif kind == "diag_col0" and xm > 0:
+                b[i, xm, 1:ym + 1] = 1
+                b[i, 1:xm + 1, 0] = 0
+            elif kind == "diag_row0" and ym > 0:
+                b[i, 1:xm + 1, ym] = 2
+                b[i, 0, :ym + 1] = 0
+    return b, xs, ys
+
+
+def _dense_walk_plane(kind, rng, device):
+    """The planes and starts of an own-plane kind of DENSE_WALK_FAULTS, on
+    the CPU: random pointers (0-2 inside, left along row 0 and up column 0,
+    as the DP writes them) started at the far corner, or the dense DP's
+    planes for 64 pairs of 100-300 segments a side."""
+    import torch
+
+    from svecalign_tpu_torch.ops import dense_dp_cuda
+
+    if kind == "p64":
+        sizes = [tuple(int(v) for v in rng.integers(100, 301, 2)) for _ in range(64)]
+        args = _dense_problem(rng, sizes, device, ties=False)
+        _, bp = dense_dp_cuda.dense_dp_cuda(*args)
+        return bp.cpu(), args[2].cpu(), args[3].cpu()
+    P, N, M = {"plane_mb": (2, 2000, 3000), "long": (1, 90000, 1)}[kind]
+    b = rng.choice(np.array([0, 1, 2], dtype=np.int8), (P, N + 1, M + 1), p=[0.4, 0.2, 0.4])
+    b[:, 0, :], b[:, :, 0], b[:, 0, 0] = 1, 2, 4
+    full = torch.full((P,), 0, dtype=torch.int32)
+    return torch.from_numpy(b), full + N, full + M
+
+
 def phase_dense_checks(device):
     """The dense-DP kernel against dense_dp_batched in every case of
     DENSE_CASES (bp and csum equal exactly, on each pair's rectangle and
     outside it), then the dense walk kernel on those planes against the
-    plain walk and the host walk. Returns the measured max abs csum error
-    over the finite cells of all cases."""
+    plain walk and the host walk, and on the planes and starts of
+    DENSE_WALK_FAULTS against the plain walk (on the CPU); the wrapper's
+    ring plan equal to the source's, and planes of 2**31 bytes refused by
+    the wrapper. Returns the measured max abs csum error over the finite
+    cells of all cases."""
     import torch
 
     from svecalign_tpu_torch.ops import dense_dp_cuda, traceback_cuda
@@ -858,8 +951,35 @@ def phase_dense_checks(device):
         if (want is None) != bool(refused) or (want is not None and tuple(plan) != want):
             raise AssertionError(f"dense_dp_plan({N}, {M}, {limit}): the source gives "
                                  f"{tuple(plan)} (refused {refused}), the wrapper {want}")
+    wlib = traceback_cuda._lib()
+    for N, M, limit in ((176, 160, optin), (300, 275, optin), (1100, 1300, optin),
+                        (90000, 1, optin), (0, 0, optin), (1500, 40, optin), (2000, 3000, optin),
+                        (0, 126976, optin), (0, 126977, optin), (300, 275, 50000),
+                        (46340, 46340, optin)):
+        refused = wlib.dense_walk_plan(N, M, limit, plan)
+        try:
+            want = tuple(traceback_cuda.dense_walk_plan(N, M, limit))
+        except ValueError:
+            want = None
+        if (want is None) != bool(refused) or (want is not None and tuple(plan) != want):
+            raise AssertionError(f"dense_walk_plan({N}, {M}, {limit}): the source gives "
+                                 f"{tuple(plan)} (refused {refused}), the wrapper {want}")
+    # the wrapper raises, launching nothing, where the source's plan refuses
+    huge = torch.empty((1, 46341, 46341), dtype=torch.int8, device=device)
+    ones = torch.ones(1, dtype=torch.int32, device=device)
+    before = traceback_cuda.LAUNCHES["dense_traceback_walk"]
+    try:
+        traceback_cuda.dense_traceback_walk_cuda(huge, ones, ones)
+    except ValueError as e:
+        _log(f"[check] dense_traceback_walk, a plane of 46341 x 46341: refused ({e})")
+    else:
+        raise AssertionError("dense_traceback_walk_cuda took a plane of 46341 x 46341")
+    if traceback_cuda.LAUNCHES["dense_traceback_walk"] != before:
+        raise AssertionError("dense_traceback_walk_cuda counted a launch it refused")
+    del huge
     rng = np.random.default_rng(2468)
     max_err = 0.0
+    planes = []
     for name, sizes in DENSE_CASES:
         for ties in (True, False):
             args = _dense_problem(rng, sizes, device, ties)
@@ -897,8 +1017,26 @@ def phase_dense_checks(device):
                         != dense_traceback(bp_h[i][:n + 1, :m + 1])):
                     raise AssertionError(f"dense_traceback_walk {name}: pair {i} differs "
                                          "from the host walk")
-        _log(f"[check] dense_traceback_walk {name}: three arrays equal, alignments equal to "
+        wplan = traceback_cuda.dense_walk_plan(N, M, optin)
+        _log(f"[check] dense_traceback_walk {name} ({wplan.slots} slots"
+             f"{', reused' if wplan.wrap else ''}): three arrays equal, alignments equal to "
              "the host walk's")
+        planes.append((bp.cpu(), args[2].cpu(), args[3].cpu(), [t.cpu() for t in got]))
+    for name, kind in DENSE_WALK_FAULTS:
+        if kind in DENSE_WALK_OWN_PLANES:
+            cases = [_dense_walk_plane(kind, rng, device)]
+        else:
+            cases = [_dense_walk_fault(kind, *c) for c in planes]
+        for b, xs, ys in cases:
+            got = traceback_cuda.dense_traceback_walk_cuda(b.to(device), xs.to(device),
+                                                           ys.to(device))
+            _assert_all_equal(f"dense_traceback_walk {name}", [t.cpu() for t in got],
+                              dp_ops.dense_traceback_walk(b, xs, ys))
+        wplan = traceback_cuda.dense_walk_plan(b.shape[1] - 1, b.shape[2] - 1, optin)
+        _log(f"[check] dense_traceback_walk {name}: three arrays equal to the plain walk's in "
+             f"{len(cases)} bucket(s) (the last P={b.shape[0]}, {b.shape[1]} x {b.shape[2]}, "
+             f"{wplan.slots} slots{', reused' if wplan.wrap else ''}, "
+             f"{wplan.records or 'no'} records in shared memory)")
     return max_err
 
 
@@ -1477,10 +1615,110 @@ def _route_times(label, fetch_device, fetch_host, rebuild_device, rebuild_host):
 WALK_ROUTE_BUCKETS = (32, 64)  # synthetic buckets beyond the CLI run's, walk routes only
 WALK_PRODUCER_SWEEP = (1, 3, 6, 9, 12, 15)  # producer warps of the banded walk (--ablation)
 # The first designs' kernel ms per launch at the main path's shapes (P = 1
-# and P = 8; _cuda_time_ms of the wrapper, NVIDIA H100 80GB HBM3, 700 W):
-# the redesigned kernels' device times must come in under them
+# and P = 8; NVIDIA H100 80GB HBM3, 700 W): _cuda_time_ms of the wrapper for
+# the dense DP and the banded walk, device time by CUDA-graph replay for the
+# dense walk (one thread a pair, its pointers loaded from device memory).
+# The redesigned kernels' device times must come in under them
 FIRST_DESIGN_MS = {"dense_dp": {1: 0.1984, 8: 0.1007},
-           "banded_traceback_walk": {1: 0.3047, 8: 0.2609}}
+                   "banded_traceback_walk": {1: 0.3047, 8: 0.2609},
+                   "dense_traceback_walk": {1: 0.0575, 8: 0.0334}}
+
+
+def _host_us(fn, reps):
+    """Host microseconds a call of ``fn``, the median of five runs of
+    ``reps`` calls each (the device synchronised before each run, not
+    inside it)."""
+    import torch
+
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def walk_wrapper_host_parts(dense_args, banded_args):
+    """What the two walk wrappers' host work is made of, in host us a call:
+    each wrapper whole (back to back, so a call's host work, not the
+    device, sets the pace where it is the longer), then each part alone:
+    an argument check, an output allocation and the unbind that makes two
+    outputs of one, the device guard and the stream as the wrappers took
+    them before (``torch.cuda.device``, ``torch.cuda.current_stream``)
+    and as they take them now (in the source; the raw stream), the
+    shared-memory limit by ctypes, the ring plan by ctypes on every call
+    (before) and memoised (now), the launch count, and each launch alone
+    (the ctypes call: the device check, the shared-memory attribute, the
+    launch and its error check).
+    Returns {part: us}."""
+    import ctypes
+
+    import torch
+
+    from svecalign_tpu_torch.ops import _build, dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops.dp_cuda import _check
+
+    bp, x_sizes, y_sizes = dense_args
+    dev, index = bp.device, bp.device.index
+    P, rmax, cmax = bp.shape
+    steps = rmax + cmax - 1
+    xp = banded_args[1]
+    _, a2, B = xp.shape
+    lib = traceback_cuda._lib()
+    optin = dp_cuda._smem_optin(index)
+    xs, ys, vs = traceback_cuda.dense_traceback_walk_cuda(*dense_args)
+    bouts = traceback_cuda.banded_traceback_walk_cuda(*banded_args)
+    counts, scratch = dict(traceback_cuda.LAUNCHES), dict(traceback_cuda.LAUNCHES)
+
+    def old_guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def old_plan():
+        plan = (ctypes.c_int * 5)()
+        lib.banded_walk_plan(a2, B, dp_cuda._smem_optin(index), plan)
+
+    def dense_launch():
+        lib.dense_walk_launch(bp.data_ptr(), x_sizes.data_ptr(), y_sizes.data_ptr(), P, rmax - 1,
+                              cmax - 1, optin, index, xs.data_ptr(), ys.data_ptr(), vs.data_ptr(),
+                              torch._C._cuda_getCurrentRawStream(index))
+
+    def banded_launch():
+        lib.banded_walk_launch(*(t.data_ptr() for t in banded_args), P, a2, B,
+                               int(xp.dtype == torch.int8), optin, index,
+                               *(t.data_ptr() for t in bouts),
+                               torch._C._cuda_getCurrentRawStream(index))
+
+    parts = {
+        "dense wrapper": lambda: traceback_cuda.dense_traceback_walk_cuda(*dense_args),
+        "banded wrapper": lambda: traceback_cuda.banded_traceback_walk_cuda(*banded_args),
+        "_check": lambda: _check("bp", bp, torch.int8, (P, rmax, cmax), dev),
+        "torch.empty": lambda: torch.empty((P, steps), dtype=torch.int32, device=dev),
+        "torch.empty + unbind": lambda: torch.empty((2, P, steps), dtype=torch.int32,
+                                                    device=dev).unbind(0),
+        "torch.cuda.device guard": old_guard,
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "shared-memory limit by ctypes": lambda: dp_cuda._smem_optin(index),
+        "banded plan by ctypes (with the limit)": old_plan,
+        "banded plan memoised": lambda: traceback_cuda._source_plan("banded_walk_plan", a2, B,
+                                                                    optin),
+        "count_launch": lambda: _build.count_launch(scratch, traceback_cuda.DENSE),
+        "dense launch alone": dense_launch,
+        "banded launch alone": banded_launch,
+    }
+    # a launch's calls are few enough a run that the launch queue never fills
+    out = {name: _host_us(fn, reps=200 if "wrapper" in name or "launch" in name else 2000)
+           for name, fn in parts.items()}
+    for k in traceback_cuda.LAUNCHES:
+        traceback_cuda.LAUNCHES[k] = counts[k]
+    _log("[time] walk wrappers' host work, us a call (P = "
+         f"{P}; dense {rmax} x {cmax}, banded {a2} x {B}): "
+         + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
 
 
 def _kernel_times(fn):
@@ -1507,8 +1745,9 @@ def _faster_than_first_design(name, P, ms):
 def _measurement_builds():
     """Build the measurement libraries of ``--ablation``, which no path of
     the port runs: ``measure/dense_dp_ablation.cu`` with the dense DP's
-    flags, and ``csrc/traceback_walk.cu`` with ``-DWALK_PRODUCERS=k`` for
-    each k of WALK_PRODUCER_SWEEP; one nvcc each, all started together,
+    flags, ``csrc/traceback_walk.cu`` with ``-DWALK_PRODUCERS=k`` for each
+    k of WALK_PRODUCER_SWEEP and with ``-DDWALK_CLOCKS`` (the dense walk's
+    phases in cycles); one nvcc each, all started together,
     into the port's build directory. Returns {name: ctypes.CDLL}; raises
     if a build fails."""
     import ctypes
@@ -1523,6 +1762,8 @@ def _measurement_builds():
         builds[f"traceback_walk_p{k}"] = (_build.CSRC_DIR / "traceback_walk.cu",
                                           _build.nvcc_flags("traceback_walk")
                                           + (f"-DWALK_PRODUCERS={k}",))
+    builds["traceback_walk_clocks"] = (_build.CSRC_DIR / "traceback_walk.cu",
+                                       _build.nvcc_flags("traceback_walk") + ("-DDWALK_CLOCKS",))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0, outs, procs = time.perf_counter(), {}, {}
     for name, (src, flags) in builds.items():
@@ -1563,7 +1804,8 @@ def _walk_by_producers(label, walk_args, libs):
 
         def launch(fn=fn):
             err = fn(*(t.data_ptr() for t in walk_args), P, a2, B, int(xp.dtype == torch.int8),
-                     optin, *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+                     optin, xp.device.index, *(o.data_ptr() for o in outs),
+                     torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"banded walk with {k} producer warps: CUDA error {err}")
 
@@ -1572,6 +1814,59 @@ def _walk_by_producers(label, walk_args, libs):
         times[k] = _graph_time_ms(launch)
     _log(f"[time] banded_traceback_walk {label}, graph replay by producer warps: "
          + ", ".join(f"{k}: {v:.4f} ms" for k, v in times.items()))
+
+
+DWALK_CLOCK_NAMES = ("set-up", "first chunk", "walk", "drain and barrier", "write-out")
+
+
+def _dense_walk_clocks(label, walk_args, libs, graph_ms, clock_hz):
+    """The dense walk in the measurement build with ``-DDWALK_CLOCKS``
+    (``libs`` from _measurement_builds), held to the plain version: each
+    block's clock64 at its phases' ends, and its records, turns of four
+    and single steps. Logs, for the block of the longest walk, the cycles
+    of each phase and the walk's cycles a record, and the build's time by
+    graph replay beside the shipped kernel's ``graph_ms`` (the launch and
+    what no block's clock sees make the difference)."""
+    import ctypes
+
+    import torch
+
+    from svecalign_tpu_torch.ops import dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import dp as dp_ops
+
+    bp, x_sizes, y_sizes = walk_args
+    P, rmax, cmax = bp.shape
+    outs = [torch.empty((P, rmax + cmax - 1), dtype=t, device=bp.device)
+            for t in (torch.int32, torch.int32, torch.int8)]
+    lib = libs["traceback_walk_clocks"]
+    fn = lib.dense_walk_launch
+    fn.argtypes = traceback_cuda._lib().dense_walk_launch.argtypes
+    lib.dense_walk_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+    def launch():
+        err = fn(bp.data_ptr(), x_sizes.data_ptr(), y_sizes.data_ptr(), P, rmax - 1, cmax - 1,
+                 dp_cuda._smem_optin(bp.device.index), bp.device.index,
+                 *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"dense walk, clocks build: CUDA error {err}")
+
+    launch()
+    torch.cuda.synchronize()
+    _assert_all_equal(f"dense_traceback_walk, clocks build, {label}", outs,
+                      dp_ops.dense_traceback_walk(*walk_args))
+    clocks = np.zeros((min(P, 64), 11), dtype=np.int64)
+    if lib.dense_walk_clocks(clocks.ctypes.data, clocks.shape[0]) != 0:
+        raise RuntimeError("dense_walk_clocks failed")
+    c = clocks[int(np.argmax(clocks[:, 6]))]
+    phases = np.diff(c[:6])
+    ms = _graph_time_ms(launch)
+    _log(f"[time] dense_traceback_walk {label}, clocks build, the longest walk's block ({c[6]} "
+         f"records: {c[7]} turns of four, {c[8]} single steps), cycles: "
+         + ", ".join(f"{n} {v}" for n, v in zip(DWALK_CLOCK_NAMES, phases))
+         + f"; the top chunk issued at {c[9] - c[1]} and completed at {c[10] - c[1]} cycles "
+         f"after the set-up; the walk {phases[2] / max(c[6], 1):.1f} cycles a record; the block "
+         f"{(c[5] - c[0]) / clock_hz * 1e3:.4f} ms; this build {ms:.4f} ms by graph replay, the "
+         f"shipped kernel {graph_ms:.4f}")
 
 
 DENSE_STRIP_ROWS = (32, 64, 128, 160, 256, 300)
@@ -1731,11 +2026,16 @@ def phase_slice_times(stack, plan, probe, device, ablation=False):
         wplain = _cuda_time_ms(lambda: dp_ops.dense_traceback_walk(*walk_args), reps=2, warmup=1)
         wbounds = _walk_bounds(taken, Pn, N + M + 1, 1, 9, probe)
         _log(f"[time] dense_traceback_walk {label} ({N + M + 1} steps emitted, longest walk "
-             f"{max(taken)}): kernel {wms:.4f} ms by graph replay, {weager:.4f} ms eager, plain "
-             f"loop {wplain:.3f} ms, max abs difference {err}, bounds: bytes "
+             f"{max(taken)}): kernel {wms:.4f} ms by graph replay, {weager:.4f} ms eager (the "
+             f"first design's by graph replay: {FIRST_DESIGN_MS['dense_traceback_walk'][Pn]}), "
+             f"plain loop {wplain:.3f} ms, max abs difference {err}, bounds: bytes "
              f"{wbounds['bytes']:.6f}, operations {wbounds['operations']:.6f}, latency "
              f"{wbounds['latency']:.6f} ms; kernel / latency bound "
-             f"{wms / wbounds['latency']:.2f}")
+             f"{wms / wbounds['latency']:.2f}, {wms * 1e-3 * probe['clock'] / max(taken):.1f} "
+             "cycles a step of the longest walk")
+        _faster_than_first_design("dense_traceback_walk", Pn, wms)
+        if ablation:
+            _dense_walk_clocks(label, walk_args, libs, wms, probe["clock"])
         _route_times(
             f"the dense level, {label}",
             lambda: [t.cpu().numpy() for t in traceback_cuda.dense_traceback_walk_cuda(*walk_args)],
@@ -1746,6 +2046,7 @@ def phase_slice_times(stack, plan, probe, device, ablation=False):
                           for i, (n, m) in enumerate(sizes)])
         out["dense_traceback_walk"] = {"ms": wms, "eager_ms": weager, "plain_ms": wplain,
                                        "bounds": wbounds}
+        dense_walk_args = walk_args
     out["dense_dp"]["err"], out["dense_traceback_walk"]["err"] = dense_err, walk_err
 
     # banded walk: the per-pair run's final level, the bucket's, and larger buckets
@@ -1796,7 +2097,9 @@ def phase_slice_times(stack, plan, probe, device, ablation=False):
         if Pn == P:
             out["banded_traceback_walk"] = {"ms": wms, "eager_ms": weager, "plain_ms": wplain,
                                             "bounds": wbounds}
+            banded_walk_args = walk_args
     out["banded_traceback_walk"]["err"] = walk_err
+    walk_wrapper_host_parts(dense_walk_args, banded_walk_args)
     _log("[time] final banded level, walk on the card against pull + host walk, ms (device "
          "route / host route): "
          + ", ".join(f"P={n}: {d:.3f} / {h:.3f}" for n, (d, h) in routes.items()))

@@ -6,20 +6,29 @@ The kernels are the fused forms of the JAX package's
 steps): every pair of a bucket follows its backpointers from
 (x_size, y_size) to the origin on the card, and only the visited path is
 pulled instead of the planes. Each is a chain of dependent steps
-(latency-bound). The banded walk takes every device-memory load off its
-chain: producer warps turn the planes into a ring of successor indices in
-shared memory ahead of the walking thread, which then follows one
-shared-memory load a step and stops at the origin; the block writes the
-outputs afterwards. The wrapper launches by the source's own ring plan;
-:func:`banded_walk_plan` is its Python copy. See the source.
+(latency-bound), and both take every device-memory load off it. The dense
+walk: a copier warp streams the pair's int8 plane, from the walk's start
+down, into a ring of shared-memory slots by 1-D bulk copies (TMA) ahead of
+one walking thread, which makes one shared-memory load and two
+multiply-adds a step and stops at the first cell that does not move. The
+banded walk: producer warps turn the planes into a ring of successor
+indices in shared memory ahead of the walking thread, which follows one
+shared-memory load a step and stops at the origin. In both the block writes the outputs
+afterwards. The wrappers launch by the sources' own ring plans;
+:func:`dense_walk_plan` and :func:`banded_walk_plan` are their Python
+copies. See the source.
 
 On CPU tensors the wrappers run the plain versions
 (:func:`svecalign_tpu_torch.ops.dp.dense_traceback_walk`,
 :func:`svecalign_tpu_torch.ops.dp.banded_traceback_walk`); on CUDA tensors
 they launch the kernels or raise. ``LAUNCHES`` counts launches by kernel.
+A launch's host work is kept small: each ring plan is read once per
+shape, the stream is read raw, the source makes the tensors' device
+current, and the outputs come from two or three allocations.
 """
 
 import ctypes
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -34,12 +43,19 @@ DENSE, BANDED = "dense_traceback_walk", "banded_traceback_walk"
 LAUNCHES = {DENSE: 0, BANDED: 0}
 
 # the source's WALK_CHUNK_SHIFT, WALK_RING_BYTES, WALK_MAX_SLOTS,
-# WALK_MAX_RECORDS, WALK_STATIC_SMEM
+# WALK_MAX_RECORDS, WALK_STATIC_SMEM (the banded walk)
 WALK_CHUNK_SHIFT = 9
 WALK_RING_BYTES = 1 << 16
 WALK_MAX_SLOTS = 64
 WALK_MAX_RECORDS = 1 << 14
 WALK_STATIC_SMEM = 1024
+# the source's DWALK_CHUNK_SHIFT, DWALK_MAX_SLOTS, DWALK_MAX_RECORDS,
+# DWALK_GUARD, DWALK_STATIC_SMEM (the dense walk)
+DWALK_CHUNK_SHIFT = 12
+DWALK_MAX_SLOTS = 32
+DWALK_MAX_RECORDS = 1 << 14
+DWALK_GUARD = 256
+DWALK_STATIC_SMEM = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,16 +64,18 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
+        lib.dense_walk_plan.argtypes = [_I, _I, _I, _P]
+        lib.dense_walk_plan.restype = _I
         lib.dense_walk_launch.argtypes = [
             _P, _P, _P, _I, _I, _I,  # bp, x_sizes, y_sizes, P, N, M
-            _P, _P, _P, _P,  # xs, ys, vs, stream
+            _I, _I, _P, _P, _P, _P,  # smem_optin, device, xs, ys, vs, stream
         ]
         lib.dense_walk_launch.restype = _I
         lib.banded_walk_plan.argtypes = [_I, _I, _I, _P]
         lib.banded_walk_plan.restype = _I
         lib.banded_walk_launch.argtypes = [
             _P, _P, _P, _P, _P, _P,  # csum, xp, yp, boff_out, x_sizes, y_sizes
-            _I, _I, _I, _I, _I,  # P, A + 2, B, bp_int8, smem_optin
+            _I, _I, _I, _I, _I, _I,  # P, A + 2, B, bp_int8, smem_optin, device
             _P, _P, _P, _P, _P, _P,  # xs, ys, xps, yps, cs, stream
         ]
         lib.banded_walk_launch.restype = _I
@@ -71,6 +89,52 @@ class WalkPlan(NamedTuple):
     slots: int  # chunks in the ring (a power of two)
     smem_bytes: int  # dynamic shared memory: the ring, then the records
     records: int  # the walk's first steps recorded in shared memory
+
+
+class DenseWalkPlan(NamedTuple):
+    slots: int  # chunks of 2**DWALK_CHUNK_SHIFT bytes in the ring
+    wrap: bool  # slots are reused, in order (a power of two of them)
+    smem_bytes: int  # dynamic shared memory: the ring, the records, DWALK_GUARD
+    records: int  # room for the walk's records in shared memory (0: they go to xs)
+
+
+def dense_walk_plan(N: int, M: int, smem_optin: int) -> DenseWalkPlan:
+    """The dense walk's ring for planes of (N + 1) x (M + 1) int8 pointers, a
+    copy of the source's ``dense_walk_plan`` for the CPU tests, which have
+    no nvcc to build the source (the wrapper calls the source's own;
+    ``chip_smoke.py`` holds the two to each other). A pair's walk reads
+    bytes [0, k0] of its plane, which starts anywhere in a chunk of
+    2**DWALK_CHUNK_SHIFT bytes aligned in absolute address, so it touches at
+    most (plane + chunk - 2) // chunk + 1 chunks: the ring has that many
+    slots where they are at most DWALK_MAX_SLOTS, else DWALK_MAX_SLOTS
+    slots reused in order. After the ring, room for the walk's records:
+    N + M + 1 steps and the three a turn of four may overrun, rounded up
+    to 4; none where that is over DWALK_MAX_RECORDS (the walk records into
+    its output instead); then DWALK_GUARD bytes, which a turn's loads may
+    reach past the ring's top on corrupt pointers. Raises ValueError where a side is negative, where
+    the ring, the records and the kernel's static shared memory do not fit
+    ``smem_optin`` bytes, or where the walker's coordinates (a shared
+    address or a chunk offset, plus the plane's bytes and four rows) do not
+    fit 31 bits."""
+    chunk = 1 << DWALK_CHUNK_SHIFT
+    plane = (N + 1) * (M + 1)
+    need = (plane + chunk - 2) // chunk + 1
+    wrap = need > DWALK_MAX_SLOTS
+    slots = DWALK_MAX_SLOTS if wrap else need
+    steps = N + M + 1
+    records = (steps + 6) & ~3 if steps + 3 <= DWALK_MAX_RECORDS else 0
+    nbytes = slots * chunk + 4 * records + DWALK_GUARD
+    if N < 0 or M < 0:
+        raise ValueError(f"dense_traceback_walk_cuda: a side of {N} x {M}")
+    if nbytes + DWALK_STATIC_SMEM > smem_optin:
+        raise ValueError(
+            f"dense_traceback_walk_cuda: planes of {N + 1} x {M + 1} need {nbytes} bytes of "
+            f"shared memory for the ring and the walk's records, more than the {smem_optin} a "
+            "block may have")
+    if plane + chunk + 4 * (M + 1) + (1 << 18) > 2**31 - 1:
+        raise ValueError(f"dense_traceback_walk_cuda: planes of {N + 1} x {M + 1} do not fit "
+                         "31-bit coordinates")
+    return DenseWalkPlan(slots, wrap, nbytes, records)
 
 
 def _ceil_log2(v: int) -> int:
@@ -112,10 +176,21 @@ def banded_walk_plan(a2: int, B: int, smem_optin: int) -> WalkPlan:
     return WalkPlan(row_shift, chunk_shift, rows >> chunk_shift, nbytes, records)
 
 
+@lru_cache(maxsize=None)
+def _source_plan(name: str, a: int, b: int, smem_optin: int):
+    """The source's plan ``name`` (``dense_walk_plan`` or
+    ``banded_walk_plan``) for a shape, once per shape: (refused, its
+    numbers)."""
+    plan = (ctypes.c_int * (4 if name == "dense_walk_plan" else 5))()
+    refused = getattr(_lib(), name)(a, b, smem_optin, plan) != 0
+    return refused, tuple(plan)
+
+
 def dense_traceback_walk_cuda(bp: torch.Tensor, x_sizes: torch.Tensor, y_sizes: torch.Tensor):
     """Walk the node-layout dense planes ``bp`` (P, N+1, M+1) int8 from
     (x_sizes[p], y_sizes[p]) to the origin. Returns (xs, ys (P, N+M+1)
-    int32, vs (P, N+M+1) int8)."""
+    int32, vs (P, N+M+1) int8). Raises ValueError where the source's plan
+    refuses the planes (over 2**31 bytes a pair)."""
     dev = bp.device
     if dev.type == "cpu":
         return dp_ops.dense_traceback_walk(bp, x_sizes, y_sizes)
@@ -128,17 +203,22 @@ def dense_traceback_walk_cuda(bp: torch.Tensor, x_sizes: torch.Tensor, y_sizes: 
     _check("x_sizes", x_sizes, torch.int32, (P,), dev)
     _check("y_sizes", y_sizes, torch.int32, (P,), dev)
     steps = rmax + cmax - 1
-    xs = torch.empty((P, steps), dtype=torch.int32, device=dev)
-    ys = torch.empty((P, steps), dtype=torch.int32, device=dev)
+    xs, ys = torch.empty((2, P, steps), dtype=torch.int32, device=dev).unbind(0)
     vs = torch.empty((P, steps), dtype=torch.int8, device=dev)
     if P == 0:
         return xs, ys, vs
-    with torch.cuda.device(dev):
-        err = _lib().dense_walk_launch(
-            bp.data_ptr(), x_sizes.data_ptr(), y_sizes.data_ptr(), P, rmax - 1, cmax - 1,
-            xs.data_ptr(), ys.data_ptr(), vs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    index = dev.index
+    optin = _smem_optin(index)
+    refused, plan = _source_plan("dense_walk_plan", rmax - 1, cmax - 1, optin)
+    if refused:
+        raise ValueError(
+            f"dense_traceback_walk_cuda: planes of {rmax} x {cmax} need {plan[2]} bytes of shared "
+            f"memory for the ring and the walk's records (at most {optin} a block) and "
+            "coordinates of 31 bits")
+    err = _lib().dense_walk_launch(
+        bp.data_ptr(), x_sizes.data_ptr(), y_sizes.data_ptr(), P, rmax - 1, cmax - 1, optin,
+        index, xs.data_ptr(), ys.data_ptr(), vs.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"dense_traceback_walk kernel launch failed: CUDA error {err}")
     _build.count_launch(LAUNCHES, DENSE)
@@ -173,29 +253,24 @@ def banded_traceback_walk_cuda(
     _check("b_offset_out", b_offset_out, torch.int32, (P, a2), dev)
     _check("x_sizes", x_sizes, torch.int32, (P,), dev)
     _check("y_sizes", y_sizes, torch.int32, (P,), dev)
-    xs = torch.empty((P, a2), dtype=torch.int32, device=dev)
-    ys = torch.empty((P, a2), dtype=torch.int32, device=dev)
-    xps = torch.empty((P, a2), dtype=xp.dtype, device=dev)
-    yps = torch.empty((P, a2), dtype=xp.dtype, device=dev)
+    xs, ys = torch.empty((2, P, a2), dtype=torch.int32, device=dev).unbind(0)
+    xps, yps = torch.empty((2, P, a2), dtype=xp.dtype, device=dev).unbind(0)
     cs = torch.empty((P, a2), dtype=torch.float32, device=dev)
     if P == 0:
         return xs, ys, xps, yps, cs
-    lib = _lib()
-    smem_optin = _smem_optin(dev.index or 0)
-    plan = (ctypes.c_int * 5)()
-    if lib.banded_walk_plan(a2, B, smem_optin, plan) != 0:
+    index = dev.index
+    optin = _smem_optin(index)
+    refused, plan = _source_plan("banded_walk_plan", a2, B, optin)
+    if refused:
         raise ValueError(
             f"banded_traceback_walk_cuda: {a2} rows of a band of B={B} need {plan[3]} bytes of "
-            f"shared memory for one ring chunk and the walk's records (at most {smem_optin} a "
+            f"shared memory for one ring chunk and the walk's records (at most {optin} a "
             "block) and cell indices of 31 bits")
-    with torch.cuda.device(dev):
-        err = lib.banded_walk_launch(
-            csum.data_ptr(), xp.data_ptr(), yp.data_ptr(), b_offset_out.data_ptr(),
-            x_sizes.data_ptr(), y_sizes.data_ptr(), P, a2, B, int(xp.dtype == torch.int8),
-            smem_optin, xs.data_ptr(), ys.data_ptr(), xps.data_ptr(),
-            yps.data_ptr(), cs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _lib().banded_walk_launch(
+        csum.data_ptr(), xp.data_ptr(), yp.data_ptr(), b_offset_out.data_ptr(),
+        x_sizes.data_ptr(), y_sizes.data_ptr(), P, a2, B, int(xp.dtype == torch.int8), optin,
+        index, xs.data_ptr(), ys.data_ptr(), xps.data_ptr(), yps.data_ptr(), cs.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"banded_traceback_walk kernel launch failed: CUDA error {err}")
     _build.count_launch(LAUNCHES, BANDED)

@@ -163,6 +163,63 @@ def test_dense_walk_of_a_ragged_bucket_matches_jax_scan():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+# A 3 x 3 plane the dense DP could write (origin 4, left along row 0, up
+# column 0, diag inside), and the faults the dense walk kernel is held to on
+# the card: (edits {(x, y): pointer}, start (x_size, y_size), the five steps'
+# xs, ys, vs, derived by hand). A cell whose move goes nowhere (a pointer
+# outside 0-2, up at row 0, left at column 0, the origin) is repeated to the
+# end with its pointer; diag is clamped to up at column 0 and to left at row
+# 0; starts are clamped into the plane.
+DENSE_PLANE = [[4, 1, 1], [2, 0, 0], [2, 0, 0]]
+DENSE_WALK_STEPS = {
+    "diag to the origin": ({}, (2, 2), [2, 1, 0, 0, 0], [2, 1, 0, 0, 0], [0, 0, 4, 4, 4]),
+    "a pointer of 3": ({(1, 1): 3}, (2, 2), [2, 1, 1, 1, 1], [2, 1, 1, 1, 1], [0, 3, 3, 3, 3]),
+    "a pointer of 4 off the origin": ({(1, 1): 4}, (2, 2), [2, 1, 1, 1, 1], [2, 1, 1, 1, 1],
+                                      [0, 4, 4, 4, 4]),
+    "a pointer of -1": ({(2, 2): 1, (2, 1): -1}, (2, 2), [2, 2, 2, 2, 2], [2, 1, 1, 1, 1],
+                        [1, -1, -1, -1, -1]),
+    "a pointer of 127": ({(1, 1): 127}, (2, 2), [2, 1, 1, 1, 1], [2, 1, 1, 1, 1],
+                         [0, 127, 127, 127, 127]),
+    "a pointer of -128": ({(1, 1): -128}, (2, 2), [2, 1, 1, 1, 1], [2, 1, 1, 1, 1],
+                          [0, -128, -128, -128, -128]),
+    "up at row 0": ({(1, 2): 2, (0, 2): 2}, (1, 2), [1, 0, 0, 0, 0], [2, 2, 2, 2, 2],
+                    [2, 2, 2, 2, 2]),
+    "left at column 0": ({(2, 1): 1, (2, 0): 1}, (2, 1), [2, 2, 2, 2, 2], [1, 0, 0, 0, 0],
+                         [1, 1, 1, 1, 1]),
+    "diag at (1, 0)": ({(1, 0): 0}, (2, 0), [2, 1, 0, 0, 0], [0, 0, 0, 0, 0], [2, 0, 4, 4, 4]),
+    "diag down column 0, the origin's pointer 7": ({(2, 0): 0, (1, 0): 0, (0, 0): 7}, (2, 0),
+                                                   [2, 1, 0, 0, 0], [0, 0, 0, 0, 0],
+                                                   [0, 0, 7, 7, 7]),
+    "diag along row 0, the origin's pointer 0": ({(0, 2): 0, (0, 1): 0, (0, 0): 0}, (0, 2),
+                                                 [0, 0, 0, 0, 0], [2, 1, 0, 0, 0],
+                                                 [0, 0, 0, 0, 0]),
+    "a start past N and below 0": ({}, (5, -4), [2, 1, 0, 0, 0], [0, 0, 0, 0, 0],
+                                   [2, 2, 4, 4, 4]),
+    "a start below 0 and past M": ({}, (-1, 9), [0, 0, 0, 0, 0], [2, 1, 0, 0, 0],
+                                   [1, 1, 4, 4, 4]),
+    "a start at the origin": ({}, (0, 0), [0] * 5, [0] * 5, [4] * 5),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_WALK_STEPS))
+def test_dense_walk_steps_on_hand_built_planes(case):
+    """The plain dense walk (and the wrapper on the CPU) on the faults the
+    kernel is held to on the card, against steps derived by hand; in a
+    bucket beside an unfaulted pair, which must not change."""
+    edits, (x0, y0), xs, ys, vs = DENSE_WALK_STEPS[case]
+    plane = torch.tensor([DENSE_PLANE, DENSE_PLANE], dtype=torch.int8)
+    for (x, y), v in edits.items():
+        plane[1, x, y] = v
+    sizes = _t([2, x0], torch.int32), _t([2, y0], torch.int32)
+    for walk in (tdp.dense_traceback_walk, traceback_cuda.dense_traceback_walk_cuda):
+        got = walk(plane, *sizes)
+        assert [g.dtype for g in got] == [torch.int32, torch.int32, torch.int8]
+        for g, clean, want in zip(got, ([2, 1, 0, 0, 0], [2, 1, 0, 0, 0], [0, 0, 4, 4, 4]),
+                                  (xs, ys, vs)):
+            assert g[0].tolist() == clean
+            assert g[1].tolist() == want
+
+
 @pytest.mark.parametrize("seed,n,m,w2,odd", [(5, 30, 26, 4, True), (6, 41, 44, 8, False),
                                              (7, 3, 2, 3, False)])
 def test_banded_walk_matches_jax_scan(seed, n, m, w2, odd):

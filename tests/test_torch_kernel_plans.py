@@ -1,7 +1,8 @@
 """The launch plans of the stage-5.4 kernels that hold their work in
 shared memory: ``ops/dense_dp_cuda.py::dense_dp_plan`` (warps and shared
-memory of ``csrc/dense_dp.cu``) and ``ops/traceback_cuda.py::
-banded_walk_plan`` (the successor ring of ``csrc/traceback_walk.cu``).
+memory of ``csrc/dense_dp.cu``), ``ops/traceback_cuda.py::
+banded_walk_plan`` (the successor ring of ``csrc/traceback_walk.cu``) and
+``dense_walk_plan`` (the ring of plane chunks there).
 They are Python copies of the sources' own plans, which the wrappers
 call on the card: these tests have no nvcc to build the sources, and
 ``chip_smoke.py`` holds the copies to the sources' plans there. Every shape the kernels took
@@ -40,6 +41,14 @@ def test_plan_constants_are_the_sources():
     assert int(walk["WALK_STATIC_SMEM"]) == traceback_cuda.WALK_STATIC_SMEM
     # a producer lane's batch covers a chunk's cells in whole batches
     assert (32 * int(walk["WALK_BATCH"])) % (1 << traceback_cuda.WALK_CHUNK_SHIFT) == 0
+    assert int(walk["DWALK_CHUNK_SHIFT"]) == traceback_cuda.DWALK_CHUNK_SHIFT
+    assert int(walk["DWALK_MAX_SLOTS"]) == traceback_cuda.DWALK_MAX_SLOTS
+    assert int(walk["DWALK_MAX_RECORDS"]) == traceback_cuda.DWALK_MAX_RECORDS
+    assert int(walk["DWALK_STATIC_SMEM"]) == traceback_cuda.DWALK_STATIC_SMEM
+    # a turn's four loads reach at most 4 x 62 bytes past a cell on corrupt pointers
+    assert int(walk["DWALK_GUARD"]) == traceback_cuda.DWALK_GUARD >= 4 * 62
+    # a reused ring is a power of two of slots (its offsets are s & mask)
+    assert traceback_cuda.DWALK_MAX_SLOTS & (traceback_cuda.DWALK_MAX_SLOTS - 1) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,3 +188,96 @@ def test_banded_walk_plan_admits_every_checked_shape(a2, B):
 def test_banded_walk_plan_refuses_what_does_not_fit(a2, B, optin):
     with pytest.raises(ValueError, match="banded_traceback_walk_cuda"):
         traceback_cuda.banded_walk_plan(a2, B, optin)
+
+
+# ---------------------------------------------------------------------------
+# dense walk: a ring of 4096-byte chunks of the plane
+# ---------------------------------------------------------------------------
+
+
+# (slots, reused, bytes, records); bytes are the ring's, the records' and a 256-byte guard
+@pytest.mark.parametrize("N,M,plan", [
+    # the main path's bucket at P = 8: 177 x 161 = 28,497 bytes touch at most 8 chunks
+    # (28,497 bytes from offset 4095 end in chunk 7); 337 steps + 3, rounded up to 340
+    (176, 160, (8, False, 8 * 4096 + 4 * 340 + 256, 340)),
+    # and at P = 1: 301 x 276 = 83,076 bytes, from offset 4095 into chunk 21: 22 chunks
+    (300, 275, (22, False, 22 * 4096 + 4 * 580 + 256, 580)),
+    # 1101 x 1301 = 1,432,401 bytes: 351 chunks, over 32: 32 slots reused; 2401 steps
+    (1100, 1300, (32, True, 32 * 4096 + 4 * 2404 + 256, 2404)),
+    # 90,001 x 2 = 180,002 bytes (45 chunks): reused; 90,002 steps, records in xs
+    (90000, 1, (32, True, 32 * 4096 + 256, 0)),
+    # one byte: one chunk; one step, rounded up to 4
+    (0, 0, (1, False, 4096 + 16 + 256, 4)),
+    # 4 bytes may straddle a chunk boundary: two slots
+    (1, 1, (2, False, 2 * 4096 + 4 * 8 + 256, 8)),
+    # 126,977 bytes from offset 4095 end at byte 131,071, in chunk 31: 32 chunks; one byte
+    # more reaches a 33rd. Both walks are over 16,384 steps: no records in shared memory
+    (0, 126976, (32, False, 32 * 4096 + 256, 0)),
+    (0, 126977, (32, True, 32 * 4096 + 256, 0)),
+])
+def test_dense_walk_plan(N, M, plan):
+    assert tuple(traceback_cuda.dense_walk_plan(N, M, H100_SMEM_OPTIN)) == plan
+
+
+def test_dense_walk_ring_holds_every_chunk_a_walk_touches():
+    """Where the ring is not reused, its slots hold every 4096-byte chunk
+    that [0, k0] of a pair's plane touches, wherever in a chunk the plane
+    starts (counted chunk by chunk, for every start offset of a 16-byte
+    grid and the last bytes of a chunk)."""
+    for N, M in ((176, 160), (300, 275), (0, 0), (1, 1), (63, 63), (0, 4095), (0, 4096),
+                 (15, 255), (123, 1022)):
+        plan = traceback_cuda.dense_walk_plan(N, M, H100_SMEM_OPTIN)
+        top = (N + 1) * (M + 1) - 1
+        for koff in list(range(0, 4096, 16)) + list(range(4080, 4096)):
+            touched = len(range(koff // 4096, (koff + top) // 4096 + 1))
+            assert plan.wrap or touched <= plan.slots, (N, M, koff)
+        assert plan.wrap == (max((k + top) // 4096 + 1 for k in range(4096)) > 32)
+
+
+# (slots, reused) of each DENSE_CASES bucket's planes ((N + 1) x (M + 1) for
+# the largest pair's sides; a plane of b bytes touches (b + 4094) // 4096 + 1
+# chunks at most)
+DENSE_CASE_WALK_RINGS = {
+    "300 x 275 (the main path's, P = 1)": (22, False),  # 83,076 bytes
+    "N < M": (2, False),  # 41 x 58 = 2378
+    "N > M": (3, False),  # 131 x 32 = 4192
+    "N = 1": (2, False),  # 2 x 31
+    "M = 1": (2, False),  # 31 x 2
+    "(1, 1)": (2, False),  # 4 bytes
+    "a side over the block's threads (1500 x 40)": (17, False),  # 1501 x 41 = 61,541
+    "a diagonal over the block's threads (1100 x 1300)": (32, True),  # 1,432,401
+    "P = 8, ragged sizes, distinct pens": (22, False),  # 300 x 275
+    "P = 3 with an empty side and a (1, 1)": (2, False),  # 13 x 10
+    "off the strip width, n <= m (97 x 131)": (5, False),  # 98 x 132 = 12,936
+    "off the strip width, n > m (131 x 97)": (5, False),
+    "one strip and one row over (33 x 200)": (3, False),  # 34 x 201 = 6834
+    "strips past the last warp, n > m (800 x 530)": (32, True),  # 425,331
+    "both orientations in one bucket": (11, False),  # 201 x 201 = 40,401
+    "empty sides, P = 3": (2, False),  # 10 x 34
+}
+
+
+@pytest.mark.parametrize("name,sizes", chip_smoke.DENSE_CASES, ids=[c[0] for c in chip_smoke.DENSE_CASES])
+def test_dense_walk_plan_admits_every_checked_bucket(name, sizes):
+    N, M = max(n for n, _ in sizes), max(m for _, m in sizes)
+    plan = traceback_cuda.dense_walk_plan(N, M, H100_SMEM_OPTIN)
+    assert (plan.slots, plan.wrap) == DENSE_CASE_WALK_RINGS[name]
+    assert plan.records == (N + M + 7) & ~3  # every checked walk records in shared memory
+    assert plan.smem_bytes == plan.slots * 4096 + 4 * plan.records + 256
+    assert plan.smem_bytes + traceback_cuda.DWALK_STATIC_SMEM <= H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("N,M,optin", [(300, 275, 50000),  # 92,688 bytes and 1024 static
+                                       (176, 160, 35000),  # 34,384 and 1024
+                                       (46340, 46340, H100_SMEM_OPTIN),  # 2**31 bytes a plane
+                                       (-1, 5, H100_SMEM_OPTIN)])
+def test_dense_walk_plan_refuses_what_does_not_fit(N, M, optin):
+    with pytest.raises(ValueError, match="dense_traceback_walk_cuda"):
+        traceback_cuda.dense_walk_plan(N, M, optin)
+
+
+def test_dense_walk_plan_takes_what_just_fits():
+    plan = traceback_cuda.dense_walk_plan(176, 160, 34384 + 1024)
+    assert plan.smem_bytes == 34384
+    with pytest.raises(ValueError, match="dense_traceback_walk_cuda"):
+        traceback_cuda.dense_walk_plan(176, 160, 34384 + 1023)
