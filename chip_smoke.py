@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
 3. run the stage-5.4 CLI (``svecalign_tpu_torch.seg_align.align``) on a
    synthetic hour-scale plenary pair written from a seed: the launch
    counts show it went through the kernels, its output must equal a run
-   with the plain DP, and it must recover the planted 1-1 pairs; then the
+   with the plain DP, and it must recover the planted 1-1 pairs; with
+   ``--dp_backend native`` (the host float64 DP) the same alignments, and
+   level by level the kernel's pointers and its csum within 1e-5; then the
    same CLI with ``--pair_batch 8`` on 16 such pairs of mixed sizes (the
    batched aligner): launches are counted per bucket and level, not per
    pair, no DP plane is pulled, every pair is covered in order with its
@@ -38,7 +40,10 @@ Phases, in order; any failure exits non-zero:
    must be finite and agree (per-row cosine >= 0.99) with a run on the
    plain attention path; then the stage's phases, and the kernel timed at
    each of the run's buckets against SDPA and its bound (and against its
-   plain version at the modal bucket).
+   plain version at the modal bucket); the Transformer-XL ``relative``
+   flavor on one chunk of every bucket (the plain attention path): finite
+   rows, per-row cosine >= 0.99 to an fp32 forward of the same weights,
+   and its time per minute of audio.
 
 6. run the stage-5.3 CLI with the full-width SpeechLASER encoder, the
    pipeline's default (bf16, random weights from a seed), on the same
@@ -95,7 +100,17 @@ Phases, in order; any failure exits non-zero:
    sharded IVF and int8 tiers and ``score_align --sharded_index``; and,
    with two or more cards, the pipeline with ``--data_parallel 0
    --sharded_index --fused`` against one card. On one card the mesh is
-   two shards of it, and the pipeline bullet is skipped.
+   two shards of it, and the pipeline bullet is skipped;
+13. encoder training (``models/training.py``, ``train.py``) on a mined
+   tsv of 64 same-span pairs: a 2-layer d = 1024 fp32 step on the card
+   against the same step on the CPU, and on two model shards of the card
+   (``Mesh([[cuda:0, cuda:0]])``, tensor parallel) against one device, to
+   the CPU tests' bounds times 10; the training CLI at its defaults (24
+   layers, d = 1024, batch 8, 10 s clips, bf16) for 4 steps with finite
+   losses, its ``encoder_final.npz`` loaded into ``SpeechLaserModel``;
+   8 steps on one batch lowering its loss (the later half's mean under the
+   first), timed (s per step, clips/s,
+   TFLOP/s, peak memory), and the two-shard mesh's overhead.
 
 Phase 7 begins with the windows of both documents written by the
 stage-5.1 CLI, the stage-4.2 CLI's flags and stage 5.2, runs stage 6.2
@@ -111,7 +126,8 @@ count, and the banded walk with 1-15 producer warps (its source built
 with ``-DWALK_PRODUCERS=k``);
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
 ``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
-phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12; ``--profile``
+phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12, ``--train`` phases 1,
+2 and 13; ``--profile``
 profiles one warm stage-5.3 run with each encoder instead.
 
 Prints one JSON ``kernels`` line before the last; the last line is
@@ -1047,7 +1063,7 @@ def _pyramid_depth(n, m, max_size_full_dp=300):
     return depth
 
 
-def _align_kwargs(paths, dp_backend):
+def _align_kwargs(paths, dp_backend, device="cuda"):
     """The stage CLI's per-pair call (seg_align/align.py::_run_pairs) for
     the synthetic pair, with its defaults and -a 6."""
     root = paths["root"]
@@ -1062,7 +1078,7 @@ def _align_kwargs(paths, dp_backend):
         src_stopes=True, tgt_stopes=True, alignment_max_size=6, many_to_one=None,
         search_buffer_size=5, del_percentile_frac=0.2, max_size_full_dp=300,
         costs_sample_size=20000, num_samps_for_norm=100, overlap_segments=True,
-        print_aligned_text=False, seed=42, dp_backend=dp_backend, device="cuda",
+        print_aligned_text=False, seed=42, dp_backend=dp_backend, device=device,
     )
 
 
@@ -1123,6 +1139,7 @@ def phase_main_path(workdir, n_src, n_tgt):
     _log(f"[main] recall of the {len(one_one)} planted 1-1 pairs: {recall:.4f}")
     if recall < MIN_RECALL:
         raise AssertionError(f"planted 1-1 recall {recall} < {MIN_RECALL}")
+    phase_native(workdir, paths, spans, costs)
 
     # a second CLI run: warm wall time and phases
     t0 = time.perf_counter()
@@ -1134,6 +1151,65 @@ def phase_main_path(workdir, n_src, n_tgt):
     for key, val in runtimes[0].items():
         _log(f"[time]    {key}: {val * 1e3:.3f} ms")
     return stack, launches, paths, warm
+
+
+NATIVE_CSUM_TOL = 1e-5  # rtol and atol: float64 host csum against the kernel's float32
+
+
+def phase_native(workdir, paths, spans, costs, device="cuda"):
+    """The ``native`` backend (the host float64 banded DP) on the main
+    path's pair: the CLI's alignments equal the kernel run's (``spans``,
+    ``costs``), and level by level the same pointers and a csum within
+    ``NATIVE_CSUM_TOL``; walls against the kernel route's. On the CPU (a
+    rehearsal) the plain DP stands in for the kernel."""
+    from svecalign_tpu_torch.seg_align import align as stage
+    from svecalign_tpu_torch.vecalign import vecalign as per_pair
+
+    route = "cuda" if device == "cuda" else "torch"
+    t0 = time.perf_counter()
+    runtimes = stage.main(cli_argv(paths, workdir / "out_native", device,
+                                   ["--dp_backend", "native"]))
+    wall = time.perf_counter() - t0
+    got_spans, got_costs = read_output(output_path(workdir / "out_native"))
+    if got_spans != spans:
+        raise AssertionError("--dp_backend native and the kernel give different alignments")
+    cost_diff = float(np.abs(got_costs - costs).max())
+    if cost_diff > 1e-5:
+        raise AssertionError(f"--dp_backend native costs differ from the kernel's by {cost_diff}")
+
+    stacks = {b: per_pair.align(**_align_kwargs(paths, b, device)) for b in (route, "native")}
+    worst_abs = worst_rel = 0.0
+    levels = sorted(d for d in stacks[route] if "a_b_xp" in stacks[route][d])
+    for d in levels:
+        want, got = stacks[route][d], stacks["native"][d]
+        for key in ("a_b_xp", "a_b_yp"):
+            if not np.array_equal(got[key], want[key]):
+                n = int((np.asarray(got[key]) != np.asarray(want[key])).sum())
+                raise AssertionError(f"native {key} differs from the kernel's at level {d} "
+                                     f"({n} cells)")
+        c_n, c_k = np.asarray(got["a_b_csum"]), np.asarray(want["a_b_csum"])
+        fin = np.isfinite(c_n)
+        if not np.array_equal(fin, np.isfinite(c_k)):
+            raise AssertionError(f"native and kernel csum differ in finiteness at level {d}")
+        diff = np.abs(c_n[fin] - c_k[fin])
+        if (diff > NATIVE_CSUM_TOL * (1 + np.abs(c_n[fin]))).any():
+            raise AssertionError(f"native csum differs from the kernel's by {diff.max()} at "
+                                 f"level {d}")
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / np.maximum(np.abs(c_n[fin]), 1e-30)).max()))
+    if stacks["native"][0]["final_alignments"] != stacks[route][0]["final_alignments"]:
+        raise AssertionError("native and kernel stacks give different alignments")
+    _log(f"[main] --dp_backend native: {len(spans)} alignments equal to the kernel run's (costs "
+         f"within {cost_diff:.2e}); at {len(levels)} banded level(s) the same pointers, csum "
+         f"within {worst_abs:.3e} ({worst_rel:.3e} relative; tolerance {NATIVE_CSUM_TOL:g})")
+    dp_keys = ("Upsample DP", "Final DP")
+    _log(f"[time] stage-5.4 CLI --dp_backend native (host float64 DP, first run: g++ builds "
+         f"dp_core.cpp in it): {wall:.3f}s wall; " + ", ".join(f"{k} {runtimes[0][k] * 1e3:.3f} ms" for k in dp_keys)
+         + "; the kernel route's library run: "
+         + ", ".join(f"{k} {stacks[route][0]['runtimes'][k] * 1e3:.3f} ms" for k in dp_keys)
+         + "; the native library run: "
+         + ", ".join(f"{k} {stacks['native'][0]['runtimes'][k] * 1e3:.3f} ms" for k in dp_keys))
+    return wall
 
 
 def _chain_cycles_per_step(x_offsets, y_offsets, handover=ROW_HANDOVER_CYCLES,
@@ -2338,10 +2414,113 @@ def phase_embed_path(workdir, device):
          f"{np.abs(rows - plain).max():.4e}")
     if cos.min() < MIN_COSINE:
         raise AssertionError(f"min per-row cosine {cos.min()} < {MIN_COSINE}")
+    phase_sonar_relative(model, paths, lines, device)
     return {"plan": plan, "modal_bucket": max(plan, key=lambda b: len(plan[b])),
             "chunks": {b: -(-len(v) // model.batch_size) for b, v in plan.items()},
             "batch_size": model.batch_size, "n_heads": model.config.n_heads,
             "n_layers": n_layers}, launches
+
+
+def sonar_relative_encoder(model, seed=0):
+    """The SONAR encoder of ``model`` (a loaded ``SonarSpeechModel``) in the
+    Transformer-XL ``relative`` flavor: its weights, stored as the model
+    stores them, and the flavor's own leaves (``pos_bias_u``,
+    ``pos_bias_v``, ``linear_pos``) drawn N(0, 1/fan_in) from
+    ``torch.Generator(seed)``, as the numpy init draws kernels; the rel-key
+    tables are dropped. Returns (bf16 encoder, fp32 encoder of the same
+    weights)."""
+    import dataclasses
+
+    import torch
+
+    from svecalign_tpu_torch.models.sonar_encoder import SonarSpeechEncoder
+
+    cfg = dataclasses.replace(model.config, position_embeddings_type="relative")
+    have = model.model.state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for dtype in (cfg.dtype, "float32"):
+        with torch.device("meta"):
+            enc = SonarSpeechEncoder(dataclasses.replace(cfg, dtype=dtype))
+        state = {}
+        for k, p in enc.state_dict().items():
+            if k in have:
+                v = have[k]
+            elif not out:  # drawn once, shared by both encoders
+                fan_in = p.shape[-1] if k.endswith("linear_pos.weight") else p.shape[0]
+                v = (torch.randn(p.shape, generator=gen) * fan_in ** -0.5).to(model.device)
+                if k.endswith("linear_pos.weight"):
+                    v = v.to(have[k.replace("linear_pos", "linear_q")].dtype)
+            else:
+                v = out[0].state_dict()[k]
+            state[k] = v.float() if dtype == "float32" else v
+        enc.load_state_dict(state, assign=True)
+        out.append(enc.eval().requires_grad_(False))
+    return out[0], out[1]
+
+
+def phase_sonar_relative(model, paths, lines, device):
+    """The ``relative`` flavor at full width on the card: one chunk of
+    every bucket of the 10-minute document through the bf16 encoder, finite
+    rows, per-row cosine >= MIN_COSINE to an fp32 forward of the same
+    weights, and its time per minute of audio beside the rel-key model's on
+    the same chunks (the flavor takes the plain attention path, as in
+    JAX)."""
+    import torch
+
+    from svecalign_tpu_torch.models import encode_common, w2v_bert
+    from svecalign_tpu_torch.utils.audio_utils import load_waveform
+
+    rel, ref = sonar_relative_encoder(model)
+    waveform = load_waveform(str(paths["wav"]), sr=16000)
+    n_samples = len(waveform)
+    by_bucket = {}
+    for line in lines:
+        s, e = map(int, line.split())
+        bucket, (start, ln, n_frames), _ = model._span_plan(s, max(min(e, n_samples) - s, 0))
+        by_bucket.setdefault(bucket, []).append((start, ln, n_frames))
+    worst, t_rel, t_key, audio_s = 1.0, 0.0, 0.0, 0.0
+    for bucket, items in sorted(by_bucket.items()):
+        chunk = items[: model.batch_size]
+        width = model._bucket_width(bucket)
+        padded, scales = encode_common.stage_rows(
+            [waveform[s:s + ln] for s, ln, _ in chunk], model.batch_size, width, True)
+        lengths = np.zeros(model.batch_size, np.int32)
+        lengths[: len(chunk)] = [min(n, bucket) for *_, n in chunk]
+        args = [torch.from_numpy(a).to(device) for a in (padded, scales, lengths)]
+
+        def fwd(m):
+            with torch.inference_mode():
+                return model._forward(m, *args, bucket, lambda key: None)
+
+        calls = dict(w2v_bert.ATTENTION_CALLS)
+        got = fwd(rel)
+        if w2v_bert.ATTENTION_CALLS["torch"] - calls["torch"] != rel.cfg.n_layers:
+            raise AssertionError("the relative flavor did not take the plain attention path")
+        want = fwd(ref)
+        rows = got[: len(chunk)].cpu().numpy()
+        if not np.isfinite(rows).all():
+            raise AssertionError(f"relative flavor: non-finite rows at bucket {bucket}")
+        cos = _row_cosines(rows, want[: len(chunk)].cpu().numpy())
+        worst = min(worst, float(cos.min()))
+        del want
+        ms = _cuda_time_ms(lambda: fwd(rel), reps=2, warmup=1)
+        ms_key = _cuda_time_ms(lambda: fwd(model.model), reps=2, warmup=1)
+        t_rel, t_key = t_rel + ms / 1e3, t_key + ms_key / 1e3
+        audio_s += sum(ln for _, ln, _ in chunk) / 16000
+        _log(f"[embed] relative flavor, bucket {bucket} frames: {len(chunk)} windows, rows "
+             f"finite, per-row cosine to the fp32 forward min {cos.min():.6f}; {ms:.1f} ms a "
+             f"chunk (the rel-key model's {ms_key:.1f} ms)")
+    del rel, ref
+    torch.cuda.empty_cache()
+    if worst < MIN_COSINE:
+        raise AssertionError(f"relative flavor against fp32: min per-row cosine {worst} < "
+                             f"{MIN_COSINE}")
+    _log(f"[time] SONAR relative flavor, one chunk of each of {len(by_bucket)} buckets "
+         f"({audio_s:.1f} s of audio): {t_rel:.3f}s, {t_rel / (audio_s / 60):.3f}s per minute "
+         f"of audio (the rel-key kernel model on the same chunks: {t_key:.3f}s, "
+         f"{t_key / (audio_s / 60):.3f}s per minute); min cosine {worst:.6f}")
+    return {"s_per_min": t_rel / (audio_s / 60), "key_s_per_min": t_key / (audio_s / 60)}
 
 
 def _attention_bound_ms(B, T, H, lengths, C=73, elem_bytes=2):
@@ -4623,6 +4802,224 @@ def phase_multi(workdir, device, mesh=None, sizes=BUCKET_SIZES, dim=1024, doc_se
             "times": times}
 
 
+TRAIN_PAIRS = 64  # rows of the training tsv: one pair of same-span clips each
+TRAIN_SPAN_S = 10  # a row every 10 s of the two sides, 6-12 s long (the CLI crops at 10 s)
+TRAIN_CLI_STEPS = 4  # full-width steps of the training CLI at its defaults
+TRAIN_FIXED_STEPS = 8  # full-width steps on one fixed batch, which must lower its loss
+TRAIN_TP_STEPS = 3  # full-width steps on two model shards of one card (the first warms up)
+TRAIN_GATE = {"encoder_layers": 2, "encoder_dim": 1024, "dtype": "float32"}  # card vs CPU
+TRAIN_GATE_BATCH = (4, 2.0)  # rows, seconds of the gate's batch
+TRAIN_TOL_SCALE = 10  # the CPU tests' step bounds, scaled: loss 1e-5, gradients 1e-6, 1e-5
+
+
+def write_train_tsv(root, n_pairs=TRAIN_PAIRS, span_s=TRAIN_SPAN_S, seed=400):
+    """A mined tsv (``score \\t src span \\t tgt span``) of ``n_pairs``
+    same-span rows over a :func:`write_front_pair` pair: row k covers
+    6-12 s from about k * ``span_s`` s in both sides. Returns its path."""
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    paths = write_front_pair(root, seconds=n_pairs * span_s + 20, n_planted=4, seed=seed)
+    lines = []
+    for k in range(n_pairs):
+        start = k * span_s * sr + int(rng.integers(0, sr))
+        end = start + int(rng.integers(6 * sr, 12 * sr))
+        lines.append(f"{1.1 + 0.001 * k:.4f}\t{paths[SRC_LANG]} {start} {end} 16"
+                     f"\t{paths[TGT_LANG]} {start} {end} 16\n")
+    tsv = Path(root) / "align.rm_overlap.sort.tsv"
+    tsv.write_text("".join(lines), encoding="utf-8")
+    return tsv
+
+
+def _train_step_record(model, step, batch):
+    """One step: (loss, {name: gradient}, {name: parameter after}) on the host."""
+    loss = float(step(batch))
+    grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+    params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    return loss, grads, params
+
+
+def hold_train_steps(what, got, want, lr, scale=TRAIN_TOL_SCALE):
+    """``got`` and ``want`` (:func:`_train_step_record`) agree to the CPU
+    tests' bounds times ``scale``: the loss; every gradient tensor within
+    1e-6 x scale of its own largest magnitude where that is over 1 (the
+    extractor's first bias sums its gradient over every frame of the batch
+    and reaches ~10: fp32 rounds it at ~1e-6 relative), else absolute;
+    every parameter within 2 lr (and 4 ulp), and within 1e-5 x scale
+    wherever |g| > 1e-4. Returns the largest gradient difference (relative
+    to that scale) and parameter difference."""
+    import torch
+
+    (gl, gg, gp), (wl, wg, wp) = got, want
+    if abs(gl - wl) > 1e-5 * scale:
+        raise AssertionError(f"{what}: loss {gl} against {wl}")
+    g_err = 0.0
+    for k in wg:
+        err = float((gg[k] - wg[k]).abs().max()) / max(1.0, float(wg[k].abs().max()))
+        if err > 1e-6 * scale:
+            raise AssertionError(f"{what}: gradient {k} differs by {err} (scaled)")
+        g_err = max(g_err, err)
+    p_err = 0.0
+    for k in wp:
+        d = (gp[k] - wp[k]).abs()
+        ulps = 4 * torch.from_numpy(np.spacing(np.abs(wp[k].numpy())))
+        big = wg[k].abs() > 1e-4
+        if (d > 2 * lr + ulps).any() or (d[big] > 1e-5 * scale).any():
+            raise AssertionError(f"{what}: parameter {k} differs by {float(d.max())}")
+        p_err = max(p_err, float(d.max()))
+    return g_err, p_err
+
+
+def phase_train(workdir, device, gate=TRAIN_GATE, gate_batch=TRAIN_GATE_BATCH, cli_args=(),
+                full=None, fixed_batch=(8, 10.0), fixed_steps=TRAIN_FIXED_STEPS,
+                tp_steps=TRAIN_TP_STEPS, pairs=TRAIN_PAIRS):
+    """Encoder training (``models/training.py``, ``train.py``) on the card:
+    a 2-layer d = 1024 fp32 step on the card against the same step on the
+    CPU, and on two model shards of the card against one device; the
+    training CLI at its defaults (24 layers, d = 1024, batch 8, 10 s clips,
+    bf16 compute) for a few steps, finite losses, its encoder_final.npz
+    loaded into SpeechLaserModel; steps on one fixed batch lowering its
+    loss, timed: s per step, clips/s, TFLOP/s (3x the forward's
+    operations), peak memory, and the two-shard mesh's overhead.
+    ``cli_args``, ``full`` (a LaserEncoderConfig), the batches, the step
+    counts and ``pairs`` cut it to size for a rehearsal on the CPU."""
+    import torch
+
+    from svecalign_tpu_torch import train as cli
+    from svecalign_tpu_torch.models import training
+    from svecalign_tpu_torch.models.laser_encoder import LaserEncoderConfig, SpeechLaserModel
+    from svecalign_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # a mesh names its cards
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tsv = write_train_tsv(workdir / "corpus", n_pairs=pairs)
+    rows = cli.load_rows(str(tsv), 0.0)
+    tcfg = training.TrainConfig()
+    lr = tcfg.learning_rate
+    _log(f"[train] wrote a mined tsv of {len(rows)} same-span pairs in "
+         f"{time.perf_counter() - t_phase:.1f}s")
+
+    # the gate: one fp32 step, card against CPU, and two model shards against one device
+    cfg = LaserEncoderConfig(**gate)
+    n_rows, seconds = gate_batch
+    batch = cli.ClipBatcher(rows, n_rows, int(seconds * 16000), 0).next_batch()
+    init, _ = training.make_train_state(cfg, tcfg, seed=0, device="cpu")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    recs = {}
+    for name, where, mesh in (("cpu", "cpu", None), ("card", dev, None),
+                              ("card, 2 model shards", dev, Mesh([[dev, dev]]))):
+        model = training.LaserSpeechEncoder(cfg).to(where)
+        model.load_state_dict(init)
+        opt = training.make_optimizer(model, tcfg)
+        step = (training.make_train_step(model, opt, tcfg) if mesh is None
+                else training.shard_train_step(model, opt, tcfg, mesh))
+        recs[name] = _train_step_record(model, step, batch)
+        del model, opt, step
+    g1, p1 = hold_train_steps("card against CPU", recs["card"], recs["cpu"], lr)
+    g2, p2 = hold_train_steps("two model shards against one device", recs["card, 2 model shards"],
+                              recs["card"], lr)
+    _log(f"[train] gate ({gate['encoder_layers']} layers, d = {gate['encoder_dim']}, fp32, "
+         f"{n_rows} x {seconds} s): loss card {recs['card'][0]:.7f}, CPU {recs['cpu'][0]:.7f}, "
+         f"two model shards {recs['card, 2 model shards'][0]:.7f}; card against CPU: gradients "
+         f"within {g1:.3e}, parameters {p1:.3e}; two shards against one device: gradients "
+         f"{g2:.3e}, parameters {p2:.3e} (bounds: loss {1e-5 * TRAIN_TOL_SCALE:g}, gradients "
+         f"{1e-6 * TRAIN_TOL_SCALE:g} of each tensor's largest magnitude where over 1, "
+         f"parameters 2 lr = {2 * lr:g}, and {1e-5 * TRAIN_TOL_SCALE:g} where |g| > 1e-4)")
+    del recs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the CLI at its defaults
+    out = workdir / "train_out"
+    t0 = time.perf_counter()
+    res = cli.main([str(tsv), str(out), "--steps", str(TRAIN_CLI_STEPS),
+                    "--device", dev.type, *cli_args])
+    cli_wall = time.perf_counter() - t0
+    if not np.isfinite(res["losses"]).all() or len(res["losses"]) != TRAIN_CLI_STEPS:
+        raise AssertionError(f"training CLI losses {res['losses']}")
+    _log(f"[train] CLI ({' '.join(cli_args) or 'defaults'}): {TRAIN_CLI_STEPS} steps in "
+         f"{cli_wall:.3f}s wall (weight init, wav reads and the first step's warm-up included), "
+         f"losses {', '.join(f'{x:.5f}' for x in res['losses'])}")
+    full = full or LaserEncoderConfig()
+    loaded = SpeechLaserModel(full, ckpt_path=res["final"], device=dev)
+    emb = loaded.encode([np.asarray(batch["src_wav"][0][: batch["src_len"][0]])])
+    if not np.isfinite(emb).all():
+        raise AssertionError("the trained encoder's rows are not finite")
+    del loaded
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # steps on one fixed batch: the loss must fall; times, rate, memory
+    b = cli.ClipBatcher(rows, fixed_batch[0], int(fixed_batch[1] * 16000), 1).next_batch()
+    resident = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    model, opt = training.make_train_state(full, tcfg, seed=1, device=dev)
+    step = training.make_train_step(model, opt, tcfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(fixed_steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))  # the loss's pull waits for the step
+        times.append(time.perf_counter() - t0)
+    # the training's own: weights, gradients, moments and activations
+    peak = torch.cuda.max_memory_allocated(dev) - resident if dev.type == "cuda" else 0
+    # Adam at lr 1e-4 from a random init moves every weight by ~lr a step,
+    # and the loss of a batch of 8 pairs swings from step to step: the
+    # later half's mean is held under the first loss
+    late = float(np.mean(losses[len(losses) // 2:]))
+    if not late < losses[0]:
+        raise AssertionError(f"{fixed_steps} steps on one batch did not lower its loss: {losses}")
+    s_step = float(np.median(times[1:]))
+    n_clips = 2 * len(b["src_len"])
+    flops = 3 * n_clips * sum(laser_row_flops(full, b["src_wav"].shape[1]).values())
+    _log(f"[train] {fixed_steps} steps on one batch of {n_clips // 2} pairs: loss "
+         + ", ".join(f"{x:.5f}" for x in losses) + f"; the later half's mean {late:.5f}")
+    _log(f"[time] train step ({full.encoder_layers} layers, d = {full.encoder_dim}, {full.dtype} "
+         f"compute, fp32 "
+         f"master, {n_clips} clips of {b['src_wav'].shape[1] / 16000:g} s): {s_step:.4f} s per step "
+         f"(median of {fixed_steps - 1} warm steps; first {times[0]:.4f} s), "
+         f"{n_clips / s_step:.2f} clips/s, {flops / s_step / 1e12:.1f} TFLOP/s counting 3x the "
+         f"forward's {flops / 3e12:.2f} TFLOP, {100 * flops / s_step / H100_BF16_OPS_PER_S:.1f}% "
+         f"of the bf16 dense peak; peak memory {peak / 2**30:.2f} GiB (above the "
+         f"{resident / 2**30:.2f} GiB resident before)")
+
+    # the same model and batch on two model shards of the card
+    tp_step = training.shard_train_step(model, training.make_optimizer(model, tcfg), tcfg,
+                                        Mesh([[dev, dev]]))
+    tp_times = []
+    for _ in range(tp_steps):
+        t0 = time.perf_counter()
+        loss = float(tp_step(b))
+        tp_times.append(time.perf_counter() - t0)
+    s_tp = float(np.median(tp_times[1:]))
+    _log(f"[time] train step on two model shards of one card: {s_tp:.4f} s per step (median of "
+         f"{tp_steps - 1} warm steps, loss {loss:.5f}), {s_tp / s_step:.3f}x the one-device step")
+
+    # one step of each by phase, the device synced at each phase's end
+    splits = {}
+    os.environ[training.TRAIN_PROFILE_ENV] = "1"
+    try:
+        for name, fn in (("one device", step), ("two model shards", tp_step)):
+            training.step_seconds.clear()
+            t0 = time.perf_counter()
+            fn(b)
+            splits[name] = dict(training.step_seconds, wall=time.perf_counter() - t0)
+    finally:
+        del os.environ[training.TRAIN_PROFILE_ENV]
+    for name, split in splits.items():
+        _log(f"[time] train step by phase ({name}, synced, {split['wall']:.4f}s): "
+             + " | ".join(f"{k} {v:.4f}s" for k, v in split.items() if k != "wall"))
+    del model, opt, step, tp_step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _log(f"[time] train phase: {time.perf_counter() - t_phase:.1f}s")
+    return {"s_per_step": s_step, "clips_per_s": n_clips / s_step, "tflops": flops / s_step / 1e12,
+            "peak_gib": peak / 2**30, "tp_ratio": s_tp / s_step, "cli_losses": res["losses"],
+            "fixed_losses": losses, "splits": splits}
+
+
 KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match wins
     ("relkey_attention kernel", ("relkey_attention",)),
     ("SDPA attention (LASER)", ("fmha", "flash", "attention")),
@@ -4714,6 +5111,10 @@ def main(argv=None):
                       help="only build, the kernel checks and the sharded paths (phases 1, 2, "
                            "12: stages 5.4, 5.3 and 6.7 over a mesh against one device, and with "
                            "two or more cards the whole pipeline); prints no result line")
+    mode.add_argument("--train", action="store_true",
+                      help="only build, the kernel checks and encoder training (phases 1, 2, "
+                           "13: a card-against-CPU gate, the training CLI at full width, timed "
+                           "steps); prints no result line")
     mode.add_argument("--front", action="store_true",
                       help="only build, the kernel checks and the front of the pipeline "
                            "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
@@ -4752,6 +5153,11 @@ def main(argv=None):
             phase_front(Path(td), device, latencies=phase_chain_latencies(device)[:2],
                         clock_hz=_sm_clock_hz())
         _log(f"[done] front phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.train:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as td:
+            phase_train(Path(td), device)
+        _log(f"[done] train phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     if args.pipeline:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as td:
@@ -4802,6 +5208,8 @@ def main(argv=None):
             mining_root=Path(mining_dir.name) / "mining")
     dp_dir.cleanup()
     mining_dir.cleanup()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as td:
+        phase_train(Path(td), device)
     kernels = [{
         "name": "banded_dp", "route": "cuda",
         "source": "svecalign_tpu_torch/csrc/banded_dp.cu",

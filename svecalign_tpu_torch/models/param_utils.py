@@ -13,12 +13,18 @@ mechanically (``/`` -> ``.``), and each leaf by its layer kind:
   -> ``Linear.weight`` (heads dh, d), their biases (heads, dh) -> (heads dh,);
   out (heads, dh, d) -> (d, heads dh)
 - LayerNorm / GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
-- Dense and Conv ``bias`` and bare parameters (``distance_embedding``, the
-  pooler's ``query``)                   -> as they are
+- Dense and Conv ``bias`` and bare parameters (``distance_embedding``,
+  the ``relative`` flavor's ``pos_bias_u`` / ``pos_bias_v``, the pooler's
+  ``query``)                            -> as they are
 
 Random weights follow the JAX package's numpy init exactly: leaves in the
 order JAX flattens the flax tree (sorted paths), kernels N(0, 1/fan_in),
 biases 0, scales 1, from ``np.random.default_rng(seed)``.
+
+The map runs both ways: :func:`params_from_jax` reads a JAX ``.npz`` into
+a ``state_dict``, :func:`params_to_jax` and :func:`save_params_npz` write
+a module's weights back in the flax layout, so a file written by either
+package loads in the other.
 """
 
 from typing import Dict, List, Tuple
@@ -102,6 +108,36 @@ def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "heads_out":
         return arr.reshape(-1, arr.shape[-1]).T  # (heads, dh, d) -> (d, heads dh)
     return arr
+
+
+def _to_flax(arr: np.ndarray, kind: str, flax_shape: Tuple[int, ...]) -> np.ndarray:
+    """The inverse of :func:`_to_torch`."""
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":
+        return arr.transpose(2, 1, 0)
+    if kind in ("heads_in", "heads_out"):
+        # (heads dh, d) -> (d, heads, dh); (d, heads dh) -> (heads, dh, d)
+        return arr.T.reshape(flax_shape)
+    return arr.reshape(flax_shape)  # heads_bias: (heads dh,) -> (heads, dh)
+
+
+def params_to_jax(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The flat ``'a/b/c'`` fp32 params of ``module`` in the flax layout:
+    the inverse of :func:`params_from_jax`."""
+    state = module.state_dict()
+    out = {}
+    for path, key, kind, flax_shape in _leaf_map(module):
+        arr = state[key].detach().float().cpu().numpy()
+        # a copy: a CPU tensor's numpy view would follow later updates
+        out["/".join(path)] = np.array(_to_flax(arr, kind, flax_shape), dtype=np.float32)
+    return out
+
+
+def save_params_npz(module: nn.Module, path: str) -> None:
+    """Write ``module``'s weights as a JAX ``.npz`` (flattened ``'a/b/c'``
+    keys, the counterpart of the JAX package's ``save_params_npz``)."""
+    np.savez(path, **params_to_jax(module))
 
 
 def params_from_jax(

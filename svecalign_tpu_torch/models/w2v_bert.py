@@ -34,18 +34,24 @@ routes, chosen by ``attention_backend``:
 
 ``ATTENTION_CALLS`` counts the self-attention calls per route.
 
-The Transformer-XL ``relative`` flavor is not ported yet and raises.
+The Transformer-XL ``relative`` flavor takes the plain path on every
+device, as in JAX (the kernel is gated on ``relative_key``):
+(q + u) k^T plus the shifted (q + v) pe^T over a sinusoidal table of
+2T - 1 positions, projected by ``linear_pos`` (no bias). The table is
+built in numpy fp32 as JAX builds it, cached per length and device on the
+model, and cast to the compute dtype before ``linear_pos``. Its score
+tensor is (B, H, T, 2T - 1), twice the rel-key path's.
 """
 
 import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-RELATIVE_TODO = "ROADMAP.md Queue 1 item 16a (the Transformer-XL 'relative' position flavor)"
 BACKENDS = ("auto", "cuda", "torch")
 
 ATTENTION_CALLS = {"cuda": 0, "torch": 0}
@@ -62,7 +68,7 @@ class W2vBertConfig:
     intermediate_size: int = 4096
     conv_depthwise_kernel_size: int = 31
     layer_norm_eps: float = 1e-5
-    position_embeddings_type: str = "relative_key"  # relative_key|none
+    position_embeddings_type: str = "relative_key"  # relative_key|relative|none
     left_max_position_embeddings: int = 64
     right_max_position_embeddings: int = 8
     dtype: str = "float32"
@@ -112,6 +118,24 @@ class FlaxLayerNorm(nn.Module):
             + self.bias.float().view(shape)
 
 
+def sinusoidal_rel_pe(seq_len: int, d_model: int) -> np.ndarray:
+    """Transformer-XL relative positional table, length 2T - 1, laid out
+    [pos T-1 .. 1, 0, -1 .. -(T-1)] exactly like HF's
+    Wav2Vec2BertRelPositionalEmbedding (positive part flipped, negative
+    part from index 1). numpy fp32, the JAX package's arithmetic."""
+    position = np.arange(seq_len, dtype=np.float32)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float32) * -(math.log(10000.0) / d_model)
+    )
+    pe_pos = np.zeros((seq_len, d_model), np.float32)
+    pe_neg = np.zeros((seq_len, d_model), np.float32)
+    pe_pos[:, 0::2] = np.sin(position * div_term)
+    pe_pos[:, 1::2] = np.cos(position * div_term)
+    pe_neg[:, 0::2] = np.sin(-position * div_term)
+    pe_neg[:, 1::2] = np.cos(-position * div_term)
+    return np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)  # (2T-1, d)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, kernel and bias in ``dtype``."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -134,10 +158,7 @@ class _FeedForward(nn.Module):
 class _SelfAttention(nn.Module):
     def __init__(self, cfg: W2vBertConfig):
         super().__init__()
-        if cfg.position_embeddings_type == "relative":
-            raise NotImplementedError(
-                f"position_embeddings_type='relative' is not ported yet: {RELATIVE_TODO}")
-        if cfg.position_embeddings_type not in ("relative_key", "none"):
+        if cfg.position_embeddings_type not in ("relative_key", "relative", "none"):
             raise ValueError(f"unknown position_embeddings_type {cfg.position_embeddings_type!r}")
         self.cfg = cfg
         self.attention_backend = cfg.attention_backend
@@ -149,6 +170,11 @@ class _SelfAttention(nn.Module):
         if cfg.position_embeddings_type == "relative_key":
             n_pos = cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1
             self.distance_embedding = nn.Parameter(torch.zeros(n_pos, cfg.head_size))
+        if cfg.position_embeddings_type == "relative":
+            nh, dh = cfg.num_attention_heads, cfg.head_size
+            self.pos_bias_u = nn.Parameter(torch.zeros(nh, dh))
+            self.pos_bias_v = nn.Parameter(torch.zeros(nh, dh))
+            self.linear_pos = nn.Linear(h, h, bias=False)
 
     def _use_kernel(self, x: torch.Tensor) -> bool:
         cfg, backend = self.cfg, self.attention_backend
@@ -165,10 +191,11 @@ class _SelfAttention(nn.Module):
             return True
         return backend == "auto" and fits and x.is_cuda
 
-    def forward(self, x, attn_bias, lengths=None):
+    def forward(self, x, attn_bias, lengths=None, rel_pe=None):
         """x: (B, T, H); attn_bias: (B, 1, 1, T) additive fp32 or None;
         lengths: (B,) int32 valid-frame counts (the kernel's form of
-        attn_bias)."""
+        attn_bias); rel_pe: (2T - 1, H) fp32 sinusoidal table of the
+        'relative' flavor."""
         cfg = self.cfg
         dt = compute_dtype(cfg)
         b, t, _ = x.shape
@@ -189,7 +216,21 @@ class _SelfAttention(nn.Module):
 
         ATTENTION_CALLS["torch"] += 1
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, dh)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+        if cfg.position_embeddings_type == "relative":
+            # Transformer-XL: (q + u) k^T + shifted (q + v) pe^T, / sqrt(dh)
+            pe = dense(self.linear_pos, rel_pe.to(dt), dt)
+            pe = pe.view(-1, nh, dh).transpose(0, 1)  # (H, 2T-1, dh)
+            q_u = q + self.pos_bias_u[None, :, None, :].to(dt)
+            q_v = q + self.pos_bias_v[None, :, None, :].to(dt)
+            scores_ac = torch.matmul(q_u, k.transpose(-1, -2))
+            scores_bd = torch.matmul(q_v, pe.transpose(-1, -2)[None])  # (B, H, T, 2T-1)
+            # shift trick (HF _apply_relative_embeddings step 5)
+            r = scores_bd.shape[-1]
+            bd = F.pad(scores_bd, (1, 0))
+            bd = bd.reshape(b, nh, r + 1, t)[:, :, 1:].reshape(b, nh, t, r)
+            scores = (scores_ac + bd[..., : r // 2 + 1]) / math.sqrt(dh)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
         if cfg.position_embeddings_type == "relative_key":
             left = cfg.left_max_position_embeddings
             pos = torch.arange(t, device=x.device)
@@ -246,10 +287,10 @@ class W2vBertEncoderLayer(nn.Module):
         self.ffn2 = _FeedForward(cfg)
         self.final_layer_norm = FlaxLayerNorm(h, eps)
 
-    def forward(self, x, attn_bias, pad_mask, lengths=None):
+    def forward(self, x, attn_bias, pad_mask, lengths=None, rel_pe=None):
         dt = compute_dtype(self.cfg)
         x = x + 0.5 * self.ffn1(self.ffn1_layer_norm(x).to(dt))
-        x = x + self.self_attn(self.self_attn_layer_norm(x).to(dt), attn_bias, lengths)
+        x = x + self.self_attn(self.self_attn_layer_norm(x).to(dt), attn_bias, lengths, rel_pe)
         x = x + self.conv_module(x, pad_mask)
         x = x + 0.5 * self.ffn2(self.ffn2_layer_norm(x).to(dt))
         return self.final_layer_norm(x).to(dt)
@@ -267,6 +308,7 @@ class W2vBertModel(nn.Module):
         self.fp_projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
         for i in range(cfg.num_hidden_layers):  # flax names: layers_0, layers_1, ...
             self.add_module(f"layers_{i}", W2vBertEncoderLayer(cfg))
+        self._rel_pe = {}  # (T, device) -> the 'relative' flavor's fp32 table
 
     def layers(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_hidden_layers)]
@@ -291,6 +333,18 @@ class W2vBertModel(nn.Module):
             # contiguous-padding form for the kernel (the frontend builds
             # pad_mask as arange < lengths)
             lengths = pad_mask.sum(dim=1, dtype=torch.int32)
+        rel_pe = None
+        if self.cfg.position_embeddings_type == "relative":
+            rel_pe = self.rel_pe(x.shape[1], x.device)
         for layer in self.layers():
-            x = layer(x, attn_bias, pad_mask, lengths)
+            x = layer(x, attn_bias, pad_mask, lengths, rel_pe)
         return x
+
+    def rel_pe(self, t: int, device: torch.device) -> torch.Tensor:
+        """The (2t - 1, H) fp32 table of the 'relative' flavor on
+        ``device``, made once per length and device."""
+        key = (t, torch.device(device))
+        if key not in self._rel_pe:
+            self._rel_pe[key] = torch.from_numpy(
+                sinusoidal_rel_pe(t, self.cfg.hidden_size)).to(device)
+        return self._rel_pe[key]

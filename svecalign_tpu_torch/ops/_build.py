@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and host libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
 into ``svecalign_tpu_torch/build/lib<name>-<digest>.so`` for ``sm_90a``,
@@ -6,6 +6,10 @@ then loaded with ctypes. The digest covers the source and the flags, so
 an edited source is rebuilt and a stale library is never loaded. Nothing
 is built when the package is imported: the first :func:`load` of a kernel
 builds it, and :func:`build_all` starts one nvcc per source at once.
+
+The host libraries (``csrc/<name>.cpp``: the Vorbis reader and writer,
+the float64 DP) are built the same way by g++ at first use,
+:func:`build_host_library`, each with its own flags.
 """
 
 import ctypes
@@ -15,7 +19,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 from svecalign_tpu_torch.parallel.mesh import current_shard
 
@@ -108,6 +112,31 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     return logs
+
+
+def build_host_library(name: str, flags: Sequence[str], link: Sequence[str] = (),
+                       build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``csrc/<name>.cpp`` with g++ into
+    ``build_dir/lib<name>-<digest>.so`` unless it is built (the digest
+    covers the source, the flags and the link flags). Raises
+    ``RuntimeError`` with the compiler's output when g++ is missing or
+    fails; nothing is loaded in its place."""
+    src = CSRC_DIR / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(tuple(flags) + tuple(link)).encode())
+    out = Path(build_dir) / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    try:
+        res = subprocess.run(["g++", *flags, str(src), "-o", str(tmp), *link],
+                             capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"building {src.name} needs g++, and there is none: {e}") from e
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {src.name}:\n{res.stderr[-2000:]}")
+    tmp.replace(out)  # atomic: concurrent builds each rename a whole library
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,10 +12,10 @@ copies and merges them there.
 
 - ``data`` axis: the rows of an encoder chunk, the pairs of an aligner
   bucket, the rows of a kNN corpus;
-- ``model`` axis: tensor parallelism of the encoders for training. Its
-  partition rules (``encoder_param_spec``, ``shard_params``) come with
-  their only caller, the training CLI (ROADMAP item 21); until then the
-  data-parallel paths take meshes whose model axis is 1.
+- ``model`` axis: tensor parallelism of the encoders for training
+  (``models/training.py::shard_train_step``), by the partition rules
+  :func:`encoder_param_spec` and :func:`shard_params`; the inference
+  paths are data-parallel and take meshes whose model axis is 1.
 
 :func:`make_mesh` takes the first ``n_devices`` local devices. A
 :class:`Mesh` can also be built from an explicit list in which devices
@@ -34,7 +34,7 @@ multi-host job from ``SVECALIGN_COORDINATOR``.
 import contextlib
 import os
 import threading
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,8 +103,15 @@ class Mesh:
         if self.devices.shape[1] != 1:
             raise ValueError(
                 f"a data-parallel path takes a model axis of 1, got {self.devices.shape[1]}: "
-                "the model axis is tensor parallelism (ROADMAP.md Queue 1 item 21)")
+                "the model axis is tensor parallelism, for training "
+                "(models/training.py::shard_train_step)")
         return list(self.devices[:, 0])
+
+    @property
+    def grid(self) -> List[List[torch.device]]:
+        """The ``(data, model)`` grid: ``grid[i][j]`` holds model shard
+        ``j`` of data shard ``i`` (training's tensor-parallel step)."""
+        return [list(row) for row in self.devices]
 
     @property
     def first(self) -> torch.device:
@@ -161,7 +168,7 @@ def default_mesh(device) -> Optional[Mesh]:
 def shard_slices(n: int, mesh: Mesh) -> List[slice]:
     """Contiguous slices of a leading axis of ``n``, one per data shard;
     ``n`` must divide evenly over the data axis (JAX's rule)."""
-    k = len(mesh.data_devices)
+    k = mesh.devices.shape[0]
     if n % k:
         raise ValueError(f"a leading axis of {n} does not split evenly over {k} data shards")
     step = n // k
@@ -202,6 +209,65 @@ def replicate(value: torch.Tensor, devices: Sequence[torch.device]) -> List[torc
         if d not in made:
             made[d] = value.to(d)
     return [made[d] for d in devices]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the encoders' partition rules over the model axis
+# ---------------------------------------------------------------------------
+
+
+def encoder_param_spec(key: str, value: torch.Tensor) -> Optional[int]:
+    """The torch axis of ``state_dict[key]`` split over the ``model`` axis,
+    or None where the tensor is replicated: the JAX package's rule on the
+    port's keys. FFN expansions split their hidden units, contractions
+    their input; attention projections split heads, the output projection
+    on its input; conv and norm parameters and every bias replicate. A
+    torch Linear weight is (out, in), flax's kernel (in, out), so each
+    axis is the other one of JAX's."""
+    name = key.replace(".", "/")
+    if value.dim() < 2 or not name.endswith("weight"):
+        return None
+    if any(f in name for f in ("ffn_in", "ffn1_in", "ffn2_in")):
+        return 0  # flax P(None, "model")
+    if any(f in name for f in ("ffn_out", "ffn1_out", "ffn2_out")):
+        return 1  # flax P("model", None)
+    if "attn" in name and "out" not in name:
+        return 0  # flax P(None, "model", None) on (d, heads, dh)
+    if "attn/out/" in name:
+        return 1  # flax P("model", None, None) on (heads, dh, d)
+    return None
+
+
+def model_slice(n: int, j: int, model_parallel: int) -> slice:
+    """Model shard ``j``'s part of an axis of ``n``."""
+    if n % model_parallel:
+        raise ValueError(f"an axis of {n} does not split over {model_parallel} model shards")
+    step = n // model_parallel
+    return slice(j * step, (j + 1) * step)
+
+
+def shard_params(state_dict: Dict[str, torch.Tensor], mesh: Mesh) -> List[List[Dict]]:
+    """Place a ``state_dict`` on the mesh by :func:`encoder_param_spec`:
+    ``out[i][j][key]`` is model shard ``j``'s slice (or the whole tensor,
+    where it is replicated) on device ``grid[i][j]``. Each slice is copied
+    once per distinct device; slicing and copies are differentiable, so
+    gradients of the shards reach the tensors given."""
+    grid = mesh.devices
+    n_data, n_model = grid.shape
+    out = [[{} for _ in range(n_model)] for _ in range(n_data)]
+    for key, value in state_dict.items():
+        axis = encoder_param_spec(key, value)
+        made = {}
+        for i, j in np.ndindex(n_data, n_model):
+            part = None if axis is None else j
+            if (part, grid[i, j]) not in made:
+                piece = value
+                if axis is not None:
+                    s = model_slice(value.shape[axis], j, n_model)
+                    piece = value.narrow(axis, s.start, s.stop - s.start)
+                made[(part, grid[i, j])] = piece.to(grid[i, j])
+            out[i][j][key] = made[(part, grid[i, j])]
+    return out
 
 
 # ---------------------------------------------------------------------------

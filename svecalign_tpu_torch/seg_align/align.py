@@ -49,8 +49,6 @@ from svecalign_tpu_torch.vecalign.vecalign import align as vecalign_func
 
 logger = logging.getLogger(__name__)
 
-_NATIVE = "ROADMAP.md Queue 1 item 7b (the native float64 backend)"
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
@@ -109,10 +107,12 @@ def parse_args(argv=None):
     parser.add_argument("--dp_backend", type=str, default="auto",
                         choices=["auto", "cuda", "torch", "pallas", "xla", "native"],
                         help="banded-DP kernel: the CUDA kernel (card), the plain "
-                             "torch loop, or auto (cuda on the card, torch on the "
-                             "CPU). pallas/xla are the JAX package's; native is "
-                             f"not ported yet: {_NATIVE} (with --pair_batch > 1 "
-                             "it is ignored with a warning, as in the JAX CLI).")
+                             "torch loop, native (the host float64 DP, "
+                             "ops/dp_native.py; with --pair_batch > 1 it is ignored "
+                             "with a warning, as in the JAX CLI), or auto (cuda on "
+                             "the card, torch on the CPU; the JAX package's auto "
+                             "takes native on the CPU). pallas/xla are the JAX "
+                             "package's.")
     parser.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                         help="run on the card (default) or, when asked, on the CPU.")
     return parser.parse_args(argv)
@@ -125,10 +125,8 @@ def check_ported(args) -> None:
     if args.dp_backend in ("pallas", "xla"):
         unported.append(
             f"--dp_backend {args.dp_backend}: a JAX backend; this package has "
-            "cuda and torch (ROADMAP.md Queue 2 item 2)"
+            "cuda, torch and native (ROADMAP.md Queue 2 item 2)"
         )
-    if args.dp_backend == "native" and args.pair_batch <= 1:
-        unported.append(f"--dp_backend native: {_NATIVE}")
     if unported:
         raise SystemExit("not ported yet:\n  " + "\n  ".join(unported))
 

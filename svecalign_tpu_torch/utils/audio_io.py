@@ -17,17 +17,14 @@ format in its place.
 """
 
 import ctypes
-import hashlib
-import os
 import struct
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from svecalign_tpu_torch.ops._build import BUILD_DIR, CSRC_DIR
+from svecalign_tpu_torch.ops._build import BUILD_DIR, build_host_library
 
 VORBIS_LIBS = ("libvorbisfile.so.3", "libvorbisenc.so.2", "libvorbis.so.0", "libogg.so.0")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
@@ -45,26 +42,14 @@ def _is_ogg(path) -> bool:
 
 
 def _build_ogg_library() -> Path:
-    """Compile ``csrc/ogg_io.cpp`` into ``build/libogg_io-<digest>.so``
-    (the digest covers the source and the flags) unless it is built."""
-    src = CSRC_DIR / "ogg_io.cpp"
+    """``build/libogg_io-<digest>.so``, built by g++ against
+    :data:`VORBIS_LIBS` unless it is built."""
     link = ["-L/usr/lib/x86_64-linux-gnu"] + [f"-l:{lib}" for lib in VORBIS_LIBS]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS + tuple(link)).encode())
-    out = BUILD_DIR / f"libogg_io-{digest.hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
     try:
-        res = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp), *link],
-                             capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f".ogg needs g++ to build {src.name}, and there is none: {e}") from e
-    if res.returncode != 0:
-        raise RuntimeError(f".ogg needs the system's {', '.join(VORBIS_LIBS)}; building "
-                           f"{src.name} against them failed:\n{res.stderr[-2000:]}")
-    tmp.replace(out)  # atomic: concurrent builds each rename a whole library
-    return out
+        return build_host_library("ogg_io", GXX_FLAGS, link, BUILD_DIR)
+    except RuntimeError as e:
+        raise RuntimeError(f".ogg needs g++ and the system's {', '.join(VORBIS_LIBS)}: "
+                           f"{e}") from e
 
 
 def _ogg() -> ctypes.CDLL:

@@ -88,6 +88,9 @@ Alignment = Tuple[List[int], List[int]]
 # the gate lives with the walks (ops.dp); re-exported for callers
 device_traceback_enabled = dp_ops.device_traceback_enabled
 
+# the batched pyramid runs on the device: the host 'native' DP is per pair
+BATCHED_DP_BACKENDS = tuple(b for b in DP_BACKENDS if b != "native")
+
 
 # ---------------------------------------------------------------------------
 # batched device ops
@@ -353,9 +356,10 @@ def _run_batched_banded_dp(
     dp_backend: str = "auto",
 ):
     """Banded DP for a bucket, one launch: the CUDA kernel on the card, the
-    plain loop on the CPU, by the rule of ``pyramid.pick_banded_dp``."""
-    if dp_backend not in DP_BACKENDS:
-        raise ValueError(f"dp_backend must be one of {DP_BACKENDS}, got {dp_backend!r}")
+    plain loop on the CPU, by the rule of ``pyramid.pick_banded_dp``. The
+    host 'native' backend is per pair only."""
+    if dp_backend not in BATCHED_DP_BACKENDS:
+        raise ValueError(f"dp_backend must be one of {BATCHED_DP_BACKENDS}, got {dp_backend!r}")
     dev = costs.device
     if dp_backend == "auto":
         dp_backend = "cuda" if dev.type == "cuda" else "torch"

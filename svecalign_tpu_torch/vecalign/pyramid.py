@@ -11,6 +11,8 @@ Device/host split:
   tensors, the dense DP and the banded DP run on ``device``; on the card
   both DPs are CUDA kernels (the banded one unless ``dp_backend="torch"``
   asks for the plain torch loop), on the CPU the plain torch loops;
+  ``dp_backend="native"`` runs the banded DP on the host in float64
+  (``ops/dp_native.py``): each level's costs come to the host, as in JAX;
 - path bookkeeping (upsample / extend / slant) and the tracebacks are
   tiny, irregular host code: each level pulls its planes once (one
   pair's planes are small; the walk kernels serve the batched aligner).
@@ -38,7 +40,7 @@ logger = logging.getLogger("vecalign")
 
 Alignment = Tuple[List[int], List[int]]
 
-DP_BACKENDS = ("auto", "cuda", "torch")
+DP_BACKENDS = ("auto", "cuda", "torch", "native")
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +140,11 @@ def upsample_alignment(algn: List[Alignment]) -> List[Alignment]:
 
 def pick_banded_dp(dp_backend: str, device: torch.device):
     """The banded-DP function for ``dp_backend`` on ``device``: 'cuda' is
-    the hand-written kernel (card only), 'torch' the plain loop, 'auto'
-    the kernel for CUDA tensors and the plain loop for CPU tensors."""
+    the hand-written kernel (card only), 'torch' the plain loop, 'native'
+    the host float64 DP (costs pulled to the host; its planes are host
+    arrays, so nothing of it is walked on the device), 'auto' the kernel
+    for CUDA tensors and the plain loop for CPU tensors. The JAX package's
+    'auto' takes 'native' on the CPU; this one keeps the plain loop there."""
     if dp_backend not in DP_BACKENDS:
         raise ValueError(f"dp_backend must be one of {DP_BACKENDS}, got {dp_backend!r}")
     if dp_backend == "auto":
@@ -148,6 +153,10 @@ def pick_banded_dp(dp_backend: str, device: torch.device):
         if device.type != "cuda":
             raise ValueError("dp_backend 'cuda' runs on the card: use device='cuda'")
         return dp_cuda.run_banded_dp_cuda
+    if dp_backend == "native":
+        from svecalign_tpu_torch.ops.dp_native import run_banded_dp_native
+
+        return run_banded_dp_native
     return dp_ops.run_banded_dp
 
 
@@ -198,7 +207,8 @@ def vecalign(
     stack[0]['runtimes'] the wall time of each phase (the device is
     synchronised at each phase's end). Matches the JAX package's
     ``pyramid.vecalign`` with the same seed. ``device`` defaults to the
-    card; ``dp_backend``: auto | cuda | torch (see :func:`pick_banded_dp`).
+    card; ``dp_backend``: auto | cuda | torch | native (see
+    :func:`pick_banded_dp`). Every backend's planes are walked on the host.
     """
     dev = resolve_device(device)
     banded_dp_fn = pick_banded_dp(dp_backend, dev)

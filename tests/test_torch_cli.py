@@ -60,7 +60,7 @@ def test_default_device_raises_without_card(pair, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dp_backend", "xla"], ["--dp_backend", "pallas"], ["--dp_backend", "native"],
+    ["--dp_backend", "xla"], ["--dp_backend", "pallas"],
 ])
 def test_unported_flags_exit_naming_roadmap(pair, tmp_path, flags):
     paths, _ = pair

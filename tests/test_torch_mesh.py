@@ -71,7 +71,7 @@ def test_make_mesh_shapes_and_errors(monkeypatch):
     assert m.data_devices == [torch.device("cpu")] * 8
     m2 = tmesh.make_mesh(8, model_parallel=2, device="cpu")
     assert m2.shape == {"data": 4, "model": 2}
-    with pytest.raises(ValueError, match="item 21"):
+    with pytest.raises(ValueError, match="tensor parallelism, for training"):
         m2.data_devices
     with pytest.raises(ValueError, match="model_parallel"):
         tmesh.make_mesh(6, model_parallel=4, device="cpu")

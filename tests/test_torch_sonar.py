@@ -35,12 +35,12 @@ SMALL = dict(n_mels=80, model_dim=128, n_layers=2, n_heads=2, ffn_dim=256,
 DTYPES = ("float32", "bfloat16")
 
 
-def jax_cfg(dtype="float32"):
-    return jsonar.SonarEncoderConfig(**SMALL, dtype=dtype, attention_backend="xla")
+def jax_cfg(dtype="float32", **over):
+    return jsonar.SonarEncoderConfig(**SMALL, dtype=dtype, attention_backend="xla", **over)
 
 
-def port_cfg(dtype="float32"):
-    return tsonar.SonarEncoderConfig(**SMALL, dtype=dtype, attention_backend="torch")
+def port_cfg(dtype="float32", **over):
+    return tsonar.SonarEncoderConfig(**SMALL, dtype=dtype, attention_backend="torch", **over)
 
 
 @pytest.fixture(scope="module")
@@ -242,9 +242,97 @@ def test_attention_backend_rules():
     model(torch.zeros(1, 8, 160), torch.ones(1, 8, dtype=torch.bool))
     assert tw2v.ATTENTION_CALLS["torch"] == before["torch"] + 1
     assert tw2v.ATTENTION_CALLS["cuda"] == before["cuda"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tw2v.W2vBertModel(tw2v.W2vBertConfig(position_embeddings_type="relative",
-                                             num_hidden_layers=1))
+    # the 'relative' flavor builds and runs the plain path, also under "auto"
+    rel = tw2v.W2vBertModel(tw2v.W2vBertConfig(
+        hidden_size=128, num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
+        position_embeddings_type="relative"))
+    before = dict(tw2v.ATTENTION_CALLS)
+    out = rel(torch.zeros(1, 8, 160), torch.ones(1, 8, dtype=torch.bool))
+    assert out.shape == (1, 8, 128) and torch.isfinite(out).all()
+    assert tw2v.ATTENTION_CALLS["torch"] == before["torch"] + 1
+
+
+# --- the Transformer-XL 'relative' flavor ------------------------------------------
+
+
+@pytest.mark.parametrize("t", [1, 2, 7, 60, 333])
+def test_relative_table_bit_equal(t):
+    got = tw2v.sinusoidal_rel_pe(t, 128)
+    want = jw2v._sinusoidal_rel_pe(t, 128)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (2 * t - 1, 128)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def relative_models(tmp_path_factory):
+    """(JAX params, port encoder per dtype) of the 'relative' flavor, from
+    the JAX numpy init (seed 4; pos_bias_u/v drawn non-zero)."""
+    model = jsonar.SonarSpeechEncoder(jax_cfg(position_embeddings_type="relative"))
+    params = jparams.numpy_init(model, (jnp.zeros((1, 50, 160)), jnp.ones((1, 50), bool)),
+                                seed=4)
+    path = tmp_path_factory.mktemp("sonar_rel") / "rel.npz"
+    jparams.save_params_npz(params, str(path))
+    flat = tparams.load_params_npz(str(path))
+    out = {}
+    for dtype in DTYPES:
+        m = tsonar.SonarSpeechEncoder(port_cfg(dtype, position_embeddings_type="relative"))
+        m.load_state_dict(tparams.params_from_jax(flat, m, source="npz"))
+        out[dtype] = m.eval().requires_grad_(False)
+    assert {"pos_bias_u", "pos_bias_v"} <= {
+        k.rsplit(".", 1)[-1] for k in out["float32"].state_dict()}
+    return params, out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_relative_trunk_and_encoder_match_jax(relative_models, dtype):
+    """W2vBertModel and the whole SONAR encoder (trunk + pooler) of the
+    'relative' flavor against JAX, valid rows."""
+    params, models = relative_models
+    feats, mask = feats_and_mask(8)
+    jcfg = jax_cfg(dtype, position_embeddings_type="relative")
+    jx = jw2v.W2vBertModel(jcfg.trunk_config()).apply(
+        {"params": params["params"]["trunk"]}, jnp.asarray(feats), jnp.asarray(mask))
+    model = models[dtype]
+    before = dict(tw2v.ATTENTION_CALLS)
+    tx = model.trunk(torch.from_numpy(feats), torch.from_numpy(mask))
+    assert tw2v.ATTENTION_CALLS["torch"] == before["torch"] + 2
+    assert tx.dtype == tw2v.DTYPES[dtype] and torch.isfinite(tx).all()
+    valid = mask[:, :, None]
+    jx32 = np.asarray(jx.astype(jnp.float32))
+    assert rel_err(np.where(valid, tx.float().numpy(), 0), np.where(valid, jx32, 0)) < REL_TOL[dtype]
+
+    rows = mask.any(1)
+    jemb = jsonar.SonarSpeechEncoder(jcfg).apply(params, jnp.asarray(feats), jnp.asarray(mask))
+    temb = model(torch.from_numpy(feats), torch.from_numpy(mask))
+    assert rel_err(temb.numpy()[rows], np.asarray(jemb)[rows]) < REL_TOL[dtype]
+
+
+def test_chip_smoke_relative_encoder_rehearsal(weights):
+    """chip_smoke's relative-flavor encoders, built from a loaded bf16
+    model on the CPU: the flavor's leaves drawn, the rel-key tables dropped,
+    and the bf16 encoder's rows at cosine >= 0.99 to the fp32 one's."""
+    import chip_smoke
+    from svecalign_tpu_torch.models import encode_common
+
+    model = tsonar.SonarSpeechModel(port_cfg("bfloat16"), ckpt_path=weights[1], batch_size=2,
+                                    device="cpu")
+    rel, ref = chip_smoke.sonar_relative_encoder(model)
+    keys = set(rel.state_dict())
+    assert "trunk.layers_0.self_attn.pos_bias_u" in keys
+    assert not any("distance_embedding" in k for k in keys)
+    assert rel.trunk.layers_0.self_attn.linear_pos.weight.dtype == torch.bfloat16
+    assert ref.trunk.layers_0.self_attn.linear_pos.weight.dtype == torch.float32
+    wav = [np.random.default_rng(k).standard_normal(16000 + 4000 * k).astype(np.float32) * 0.1
+           for k in range(2)]
+    bucket = model._bucket(1 + (len(wav[1]) - 400) // 160)
+    padded, scales = encode_common.stage_rows(wav, 2, model._bucket_width(bucket), True)
+    lengths = torch.tensor([min(1 + (len(w) - 400) // 160, bucket) for w in wav],
+                           dtype=torch.int32)
+    args = (torch.from_numpy(padded), torch.from_numpy(scales), lengths, bucket, lambda k: None)
+    got = model._forward(rel, *args).numpy()
+    want = model._forward(ref, *args).numpy()
+    assert np.isfinite(got).all()
+    assert chip_smoke._row_cosines(got, want).min() >= chip_smoke.MIN_COSINE
 
 
 # --- encode and encode_spans ----------------------------------------------------
