@@ -36,9 +36,14 @@ Phases, in order; any failure exits non-zero:
 5. run the stage-5.3 CLI (``svecalign_tpu_torch.seg_align.embed``) with the
    full-width 24-layer SONAR encoder (bf16, random weights from a seed) on
    a synthetic 10-minute document written from a seed: the rel-key kernel
-   must run 24 times per chunk and the plain attention never, the rows
-   must be finite and agree (per-row cosine >= 0.99) with a run on the
-   plain attention path; then the stage's phases, and the kernel timed at
+   must run 24 times per chunk (counted at each replay of the encoder's
+   CUDA graphs, one captured per bucket) and the plain attention never, the
+   rows must be finite and agree (per-row cosine >= 0.99) with a run on the
+   plain attention path; the rows by graph replay against the eager
+   forward (per-row cosine >= 0.99999), the CLI's warm wall by graph and
+   eagerly in turns, capture seconds per bucket, the graph pool's bytes and
+   peak memory; a forward that synchronises must make its capture raise to
+   the caller; then the stage's phases, and the kernel timed at
    each of the run's buckets against SDPA and its bound (and against its
    plain version at the modal bucket); the Transformer-XL ``relative``
    flavor on one chunk of every bucket (the plain attention path): finite
@@ -49,8 +54,9 @@ Phases, in order; any failure exits non-zero:
    pipeline's default (bf16, random weights from a seed), on the same
    document: one fp16 ``.npy`` row per window, all finite, a sample of
    every bucket's windows against an fp32 forward of the same weights,
-   device window assembly against host slicing with fp32 uploads; walls,
-   phases and the share of the bf16 peak;
+   device window assembly against host slicing with fp32 uploads; graph
+   replay against the eager forward as in phase 5; walls, phases and the
+   share of the bf16 peak;
 7. the post-align chain through the port's CLIs: LASER stage 5.3 on a
    second document, stage 5.4 over the pair, stages 6.1, 6.3 (at the
    pipeline's settings: chains of up to 3 contiguous alignments, gaps of
@@ -96,7 +102,9 @@ Phases, in order; any failure exits non-zero:
    over the mesh, bit-equal in paired and in shared mode, the kernels
    launched on every shard; full-width LASER and SONAR data-parallel on
    the 10-minute document (rows at cosine >= 0.999, the rel-key kernel on
-   every shard); the sharded Flat search over the mining corpus, the
+   every shard, graph replay against the eager forward at cosine >=
+   0.99999, walls by graph and eagerly); the sharded Flat search over the
+   mining corpus, the
    sharded IVF and int8 tiers and ``score_align --sharded_index``; and,
    with two or more cards, the pipeline with ``--data_parallel 0
    --sharded_index --fused`` against one card. On one card the mesh is
@@ -124,17 +132,20 @@ that no path of the port runs: the dense DP's first design in ablation
 modes (``measure/dense_dp_ablation.cu``), the shipped dense DP by strip
 count, and the banded walk with 1-15 producer warps (its source built
 with ``-DWALK_PRODUCERS=k``);
+``--embed`` runs phases 1, 2, 5 and 6 (without the chain);
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
 ``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
 phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12, ``--train`` phases 1,
 2 and 13; ``--profile``
-profiles one warm stage-5.3 run with each encoder instead.
+profiles one warm stage-5.3 run with each encoder instead, by graph replay
+and with the eager forward.
 
 Prints one JSON ``kernels`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports only the
 port, torch and numpy.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2324,6 +2335,140 @@ def _run_embed(stage, paths, out_dir, **kw):
     return time.perf_counter() - t0
 
 
+GRAPH_MIN_COSINE = 0.99999  # a row replayed from a CUDA graph against the eager forward's
+GRAPH_TURNS = ("graph", "eager", "eager", "graph")  # the stage-5.3 CLI's warm runs, in turns
+
+
+@contextlib.contextmanager
+def eager_forward(model):
+    """Within the block every forward of ``model`` runs eagerly, also one
+    that a CLI makes through the loader's memo: ``eager=True`` where no
+    argument reaches the model. The comparison route; a card's main path
+    replays a CUDA graph per shape."""
+    span_forward = type(model)._span_forward
+
+    def eager(rows_q, row_scales, lengths, bucket, _eager=False):
+        return span_forward(model, rows_q, row_scales, lengths, bucket, True)
+
+    model._span_forward = eager
+    try:
+        yield
+    finally:
+        del model._span_forward
+
+
+def _peak_above(device, fn):
+    """(fn(), the peak of allocated device bytes during it above what was
+    allocated before; 0 on the CPU)."""
+    import torch
+
+    if device.type != "cuda":
+        return fn(), 0
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device) - base
+
+
+def log_programs(label, model):
+    """Each replica's programs: capture seconds (warm-up and capture) by
+    shape and the bytes of its graph pool. Returns the total capture
+    seconds and pool bytes."""
+    total_s = total_bytes = 0
+    for st in model.program_stats():
+        caps = st["capture_s"]
+        total_s += sum(caps.values())
+        total_bytes += st["pool_bytes"]
+        _log(f"[graphs] {label} replica {st['replica']} on {st['device']}: {len(caps)} programs, "
+             f"graph pool {st['pool_bytes'] / 2**30:.3f} GiB; capture seconds by (bucket, rows, "
+             "width): " + ", ".join(f"({k[0]}, {k[1]}, {k[2]}) {v:.3f}"
+                                   for k, v in sorted(caps.items(), key=lambda kv: kv[0][:3])))
+    return total_s, total_bytes
+
+
+def graphs_against_eager(label, model, run_cli, waveform, spans, device):
+    """Stage 5.3 on the card by CUDA-graph replay (the main path) against
+    the eager forward of the same model: ``encode_spans`` of the document's
+    windows in fp32 both ways, per-row cosine >= GRAPH_MIN_COSINE and the
+    max abs difference; then the stage-5.3 CLI (``run_cli(name)`` -> wall)
+    warm, in the turns of GRAPH_TURNS, with the peak of allocated memory
+    above what was allocated before each run. Returns the mean walls by
+    route, the peaks and the row gate's numbers."""
+    got = model.encode_spans(waveform, spans)
+    want = model.encode_spans(waveform, spans, eager=True)
+    cos = _row_cosines(got, want)
+    diff = float(np.abs(got - want).max())
+    _log(f"[graphs] {label} encode_spans of the {len(spans)} windows, fp32 rows by graph replay "
+         f"against the eager forward: per-row cosine min {cos.min():.8f}, max abs difference "
+         f"{diff:.3e}{' (bit-equal)' if np.array_equal(got, want) else ''}")
+    if cos.min() < GRAPH_MIN_COSINE or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: graph rows against eager, min cosine {cos.min()} < "
+                             f"{GRAPH_MIN_COSINE} (or not finite)")
+    walls, peaks = {"graph": [], "eager": []}, {"graph": 0, "eager": 0}
+    for route in GRAPH_TURNS:
+        name = f"turn_{route}{len(walls[route])}"
+        if route == "eager":
+            with eager_forward(model):
+                wall, peak = _peak_above(device, lambda: run_cli(name))
+        else:
+            wall, peak = _peak_above(device, lambda: run_cli(name))
+        walls[route].append(wall)
+        peaks[route] = max(peaks[route], peak)
+    audio_min = DOC_SECONDS / 60
+    mean = {k: float(np.mean(v)) for k, v in walls.items()}
+    _log(f"[time] {label} stage-5.3 CLI, warm, in turns ({', '.join(GRAPH_TURNS)}): graph "
+         f"{mean['graph']:.3f}s ({', '.join(f'{w:.3f}' for w in walls['graph'])}), "
+         f"{mean['graph'] / audio_min:.4f}s per minute of audio; eager {mean['eager']:.3f}s "
+         f"({', '.join(f'{w:.3f}' for w in walls['eager'])}), {mean['eager'] / audio_min:.4f}s "
+         f"per minute; eager / graph {mean['eager'] / mean['graph']:.3f}; peak allocated above "
+         f"before: graph {peaks['graph'] / 2**30:.3f} GiB, eager {peaks['eager'] / 2**30:.3f} GiB")
+    return {"graph_s": mean["graph"], "eager_s": mean["eager"], "peaks": peaks,
+            "min_cos": float(cos.min()), "max_abs": diff}
+
+
+def phase_capture_failure(model, waveform, spans, device):
+    """A forward that synchronises the device cannot be captured: the
+    capture raises, the error reaches encode_spans' caller, no program is
+    kept, and the model's rows are what they were afterwards. On the CPU
+    (no graphs) nothing is checked."""
+    import torch
+
+    from svecalign_tpu_torch.parallel.mesh import Mesh
+
+    if device.type != "cuda":
+        _log("[graphs] capture failure: not checked on the CPU (no graphs)")
+        return
+    probe = model.with_mesh(Mesh([torch.device("cuda", torch.cuda.current_device())]))
+    forward = probe._forward
+
+    def syncing(*args):
+        torch.cuda.synchronize()
+        return forward(*args)
+
+    probe._forward = syncing
+    try:
+        probe.encode_spans(waveform, spans)
+    except RuntimeError as e:
+        err = e
+    else:
+        raise AssertionError("a forward that synchronises was captured")
+    finally:
+        del probe._forward
+    if any(st["capture_s"] for st in probe.program_stats()):
+        raise AssertionError("a failed capture left a program behind")
+    cos = _row_cosines(probe.encode_spans(waveform, spans), model.encode_spans(waveform, spans))
+    if cos.min() < GRAPH_MIN_COSINE:
+        raise AssertionError(f"after a failed capture, rows at cosine {cos.min()} to the model's")
+    why = " <- ".join(str(x).strip().splitlines()[0] for x in (err, err.__context__) if x)
+    _log(f"[graphs] a forward that synchronises: its capture raised to the caller "
+         f"({type(err).__name__}: {why}); no program kept; then a capture of the forward: rows "
+         f"at cosine min {cos.min():.8f} to the model's (the failed capture's pool routing "
+         f"ended by torch._C._cuda_endAllocateToPool: "
+         f"{hasattr(torch._C, '_cuda_endAllocateToPool')})")
+
+
 def phase_embed_path(workdir, device):
     """Stage 5.3 through the CLI on the card at full width; returns what
     the timings need (each bucket's window frame counts and chunks, the
@@ -2333,6 +2478,7 @@ def phase_embed_path(workdir, device):
     from svecalign_tpu_torch.models import encode_common, w2v_bert
     from svecalign_tpu_torch.seg_align import embed as stage
     from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.audio_utils import load_waveform
 
     t0 = time.perf_counter()
     paths, lines = write_synthetic_document(workdir / "doc", DOC_SECONDS)
@@ -2361,12 +2507,14 @@ def phase_embed_path(workdir, device):
          f"mean window {mean_s:.2f} s")
 
     _reset_launches()
-    wall = _run_embed(stage, paths, workdir / "out")
+    wall, peak_first = _peak_above(device, lambda: _run_embed(stage, paths, workdir / "out"))
     launches = _launches()
     calls = dict(w2v_bert.ATTENTION_CALLS)
     n_layers = model.config.n_layers
-    _log(f"[embed] stage-5.3 CLI on the card: {wall:.3f}s wall (first run), launches "
-         f"{launches}, attention calls by route {calls}")
+    _log(f"[embed] stage-5.3 CLI on the card: {wall:.3f}s wall (first run, capturing a CUDA "
+         f"graph per bucket; peak allocated {peak_first / 2**30:.3f} GiB above before), "
+         f"launches {launches}, attention calls by route {calls}")
+    capture_s, pool_bytes = log_programs("SONAR", model)
     if launches["relkey_attention"] != n_layers * n_chunks:
         raise AssertionError(f"relkey_attention launched {launches['relkey_attention']} "
                              f"times, want {n_layers} x {n_chunks}")
@@ -2383,15 +2531,22 @@ def phase_embed_path(workdir, device):
     _log(f"[embed] .embed: {rows.shape[0]} x {rows.shape[1]} fp16 rows, all finite, "
          f"row norms {np.linalg.norm(rows, axis=1).min():.3f}-{np.linalg.norm(rows, axis=1).max():.3f}")
 
-    wall_warm = _run_embed(stage, paths, workdir / "out_warm")
+    waveform = load_waveform(str(paths["wav"]), sr=16000)
+    spans = [tuple(map(int, line.split())) for line in lines]
+    turns = graphs_against_eager("SONAR", model,
+                                 lambda name: _run_embed(stage, paths, workdir / name),
+                                 waveform, spans, device)
+    wall_warm = turns["graph_s"]
+    phase_capture_failure(model, waveform, spans[:8], device)
     prof = encode_common.start_encode_profile()
     wall_prof = _run_embed(stage, paths, workdir / "out_prof")
     encode_common.stop_encode_profile()
     audio_min = DOC_SECONDS / 60
-    _log(f"[time] stage-5.3 CLI, warm: {wall_warm:.3f}s wall (first run {wall:.3f}s), "
-         f"{wall_warm / audio_min:.3f}s per minute of audio")
+    _log(f"[time] stage-5.3 CLI, warm: {wall_warm:.3f}s wall (first run {wall:.3f}s, "
+         f"{capture_s:.3f}s of it capturing), {wall_warm / audio_min:.3f}s per minute of audio")
     host_io = prof["file_s"] - sum(prof[k] for k in encode_common.PROFILE_KEYS)
-    _log(f"[time] stage-5.3 phases (a run with a device sync per phase, {wall_prof:.3f}s wall): "
+    _log(f"[time] stage-5.3 phases (a run with a device sync per phase, the forward by graph "
+         f"replay in trunk, {wall_prof:.3f}s wall): "
          f"weight init {init_s:.3f}s (once per process) | "
          + " | ".join(f"{k[:-2]} {prof[k]:.3f}s" for k in encode_common.PROFILE_KEYS)
          + f" | wav read {prof['read_s']:.3f}s | other host work and .embed write "
@@ -2400,7 +2555,8 @@ def phase_embed_path(workdir, device):
     model.model.trunk.set_attention_backend("torch")
     try:
         _reset_launches()
-        wall_plain = _run_embed(stage, paths, workdir / "out_plain")
+        with eager_forward(model):  # no graphs kept of a comparison's route
+            wall_plain = _run_embed(stage, paths, workdir / "out_plain")
         if _launches()["relkey_attention"] != 0:
             raise AssertionError("the plain-attention run launched the kernel")
     finally:
@@ -2418,7 +2574,8 @@ def phase_embed_path(workdir, device):
     return {"plan": plan, "modal_bucket": max(plan, key=lambda b: len(plan[b])),
             "chunks": {b: -(-len(v) // model.batch_size) for b, v in plan.items()},
             "batch_size": model.batch_size, "n_heads": model.config.n_heads,
-            "n_layers": n_layers}, launches
+            "n_layers": n_layers, "graphs": {**turns, "capture_s": capture_s,
+                                            "pool_bytes": pool_bytes}}, launches
 
 
 def sonar_relative_encoder(model, seed=0):
@@ -2759,7 +2916,9 @@ def phase_laser_path(workdir, device):
          "PFLOP: " + ", ".join(f"{k} {v / 1e12:.1f} TFLOP" for k, v in parts.items()))
 
     out = workdir / "emb"
-    wall = _run_embed(stage, paths, out, kind="speech_laser", device=dev)
+    wall, peak_first = _peak_above(
+        device, lambda: _run_embed(stage, paths, out, kind="speech_laser", device=dev))
+    capture_s, pool_bytes = log_programs("LASER", model)
     rows = np.load(embed_output(out))
     if rows.dtype != np.float16 or rows.shape != (len(lines), cfg.encoder_dim):
         raise AssertionError(f".embed holds {rows.dtype} {rows.shape}, want float16 "
@@ -2769,10 +2928,18 @@ def phase_laser_path(workdir, device):
         raise AssertionError(".embed has non-finite values")
     norms = np.linalg.norm(rows, axis=1)
     _log(f"[laser] stage-5.3 CLI (--embed_model_type speech_laser, defaults) on the card: "
-         f"{wall:.3f}s wall (first run); .embed: a stopes .npy of {rows.shape[0]} x "
-         f"{rows.shape[1]} fp16 rows, all finite, row norms {norms.min():.3f}-{norms.max():.3f}")
+         f"{wall:.3f}s wall (first run, {capture_s:.3f}s of it capturing a CUDA graph per "
+         f"bucket; peak allocated {peak_first / 2**30:.3f} GiB above before); .embed: a stopes "
+         f".npy of {rows.shape[0]} x {rows.shape[1]} fp16 rows, all finite, row norms "
+         f"{norms.min():.3f}-{norms.max():.3f}")
 
-    wall_warm = _run_embed(stage, paths, workdir / "emb_warm", kind="speech_laser", device=dev)
+    waveform = load_waveform(str(paths["wav"]), sr=16000)
+    spans = [tuple(map(int, line.split())) for line in lines]
+    turns = graphs_against_eager(
+        "LASER", model,
+        lambda name: _run_embed(stage, paths, workdir / name, kind="speech_laser", device=dev),
+        waveform, spans, device)
+    wall_warm = turns["graph_s"]
     prof = encode_common.start_encode_profile()
     wall_prof = _run_embed(stage, paths, workdir / "emb_prof", kind="speech_laser", device=dev)
     encode_common.stop_encode_profile()
@@ -2782,18 +2949,16 @@ def phase_laser_path(workdir, device):
          f"{flops / wall_warm / 1e12:.1f} TFLOP/s over the warm wall, "
          f"{100 * flops / wall_warm / H100_BF16_OPS_PER_S:.1f}% of the bf16 dense peak")
     host_io = prof["file_s"] - sum(prof[k] for k in encode_common.PROFILE_KEYS)
-    _log(f"[time] LASER stage-5.3 phases (a run with a device sync per phase, {wall_prof:.3f}s "
-         f"wall): weight init {init_s:.3f}s (once per process) | "
+    _log(f"[time] LASER stage-5.3 phases (a run with a device sync per phase, the forward by "
+         f"graph replay in trunk, {wall_prof:.3f}s wall): weight init {init_s:.3f}s (once per "
+         "process) | "
          + " | ".join(f"{k[:-2]} {prof[k]:.3f}s" for k in encode_common.PROFILE_KEYS)
          + f" | wav read {prof['read_s']:.3f}s | other host work and .embed write "
-         f"{host_io - prof['read_s']:.3f}s | {prof['chunks']} chunks; trunk at "
-         f"{(parts['trunk dense'] + parts['attention']) / max(prof['trunk_s'], 1e-9) / 1e12:.1f} "
-         f"TFLOP/s, extractor at {parts['extractor'] / max(prof['frontend_s'], 1e-9) / 1e12:.1f}")
+         f"{host_io - prof['read_s']:.3f}s | {prof['chunks']} chunks; the forward (extractor, "
+         f"trunk, pool) at {flops / max(prof['trunk_s'], 1e-9) / 1e12:.1f} TFLOP/s")
 
     # a sample of every bucket's windows against an fp32 forward of the
     # same weights, padded to the same bucket
-    waveform = load_waveform(str(paths["wav"]), sr=16000)
-    spans = [tuple(map(int, line.split())) for line in lines]
     by_bucket = {}
     for i, (s, e) in enumerate(spans):
         by_bucket.setdefault(model._bucket(min(e, n_samples) - s), []).append(i)
@@ -2832,7 +2997,8 @@ def phase_laser_path(workdir, device):
     if cos.min() < UPLOAD_MIN_COSINE:
         raise AssertionError(f"device and host assembly: min cosine {cos.min()} < "
                              f"{UPLOAD_MIN_COSINE}")
-    return {"paths": paths, "lines": lines, "waveform": waveform, "emb_dir": out}
+    return {"paths": paths, "lines": lines, "waveform": waveform, "emb_dir": out,
+            "graphs": {**turns, "capture_s": capture_s, "pool_bytes": pool_bytes}}
 
 
 def _span_chunks(model, spans, n_samples):
@@ -3188,7 +3354,7 @@ def phase_sonar_long_spans(device, waveform):
     model.model.trunk.set_attention_backend("torch")
     model.batch_size = 4
     try:
-        plain = model.encode_spans(waveform, spans)
+        plain = model.encode_spans(waveform, spans, eager=True)  # no graphs kept of it
     finally:
         model.model.trunk.set_attention_backend("auto")
         model.batch_size = batch_size
@@ -3991,11 +4157,20 @@ class _counting:
 
 
 def _weight_bytes():
-    """Device bytes of the parameters and buffers of every loaded encoder."""
+    """Device bytes that every loaded encoder holds for its life: the
+    parameters and buffers, and the static inputs and outputs of its CUDA
+    graphs (a graph's working memory is in its pool, where it counts as
+    free between replays)."""
     from svecalign_tpu_torch.utils import embed_model_utils
 
-    return sum(t.numel() * t.element_size() for m in embed_model_utils._model_memo.values()
-               for t in (*m.model.parameters(), *m.model.buffers()))
+    total = 0
+    for m in embed_model_utils._model_memo.values():
+        tensors = [*m.model.parameters(), *m.model.buffers()]
+        for programs in m.__dict__.get("_span_programs", {}).values():
+            for prog in programs.programs.values():
+                tensors += [*prog.inputs, prog.output]
+        total += sum(t.numel() * t.element_size() for t in tensors)
+    return total
 
 
 def run_pipeline(meta, out, dev, extra=()):
@@ -4179,6 +4354,10 @@ def phase_pipeline(workdir, device, seconds=PIPE_SECONDS, n_planted=PIPE_PLANTED
         _log(f"[pipeline] {label} ({' '.join(flags) or 'the defaults'}, --pair_batch "
              f"{PIPE_BATCH}): {run['wall']:.3f}s wall; stage seconds: "
              + " | ".join(f"{k} {v:.3f}" for k, v in run["stages"].items()))
+        _log(f"[time] pipeline {label}: {run['wall']:.3f}s wall, stage 5.3 "
+             f"{run['stages']['embed']:.3f}s of it "
+             f"({100 * run['stages']['embed'] / run['wall']:.1f}%; the encoder by CUDA-graph "
+             "replay)")
 
     sizes = []
     for p in pairs:
@@ -4255,11 +4434,8 @@ def phase_pipeline(workdir, device, seconds=PIPE_SECONDS, n_planted=PIPE_PLANTED
     for label, run in runs.items():
         _log_memory(label, run)
     _check_memory("fused", fused)
-    if cuda and hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
-        torch._C._cuda_clearCublasWorkspaces()
-        _log(f"[pipeline] device memory with every cuBLAS workspace dropped: "
-             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (loaded weights "
-             f"{_weight_bytes() / 2**20:.1f} MiB)")
+    # (cuBLAS's workspaces stay: a captured graph holds the workspace of the
+    # stream it was captured on, so none may be dropped while graphs live)
 
     # SONAR, fused, on phase 7's two 10-minute documents
     sroot = root / "sonar_in"
@@ -4294,12 +4470,14 @@ def phase_pipeline(workdir, device, seconds=PIPE_SECONDS, n_planted=PIPE_PLANTED
 def _log_memory(label, run):
     w0, w1 = run["weights"]
     _log(f"[pipeline] device memory, {label}: {run['mem_before'] / 2**20:.1f} MiB before, "
-         f"{run['mem_after'] / 2**20:.1f} MiB after (loaded weights {w1 / 2**20:.1f} MiB, "
-         f"{(w1 - w0) / 2**20:.1f} of them new), peak {run['peak'] / 2**30:.3f} GiB above before")
+         f"{run['mem_after'] / 2**20:.1f} MiB after (loaded weights and graph buffers "
+         f"{w1 / 2**20:.1f} MiB, {(w1 - w0) / 2**20:.1f} of them new), peak "
+         f"{run['peak'] / 2**30:.3f} GiB above before")
 
 
 def _check_memory(label, run):
-    """A fused run leaves nothing on the device but the weights it loaded."""
+    """A fused run leaves nothing on the device but the weights (and graph
+    buffers) it loaded."""
     grown = run["mem_after"] - run["mem_before"] - (run["weights"][1] - run["weights"][0])
     if grown > MEMORY_SLACK:
         raise AssertionError(f"{label} pipeline left {grown / 2**20:.1f} MiB on the device beyond "
@@ -4490,9 +4668,9 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
         _log(f"[multi] {kind}: models on one device and over {n_shards} shards in "
              f"{time.perf_counter() - t0:.1f}s (weights loaded once, then replicated)")
 
-        def encode(model):
+        def encode(model, eager=False):
             t = time.perf_counter()
-            rows = model.encode_spans(waveform, spans, fp16_pull=True)
+            rows = model.encode_spans(waveform, spans, fp16_pull=True, eager=eager)
             if cuda:
                 for d in dict.fromkeys(mesh.data_devices):
                     torch.cuda.synchronize(d)
@@ -4501,7 +4679,7 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
         want, first_one = encode(one)
         _reset_launches()
         _build.SHARD_LAUNCHES.clear()
-        with _counting((type(dp), "_forward")) as calls:
+        with _counting((type(dp), "_span_forward")) as calls:
             got, first_mesh = encode(dp)
         got32 = got.astype(np.float32)
         if got.shape != want.shape or not np.isfinite(got32).all():
@@ -4513,7 +4691,7 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
                                  f"{cos.min():.6f} < {MULTI_MIN_COSINE}")
         msg = ""
         if kind == "sonar":
-            chunks = calls["_forward"] // n_shards
+            chunks = calls["_span_forward"]
             per_shard = [_build.SHARD_LAUNCHES[(i, "relkey_attention")] for i in range(n_shards)]
             want_launches = dp.config.n_layers * chunks
             if cuda and (per_shard != [want_launches] * n_shards
@@ -4527,13 +4705,28 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
         _log(f"[multi] {kind} stage 5.3 over {n_shards} shards: {got.shape[0]} rows, all finite, "
              f"per-row cosine to one device min {cos.min():.6f}{msg}")
 
-        walls = {"mesh": [encode(dp)[1]], "one": [encode(one)[1]]}  # warm, after the gate's runs
+        # warm, after the gate's runs: by graph replay (the main path), then eagerly
         minutes = seconds / 60
-        w1, wm = (float(np.mean(walls[k])) / minutes for k in ("one", "mesh"))
+        (gm, wm), (_, w1) = encode(dp), encode(one)
+        (em, wm_e), (_, w1_e) = encode(dp, eager=True), encode(one, eager=True)
+        w1, wm, w1_e, wm_e = (w / minutes for w in (w1, wm, w1_e, wm_e))
+        ge = _row_cosines(gm.astype(np.float32), em.astype(np.float32))
+        if ge.min() < GRAPH_MIN_COSINE:
+            raise AssertionError(f"{kind} over {n_shards} shards: graph rows against eager, min "
+                                 f"cosine {ge.min()} < {GRAPH_MIN_COSINE}")
+        _log(f"[graphs] {kind} over {n_shards} shards, fp16 rows by graph replay against the "
+             f"eager forward: per-row cosine min {ge.min():.8f}, max abs difference "
+             f"{np.abs(gm.astype(np.float32) - em.astype(np.float32)).max():.3e}"
+             f"{' (bit-equal)' if np.array_equal(gm, em) else ''}; programs per replica "
+             f"{[len(st['capture_s']) for st in dp.program_stats()]}")
         _log(f"[time] multi stage 5.3 {kind}, encode_spans of the {seconds} s document, warm: "
              f"one device {w1:.4f}s per minute of audio, {n_shards} shards {wm:.4f}s "
-             f"({w1 / wm:.2f}x); first runs {first_one:.3f}s and {first_mesh:.3f}s")
-        out[kind] = {"one_s_per_min": w1, "mesh_s_per_min": wm, "min_cos": float(cos.min())}
+             f"({w1 / wm:.2f}x); eager forward: one device {w1_e:.4f}s, {n_shards} shards "
+             f"{wm_e:.4f}s ({w1_e / wm_e:.2f}x); first runs {first_one:.3f}s and "
+             f"{first_mesh:.3f}s")
+        out[kind] = {"one_s_per_min": w1, "mesh_s_per_min": wm, "min_cos": float(cos.min()),
+                     "eager_one_s_per_min": w1_e, "eager_mesh_s_per_min": wm_e,
+                     "graph_eager_min_cos": float(ge.min())}
         if pipeline_chunks and kind == "speech_laser":
             big = [copy.copy(m) for m in (one, dp)]
             for m in big:
@@ -5035,21 +5228,33 @@ KERNEL_CLASSES = (  # (class, substrings of a CUDA kernel's name), first match w
 
 def profile_embed(device, kind="sonar"):
     """``--profile``: one warm stage-5.3 run of the 10-minute document with
-    the ``kind`` encoder under torch.profiler. Prints the device time by
-    kernel class and the top kernels, and the device's busy share of the
-    run's wall time (the profiler's own overhead included in that wall)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    the ``kind`` encoder under torch.profiler, by CUDA-graph replay (the
+    main path) and then with the eager forward. Prints, for each, the
+    device time by kernel class and the top kernels, and the device's
+    busy share of the run's wall time (the profiler's own overhead
+    included in that wall)."""
     from svecalign_tpu_torch.seg_align import embed as stage
     from svecalign_tpu_torch.utils import embed_model_utils
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as td:
         paths, lines = write_synthetic_document(Path(td) / "doc", DOC_SECONDS)
-        embed_model_utils.load_embed_model(kind, max_tokens=150 * 16000, device=device)
-        _run_embed(stage, paths, Path(td) / "warm", kind=kind)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = _run_embed(stage, paths, Path(td) / "prof", kind=kind)
+        model = embed_model_utils.load_embed_model(kind, max_tokens=150 * 16000, device=device)
+        for route in ("graph", "eager"):
+            with contextlib.ExitStack() as stack:
+                if route == "eager":
+                    stack.enter_context(eager_forward(model))
+                _run_embed(stage, paths, Path(td) / f"warm_{route}", kind=kind)
+                _profile_run(f"{kind} ({route})", len(lines),
+                             lambda: _run_embed(stage, paths, Path(td) / f"prof_{route}",
+                                                kind=kind))
+
+
+def _profile_run(label, n_windows, run):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
     kernels = {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -5059,7 +5264,7 @@ def profile_embed(device, kind="sonar"):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + us, evt.count)
     if not kernels:
-        raise AssertionError("the profiler recorded no device time")
+        raise AssertionError(f"{label}: the profiler recorded no device time")
     total_s = sum(us for us, _ in kernels.values()) / 1e6
     classes = {}
     for name, (us, _) in kernels.items():
@@ -5067,8 +5272,9 @@ def profile_embed(device, kind="sonar"):
         cls = next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)),
                    "other elementwise")
         classes[cls] = classes.get(cls, 0.0) + us / 1e6
-    _log(f"[profile] {kind} stage-5.3 warm run under torch.profiler: {wall:.3f}s wall, {len(lines)} "
-         f"windows; device busy {total_s:.3f}s ({100 * total_s / wall:.1f}% of the wall)")
+    _log(f"[profile] {label} stage-5.3 warm run under torch.profiler: {wall:.3f}s wall, "
+         f"{n_windows} windows; device busy {total_s:.3f}s ({100 * total_s / wall:.1f}% of the "
+         "wall)")
     for cls, sec in sorted(classes.items(), key=lambda kv: -kv[1]):
         _log(f"[profile]   {cls}: {sec:.3f}s ({100 * sec / total_s:.1f}% of device time)")
     for name, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -5096,6 +5302,10 @@ def main(argv=None):
                       help="what --dp does, and in phase 4 the measurement builds: the dense "
                            "DP's first design in ablation modes, the dense DP by strip count, "
                            "the banded walk by producer warps; prints no result line")
+    mode.add_argument("--embed", action="store_true",
+                      help="only build, the kernel checks and stage 5.3 with each encoder "
+                           "(phases 1, 2, 5 and 6 without the chain: graph replay against the "
+                           "eager forward, capture seconds, graph pools); prints no result line")
     mode.add_argument("--laser", action="store_true",
                       help="only build, the kernel checks, LASER stage 5.3, the post-align "
                            "chain, SONAR's long spans and the attention kernel at the long "
@@ -5168,6 +5378,12 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as td:
             phase_multi(Path(td), device)
         _log(f"[done] multi phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.embed:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
+            phase_embed_path(Path(td) / "sonar", device)
+            phase_laser_path(Path(td) / "laser", device)
+        _log(f"[done] stage-5.3 phases passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     if not args.laser:
         # kept until phase 12, which reads the 16-pair corpus again
@@ -5254,9 +5470,10 @@ def main(argv=None):
          "versions, bound_ms the largest of bytes, operations and the dependent steps' latency "
          "(bytes_bound_ms: the larger of the first two). relkey_attention: device times per launch "
          "(CUDA-graph replay) at the stage-5.3 modal bucket (every bucket, and eager times, "
-         "above); launches per stage-5.3 run. pipeline_launches: the launches of one run of the "
-         "whole pipeline (phase 11: stage 5.4 of the LASER run, stages 5.3 and 6.5 of the "
-         "SONAR run)")
+         "above); launches per stage-5.3 run, counted at each replay of the encoder's CUDA "
+         "graphs (24 a chunk), not at their warm-up or capture. pipeline_launches: the launches "
+         "of one run of the whole pipeline (phase 11: stage 5.4 of the LASER run, stages 5.3 "
+         "and 6.5 of the SONAR run)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -731,17 +731,48 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, cuuint32_t rank,
 
 namespace {
 
+constexpr int MAX_DEVICES = 64;
+
 // The bf16 kernel's table rows (C rounded up to whole 32-row products), its
 // bias row stride (= 9 mod 64: conflict-free bias reads) and its dynamic
-// shared memory, to which the kernel's limit is raised on every call: the
-// attribute belongs to the current device, and one process may launch on
-// several cards.
-cudaError_t bf16_layout(int C, int* table_rows, int* p_ld, size_t* smem) {
+// shared memory.
+void bf16_layout(int C, int* table_rows, int* p_ld, size_t* smem) {
     *table_rows = (C + 31) / 32 * 32;
     *p_ld = C + ((9 - C) % 64 + 64) % 64;
     *smem = smem_bytes(*table_rows, *p_ld);
-    return cudaFuncSetAttribute(relkey_attention_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*smem);
+}
+
+size_t simt_smem_bytes(int C) {
+    return sizeof(float) * ((size_t)S_BK * KS_LD + (size_t)S_BK * VS_LD + (size_t)S_BQ * PS_LD
+                            + (size_t)S_BQ * C);
+}
+
+// Raise both kernels' dynamic shared-memory limits, once per device, to what
+// the largest table (C = MAX_C rows) needs: the attribute belongs to the
+// current device, and one process may launch on several cards. The first
+// launch on a device sets them (an eager call, such as the warm-up that
+// precedes a CUDA graph's capture), so no launch inside a capture does.
+cudaError_t smem_limits_once() {
+    static bool done[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (done[dev]) return cudaSuccess;
+    size_t bf16 = 0;
+    for (int C = 1; C <= MAX_C; ++C) {  // p_ld is not monotone in C
+        int table_rows, p_ld;
+        size_t smem;
+        bf16_layout(C, &table_rows, &p_ld, &smem);
+        bf16 = smem > bf16 ? smem : bf16;
+    }
+    err = cudaFuncSetAttribute(relkey_attention_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bf16);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(relkey_attention_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)simt_smem_bytes(MAX_C));
+    if (err == cudaSuccess) done[dev] = true;
+    return err;
 }
 
 }  // namespace
@@ -749,10 +780,12 @@ cudaError_t bf16_layout(int C, int* table_rows, int* p_ld, size_t* smem) {
 // The bf16 kernel's dynamic shared memory for a C-row table and how many of
 // its CTAs fit on one SM of the current device. Returns a CUDA error code.
 extern "C" int relkey_attention_bf16_occupancy(int C, int* smem_out, int* ctas_per_sm) {
+    if (C < 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = smem_limits_once();
+    if (err != cudaSuccess) return (int)err;
     int table_rows, p_ld;
     size_t smem;
-    const cudaError_t err = bf16_layout(C, &table_rows, &p_ld, &smem);
-    if (err != cudaSuccess) return (int)err;
+    bf16_layout(C, &table_rows, &p_ld, &smem);
     *smem_out = (int)smem;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, relkey_attention_wgmma,
                                                               WG_THREADS, smem);
@@ -776,10 +809,11 @@ extern "C" int relkey_attention_bf16_launch(const void* q, const void* k, const 
     const cuuint64_t strides[3] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)H * ROW_BYTES,
                                    (cuuint64_t)T_len * H * ROW_BYTES};
     const cuuint32_t box[4] = {(cuuint32_t)DH, 1, (cuuint32_t)BK, 1};
+    const cudaError_t err = smem_limits_once();
+    if (err != cudaSuccess) return (int)err;
     int table_rows, p_ld;
     size_t smem;
-    const cudaError_t err = bf16_layout(C, &table_rows, &p_ld, &smem);
-    if (err != cudaSuccess) return (int)err;
+    bf16_layout(C, &table_rows, &p_ld, &smem);
     const cuuint64_t t_dims[2] = {(cuuint64_t)DH, (cuuint64_t)C};
     const cuuint64_t t_strides[1] = {(cuuint64_t)ROW_BYTES};
     const cuuint32_t t_box[2] = {(cuuint32_t)DH, (cuuint32_t)table_rows};
@@ -789,6 +823,9 @@ extern "C" int relkey_attention_bf16_launch(const void* q, const void* k, const 
         !encode(enc, &maps[3], table, 2, t_dims, t_strides, t_box))
         return ERR_ENCODE;
 
+    // The maps are __grid_constant__ parameters, taken by value: a launch
+    // captured into a CUDA graph keeps its own copy, which holds the
+    // addresses of the buffers the capture gave it, as the graph's replays do.
     const dim3 grid((T_len + BQ - 1) / BQ, H, B);
     relkey_attention_wgmma<<<grid, WG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         maps[0], maps[1], maps[2], maps[3], lengths, static_cast<__nv_bfloat16*>(out),
@@ -804,13 +841,11 @@ extern "C" int relkey_attention_fp32_launch(const void* q, const void* k, const 
                                             const void* p, const int* lengths, void* out,
                                             int B, int T_len, int H, int C, int left, int right,
                                             void* stream) {
-    if (left < 0 || right < 0 || C != left + right + 1) return (int)cudaErrorInvalidValue;
+    if (left < 0 || right < 0 || C != left + right + 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
     if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-    const size_t smem = sizeof(float) * ((size_t)S_BK * KS_LD + (size_t)S_BK * VS_LD
-                                         + (size_t)S_BQ * PS_LD + (size_t)S_BQ * C);
-    cudaError_t err = cudaFuncSetAttribute(relkey_attention_simt,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = smem_limits_once();
     if (err != cudaSuccess) return (int)err;
+    const size_t smem = simt_smem_bytes(C);
     const dim3 grid((T_len + S_BQ - 1) / S_BQ, H, B);
     relkey_attention_simt<<<grid, S_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),

@@ -18,17 +18,37 @@ plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``;
 ``_span_forward`` calls the model's ``_forward(module, rows, scales,
 lengths, bucket, tick)`` on its replica of the weights.
 
+Per-shape programs (the JAX package's ``jax.jit`` of the forward, one
+compiled program per bucket and row count): on a card every
+``_span_forward`` replays a CUDA graph, captured at the first chunk of its
+shape, per replica and per (bucket, rows, width, input dtypes), and kept
+for the model's life (:class:`SpanPrograms`). The capture follows
+PyTorch's recipe: one eager warm-up on a side stream (it fills what the
+forward caches on first use: the fbank constants, cuFFT plans, cuDNN's
+and cuBLAS's choices and workspace, the kernels' libraries and
+attributes), then ``torch.cuda.graph`` under ``torch.inference_mode()``.
+A replay copies the chunk into the graph's static inputs, replays, and
+copies the static output out, so the next replay of the shape cannot
+overwrite rows a caller holds. A replica's graphs share one memory pool
+(one bucket's activations at a time, not all nine) and one side stream.
+A capture that fails raises; nothing falls back to the eager forward. The
+eager forward runs on the CPU, where it is the tests' route, and wherever
+a caller passes ``eager=True`` (the card's comparisons). What stays
+outside the graph, as it stays outside the JAX program: the waveform's
+upload and the windows' gather (``ops/assemble.py``), the pulls. Kernel
+launches inside a graph are counted at each replay (``ops/_build.py``).
+
 Data parallelism (the JAX package's mesh branch): with a mesh of more
 than one data shard (``parallel/mesh.py``; by default every local card
 when there is more than one, as in JAX), the weights are replicated on
 every shard's device (:func:`place_model`), each chunk's rows are split
-into contiguous slices, one per shard, each slice is copied to its device
-and encoded there, and the rows come back to the mesh's first device,
-``self.device``, in row order. Chunks keep a row count that is a multiple
-of the shard count. One thread issues every shard's forward in turn
-(``parallel.mesh.run_on_shards``): the launches are asynchronous and the
-forward never waits on the device, so distinct cards overlap, as far as
-the host keeps up with issuing several eager trunks (``PERF.md``).
+into contiguous slices, one per shard, and the rows come back to the
+mesh's first device, ``self.device``, in row order. Chunks keep a row
+count that is a multiple of the shard count. One thread makes every
+shard's copy-in and replay in turn (``parallel.mesh.run_on_shards``), and
+only then gathers their outputs, so distinct cards run their shards at
+the same time, as the JAX program's shards do. Each replica has its own
+programs, also where two shards share a card.
 
 ``keep_device`` (the fused pipeline's handoff, ``utils/embed_cache.py``)
 also writes every chunk's rows, as fp16, into one (embed_cache.max_rows,
@@ -36,24 +56,29 @@ dim) buffer on the device (the mesh's first) and returns it beside the
 host rows.
 
 Left out, as TPU workarounds whose flags keep their meaning: the compile
-prewarm threads, the ``SVECALIGN_FUSED_CHUNK`` one-program chunk, the
-2048-row accumulator pulls (:func:`pull_rows` pulls the buffer with one
-copy), the staging thread pool and buffer donation. Outputs stay on the
-device until one pull at the end of the call.
+prewarm threads (a capture is lazy, at its shape's first chunk), the
+``SVECALIGN_FUSED_CHUNK`` one-program chunk, the 2048-row accumulator
+pulls (:func:`pull_rows` pulls the buffer with one copy), the staging
+thread pool and buffer donation. Outputs stay on the device until one
+pull at the end of the call.
 
 Phase timers: :func:`start_encode_profile` makes ``encode_profile`` a dict
 that the encode loops add wall seconds to, each phase ending in a device
 synchronise (so the timers cost a sync per phase while on, and nothing
-while ``encode_profile`` is None).
+while ``encode_profile`` is None). A replayed forward is one phase,
+``trunk_s`` (a chunk whose shape is new adds its capture); the split into
+frontend, trunk and pooler is the eager forward's (``eager=True``). No
+timer runs inside a capture.
 """
 
 import copy
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from svecalign_tpu_torch.ops import _build
 from svecalign_tpu_torch.parallel.mesh import Mesh, default_mesh, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils import embed_cache
 from svecalign_tpu_torch.utils.log_utils import logging
@@ -98,6 +123,156 @@ def phase_clock(device: torch.device) -> Callable[[str], None]:
         last[0] = now
 
     return tick
+
+
+def _no_tick(key: str) -> None:
+    """The phase clock of a forward that must not synchronise: a shard of
+    a mesh, a warm-up, a capture."""
+
+
+class CudaGraph:
+    """``torch.cuda.CUDAGraph`` behind the interface :class:`SpanPrograms`
+    uses (a test puts a stand-in with the same methods in
+    :attr:`SpanEncoderMixin.graph_type`):
+
+    - ``arena(device)``: what one replica's graphs share, one memory pool
+      (``torch.cuda.graph_pool_handle()``) and the side stream that warms
+      up and captures them all;
+    - ``CudaGraph(device, arena)``; ``warm_up(fn)`` runs ``fn`` eagerly
+      on the side stream, after the work queued before it; ``capture(fn)``
+      captures ``fn`` into the graph and returns its output, the graph's
+      static output; ``replay()`` launches the graph on the device's
+      current stream;
+    - ``arena_bytes(device, arena)``: the device bytes the pool holds.
+    """
+
+    @staticmethod
+    def arena(device: torch.device):
+        with torch.cuda.device(device):
+            return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+    def __init__(self, device: torch.device, arena):
+        self.device = device
+        self.pool, self.stream = arena
+        self.graph = torch.cuda.CUDAGraph()
+
+    def warm_up(self, fn: Callable) -> None:
+        with torch.cuda.device(self.device):
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                fn()
+
+    def capture(self, fn: Callable):
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream()
+            try:
+                # "thread_local": only this thread is held to what a capture
+                # allows, so that another thread (the pipeline's
+                # --overlap_untrans) may go on using the card meanwhile
+                with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    out = fn()
+            except BaseException:
+                # a failed capture_end leaves the allocator routing to the
+                # pool, and no later capture into it could begin
+                end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+                if end is not None:
+                    try:
+                        end(self.device.index, self.pool)
+                    except RuntimeError:  # the capture had ended the routing
+                        pass
+                raise
+            finally:
+                # a failed capture leaves the side stream current
+                torch.cuda.set_stream(current)
+            current.wait_stream(self.stream)
+        return out
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+    @staticmethod
+    def arena_bytes(device: torch.device, arena) -> int:
+        pool = tuple(arena[0])
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg.get("device") == device.index
+                   and tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class Program(NamedTuple):
+    """One captured forward: its graph, the static inputs it reads and
+    the static output it writes (alive as long as the graph), the kernel
+    launches it holds (counted at each replay) and the wall seconds of
+    its warm-up and capture."""
+
+    graph: object
+    inputs: Tuple[torch.Tensor, ...]
+    output: torch.Tensor
+    launches: list
+    capture_s: float
+
+
+class SpanPrograms:
+    """The per-shape programs of ONE replica of an encoder on ``device``:
+    a dict from a shape key to a :class:`Program`, one memory pool and one
+    side stream for all of them (``graph_type.arena``). ``graph_type``
+    None is :class:`CudaGraph`, which needs a card: on any other device
+    the constructor raises (the CPU's route is the eager forward, which
+    the caller chooses; this class never runs it)."""
+
+    def __init__(self, device, graph_type=None):
+        device = torch.device(device)
+        if graph_type is None:
+            if device.type != "cuda":
+                raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+            graph_type = CudaGraph
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.graph_type = device, graph_type
+        self.arena = graph_type.arena(device)
+        self.programs: Dict[tuple, Program] = {}
+        self.failed: list = []
+
+    def run(self, key: tuple, forward: Callable, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``forward(*inputs)`` by the program of ``key``: captured at the
+        key's first call, from static copies of ``inputs``, then replayed
+        with ``inputs`` copied in. Returns the static output, which the
+        next replay of ``key`` overwrites. A failed capture raises and
+        stores no program; the replica's later captures take a fresh pool
+        and stream (:attr:`failed` keeps the failed graphs)."""
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self._capture(forward, inputs)
+            self.programs[key] = prog
+        else:
+            for static, x in zip(prog.inputs, inputs):
+                static.copy_(x)
+        prog.graph.replay()
+        _build.count_replay(prog.launches)
+        return prog.output
+
+    def _capture(self, forward: Callable, inputs: Sequence[torch.Tensor]) -> Program:
+        t0 = time.perf_counter()
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs)
+        for s, x in zip(static, inputs):
+            s.copy_(x)
+        graph = self.graph_type(self.device, self.arena)
+        with _build.holding_launches():  # set-up, as a program's compile is: not counted
+            graph.warm_up(lambda: forward(*static))
+        try:
+            with _build.holding_launches() as launches:
+                output = graph.capture(lambda: forward(*static))
+        except BaseException:
+            # later captures take a fresh pool and stream; the failed graph
+            # is kept, as the allocator may still refer to it
+            self.failed.append(graph)
+            self.arena = self.graph_type.arena(self.device)
+            raise
+        return Program(graph, static, output, launches, time.perf_counter() - t0)
+
+    def pool_bytes(self) -> int:
+        return self.graph_type.arena_bytes(self.device, self.arena)
 
 
 def _copy_to(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
@@ -186,6 +361,11 @@ class SpanEncoderMixin:
 
     mesh: Optional[Mesh] = None
     _replicas: Sequence[torch.nn.Module] = ()
+    graph_type = None
+    """How a forward runs: None replays a :class:`CudaGraph` per shape on
+    a card and runs the eager forward on the CPU; a class with
+    :class:`CudaGraph`'s interface (a test's stand-in) is used on any
+    device."""
 
     @property
     def data_shards(self) -> int:
@@ -194,6 +374,19 @@ class SpanEncoderMixin:
     def _fit_rows_to_mesh(self) -> None:
         """Hook for a model with a fixed chunk row count: round it up to a
         multiple of :attr:`data_shards`."""
+
+    def _forward_variant(self, model: torch.nn.Module) -> tuple:
+        """What besides the shapes picks the kernels of ``model``'s forward
+        (a SONAR trunk's attention routes): part of a program's key."""
+        return ()
+
+    def __copy__(self):
+        """A shallow copy with no programs of its own yet: a copy may
+        change its shapes (rows per chunk) or its replicas."""
+        other = object.__new__(type(self))
+        other.__dict__.update(self.__dict__)
+        other._span_programs = {}
+        return other
 
     def with_mesh(self, mesh: Optional[Mesh]) -> "SpanEncoderMixin":
         """The same model, its weights placed over ``mesh`` (None: the
@@ -206,26 +399,65 @@ class SpanEncoderMixin:
         other._fit_rows_to_mesh()
         return other
 
+    def _programs(self, i: int) -> SpanPrograms:
+        """Replica ``i``'s programs, made at its first use."""
+        progs = self.__dict__.setdefault("_span_programs", {})
+        if i not in progs:
+            dev = self.device if self.mesh is None else self.mesh.data_devices[i]
+            progs[i] = SpanPrograms(dev, self.graph_type)
+        return progs[i]
+
+    def program_stats(self) -> List[dict]:
+        """Per replica with programs: its device, each program's key and
+        capture seconds, and the bytes of its graph pool."""
+        progs = self.__dict__.get("_span_programs", {})
+        return [{"replica": i, "device": str(pr.device), "pool_bytes": pr.pool_bytes(),
+                 "capture_s": {key: prog.capture_s for key, prog in pr.programs.items()}}
+                for i, pr in sorted(progs.items())]
+
+    def _replay(self, i: int, rows_q, row_scales, lengths, bucket) -> torch.Tensor:
+        """Replica ``i``'s forward of one chunk (or shard) by its program;
+        returns the program's static output."""
+        model = self._replicas[i]
+        inputs = (rows_q, row_scales, lengths)
+        key = (bucket, *rows_q.shape, *(x.dtype for x in inputs), self._forward_variant(model))
+        return self._programs(i).run(
+            key, lambda q, s, n: self._forward(model, q, s, n, bucket, _no_tick), inputs)
+
     @torch.inference_mode()
-    def _span_forward(self, rows_q, row_scales, lengths, bucket):
+    def _span_forward(self, rows_q, row_scales, lengths, bucket, eager: bool = False):
         """(rows, width) int16 or fp32 waveforms, (rows,) scales and
-        lengths on ``self.device`` -> (rows, dim) fp32 there; with a mesh,
-        each shard's slice of the rows on its own replica and device."""
-        if self.mesh is None:
-            return self._forward(self._replicas[0], rows_q, row_scales, lengths, bucket,
-                                 phase_clock(self.device))
+        lengths on ``self.device`` -> (rows, dim) fp32 there, a tensor of
+        its own; with a mesh, each shard's slice of the rows on its own
+        replica and device. On a card by the replay of the chunk shape's
+        program (:class:`SpanPrograms`); on the CPU, or with ``eager``, by
+        the eager forward."""
         tick = phase_clock(self.device)
+        if eager or (self.graph_type is None and self.device.type != "cuda"):
+            if self.mesh is None:
+                return self._forward(self._replicas[0], rows_q, row_scales, lengths, bucket, tick)
 
-        def shard(i, dev, sl):
-            return self._forward(self._replicas[i], rows_q[sl].to(dev), row_scales[sl].to(dev),
-                                 lengths[sl].to(dev), bucket, lambda key: None).to(self.device)
+            def shard(i, dev, sl):
+                return self._forward(self._replicas[i], rows_q[sl].to(dev),
+                                     row_scales[sl].to(dev), lengths[sl].to(dev), bucket,
+                                     _no_tick).to(self.device)
 
-        out = torch.cat(run_on_shards(self.mesh, shard, shard_slices(rows_q.shape[0], self.mesh)))
-        tick("trunk_s")  # the whole sharded forward; no split by phase
+            out = torch.cat(run_on_shards(self.mesh, shard, shard_slices(rows_q.shape[0],
+                                                                         self.mesh)))
+        elif self.mesh is None:
+            out = self._replay(0, rows_q, row_scales, lengths, bucket).clone()
+        else:
+            # every shard's copy-in and replay, then the gather (a copy) in row order
+            outs = run_on_shards(
+                self.mesh, lambda i, dev, sl: self._replay(i, rows_q[sl], row_scales[sl],
+                                                           lengths[sl], bucket),
+                shard_slices(rows_q.shape[0], self.mesh))
+            out = torch.cat([o.to(self.device) for o in outs])
+        tick("trunk_s")  # the whole forward; the phases are the eager forward's
         return out
 
     def encode_spans(self, waveform, spans, keep_device: bool = False,
-                     fp16_pull: bool = False):
+                     fp16_pull: bool = False, eager: bool = False):
         """Encode (start, end) sample spans of ONE waveform -> (N, dim).
 
         Equivalent to ``encode([waveform[s:e] for s, e in spans])``: bit-equal
@@ -234,6 +466,8 @@ class SpanEncoderMixin:
         than the largest wave bucket fall back to host-sliced encode().
         ``fp16_pull`` casts the rows to fp16 on the device. ``keep_device``
         returns ``(out, device fp16 rows)``, as :func:`pull_rows` says.
+        ``eager`` runs the eager forward where a card would replay a
+        program (``_span_forward``).
         """
         from svecalign_tpu_torch.ops import assemble
 
@@ -249,7 +483,7 @@ class SpanEncoderMixin:
                 "falling back to host-sliced encode()"
             )
             return self.encode([waveform[s:e] for s, e in spans], keep_device=keep_device,
-                               fp16_pull=fp16_pull)
+                               fp16_pull=fp16_pull, eager=eager)
 
         fp32 = self.upload_dtype == "fp32"
         dev = self.device
@@ -290,6 +524,6 @@ class SpanEncoderMixin:
                 rows_q, row_scales, lengths = assemble.assemble(
                     wave_dev, torch.from_numpy(idx).to(dev), width, fp32)
                 tick("assemble_s")
-                emb = self._span_forward(rows_q, row_scales, lengths, bucket)
+                emb = self._span_forward(rows_q, row_scales, lengths, bucket, eager)
                 pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
         return pull_rows(pending, len(spans), self._embed_dim, fp16_pull, dev, keep_device)

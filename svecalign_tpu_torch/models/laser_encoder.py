@@ -36,8 +36,11 @@ on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
 With more than one card (or a given ``mesh``), each chunk's rows are split
 over the mesh's data axis, the weights replicated on every card, and the
 chunk's row count rounded up to a multiple of the shard count, as in JAX
-(``models/encode_common.py``). Left out, as in the SONAR port: buffer
-donation and the staging thread.
+(``models/encode_common.py``). On a card each chunk's forward (extractor,
+trunk, pool) is the replay of a CUDA graph captured once per replica and
+chunk shape, the JAX package's jitted program per bucket
+(``encode_common.SpanPrograms``); ``eager=True`` runs it eagerly. Left
+out, as in the SONAR port: buffer donation and the staging thread.
 """
 
 import dataclasses
@@ -358,13 +361,15 @@ class SpeechLaserModel(SpanEncoderMixin):
     def _trunc_unit(self) -> str:
         return f"{self.BUCKETS[-1] // 16000} s"
 
-    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False):
+    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False,
+               eager: bool = False):
         """Encode waveforms -> (N, encoder_dim) float32 (float16 under
         ``fp16_pull``: cast on the device, bit-equal to the writer's host
         fp32 -> fp16 cast). Each bucket's chunks are padded to a fixed
         (rows, bucket) shape; padding rows have length 0 and are dropped.
         ``keep_device`` returns ``(out, device fp16 rows)``
-        (``encode_common.pull_rows``)."""
+        (``encode_common.pull_rows``). ``eager``: the eager forward where a
+        card would replay the chunk shape's CUDA graph."""
         by_bucket: dict = {}
         n_truncated = 0
         for i, w in enumerate(waveforms):
@@ -393,7 +398,7 @@ class SpeechLaserModel(SpanEncoderMixin):
                 emb = self._span_forward(
                     torch.from_numpy(padded).to(self.device),
                     torch.from_numpy(scales).to(self.device),
-                    torch.from_numpy(lengths).to(self.device), bucket)
+                    torch.from_numpy(lengths).to(self.device), bucket, eager)
                 pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
         return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
                                        self.device, keep_device)

@@ -22,8 +22,13 @@ on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
 With more than one card (or a given ``mesh``), each chunk's rows are split
 over the mesh's data axis and the weights replicated on every card, the
 rel-key kernel launching on each; ``batch_size`` rounds up to a multiple
-of the shard count, as in JAX (``models/encode_common.py``). Left out, as
-TPU workarounds: the staging thread pool and buffer donation.
+of the shard count, as in JAX (``models/encode_common.py``). On a card
+each chunk's forward (frontend, trunk with the rel-key kernel, pooler) is
+the replay of a CUDA graph captured once per replica and chunk shape, the
+JAX package's jitted program per bucket (``encode_common.SpanPrograms``);
+the trunk's attention routes are part of a program's key, and
+``eager=True`` runs the forward eagerly. Left out, as TPU workarounds:
+the staging thread pool and buffer donation.
 """
 
 import dataclasses
@@ -233,6 +238,9 @@ class SonarSpeechModel(SpanEncoderMixin):
         return (bucket, (start, min(ln, width), min(n_frames, bucket)),
                 n_frames > self.BUCKET_FRAMES[-1])
 
+    def _forward_variant(self, model):
+        return tuple(layer.self_attn.attention_backend for layer in model.trunk.layers())
+
     def _forward(self, model, rows_q, row_scales, lengths, bucket, tick):
         """(rows, samples) int16 or fp32 waveforms, (rows,) scales and
         frame lengths on ``model``'s device -> (rows, pool_dim) fp32."""
@@ -253,11 +261,13 @@ class SonarSpeechModel(SpanEncoderMixin):
     def _trunc_unit(self) -> str:
         return f"{self.BUCKET_FRAMES[-1]} x 10 ms"
 
-    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False):
+    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False,
+               eager: bool = False):
         """Encode waveforms -> (N, pool_dim) float32 (float16 under
         ``fp16_pull``: cast on the device, bit-equal to the writer's host
         fp32 -> fp16 cast). ``keep_device`` returns ``(out, device fp16
-        rows)`` (``encode_common.pull_rows``)."""
+        rows)`` (``encode_common.pull_rows``). ``eager``: the eager forward
+        where a card would replay the chunk shape's CUDA graph."""
         by_bucket: dict = {}
         n_truncated = 0
         for i, w in enumerate(waveforms):
@@ -288,7 +298,7 @@ class SonarSpeechModel(SpanEncoderMixin):
                 emb = self._span_forward(
                     torch.from_numpy(padded).to(self.device),
                     torch.from_numpy(scales).to(self.device),
-                    torch.from_numpy(lengths).to(self.device), bucket)
+                    torch.from_numpy(lengths).to(self.device), bucket, eager)
                 pending.append(([i for i, *_ in chunk], emb.half() if fp16_pull else emb))
         return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
                                        self.device, keep_device)

@@ -32,7 +32,9 @@ routes, chosen by ``attention_backend``:
   (materialised (B, H, T, T) scores with an additive finfo.min key bias);
 - ``"auto"``: the kernel for CUDA tensors under that condition, else plain.
 
-``ATTENTION_CALLS`` counts the self-attention calls per route.
+``ATTENTION_CALLS`` counts the self-attention calls per route, as the
+kernels' launches are counted: a call captured into a CUDA graph counts
+at each replay (``ops/_build.py::count_launch``).
 
 The Transformer-XL ``relative`` flavor takes the plain path on every
 device, as in JAX (the kernel is gated on ``relative_key``):
@@ -51,6 +53,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from svecalign_tpu_torch.ops import _build
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -206,7 +210,7 @@ class _SelfAttention(nn.Module):
         if self._use_kernel(x):
             from svecalign_tpu_torch.ops.attention_cuda import relkey_attention_cuda
 
-            ATTENTION_CALLS["cuda"] += 1
+            _build.count_launch(ATTENTION_CALLS, "cuda")
             out = relkey_attention_cuda(
                 q, k, v, self.distance_embedding.to(dt), lengths,
                 left=cfg.left_max_position_embeddings,
@@ -214,7 +218,7 @@ class _SelfAttention(nn.Module):
             )
             return dense(self.linear_out, out.reshape(b, t, nh * dh), dt)
 
-        ATTENTION_CALLS["torch"] += 1
+        _build.count_launch(ATTENTION_CALLS, "torch")
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, dh)
         if cfg.position_embeddings_type == "relative":
             # Transformer-XL: (q + u) k^T + shifted (q + v) pe^T, / sqrt(dh)
@@ -342,7 +346,8 @@ class W2vBertModel(nn.Module):
 
     def rel_pe(self, t: int, device: torch.device) -> torch.Tensor:
         """The (2t - 1, H) fp32 table of the 'relative' flavor on
-        ``device``, made once per length and device."""
+        ``device``, made once per length and device, at an eager call (an
+        encoder's warm-up runs before any CUDA graph's capture)."""
         key = (t, torch.device(device))
         if key not in self._rel_pe:
             self._rel_pe[key] = torch.from_numpy(

@@ -12,11 +12,13 @@ the float64 DP) are built the same way by g++ at first use,
 :func:`build_host_library`, each with its own flags.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
@@ -46,16 +48,49 @@ SHARD_LAUNCHES: Counter = Counter()
 ``parallel.mesh.shard_scope``: each wrapper's ``LAUNCHES`` counts every
 launch, this counts those of each shard of a mesh."""
 
+_held = threading.local()
+
 
 def count_launch(launches: dict, *keys: str) -> None:
     """Add one launch to ``launches[key]`` for each key, and to
     :data:`SHARD_LAUNCHES` under the shard being issued. A wrapper calls
-    it where it launches its kernel, and nowhere else."""
+    it where it launches its kernel, and nowhere else.
+
+    Inside :func:`holding_launches` (a CUDA graph's warm-up or capture)
+    the launch is recorded instead of counted: a captured launch runs at
+    each replay, and :func:`count_replay` counts it there."""
+    held = getattr(_held, "launches", None)
+    if held is not None:
+        held.append((launches, keys))
+        return
+    _count(launches, keys)
+
+
+def _count(launches: dict, keys) -> None:
     shard = current_shard()
     for key in keys:
         launches[key] += 1
         if shard is not None:
             SHARD_LAUNCHES[(shard, key)] += 1
+
+
+@contextlib.contextmanager
+def holding_launches():
+    """Record, on this thread, the launches :func:`count_launch` is told
+    of inside the block instead of counting them; yields the record."""
+    prev = getattr(_held, "launches", None)
+    _held.launches = record = []
+    try:
+        yield record
+    finally:
+        _held.launches = prev
+
+
+def count_replay(record) -> None:
+    """Count once each launch of a :func:`holding_launches` record: one
+    replay of the graph captured while it was made."""
+    for launches, keys in record:
+        _count(launches, keys)
 
 
 def kernel_names():

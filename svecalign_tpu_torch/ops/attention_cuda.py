@@ -17,7 +17,14 @@ checked before a route is chosen, so a CPU caller gets the errors a card
 caller would. On a CPU tensor the wrapper then runs the plain version
 (:func:`svecalign_tpu_torch.ops.attention.relkey_attention`); on a CUDA
 tensor it launches a kernel or raises. ``LAUNCHES["relkey_attention"]``
-counts launches of either.
+counts launches of either; a launch captured into a CUDA graph (the
+encoders' per-shape programs, ``models/encode_common.py``) is counted at
+each replay, not at its capture (``ops/_build.py::count_launch``).
+
+The launch is safe to capture: it goes on the current stream, the
+kernels' shared-memory limits are raised once per device by the first
+launch there (an eager one: a capture's warm-up), and the TMA
+descriptors are kernel parameters, copied into the graph by value.
 """
 
 import ctypes

@@ -80,6 +80,9 @@ def povey_window(window_size: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _constants(frame_length: int, num_mel_bins: int, sample_rate: int, device: torch.device):
+    """The window and mel banks on ``device``, uploaded at their first call
+    there: an eager one (an encoder's warm-up runs before any CUDA graph's
+    capture), since an upload cannot be captured."""
     padded = 1 << math.ceil(math.log2(frame_length))  # round_to_power_of_two
     window = torch.from_numpy(povey_window(frame_length)).to(device)
     banks_t = torch.from_numpy(mel_banks(num_mel_bins, padded, float(sample_rate)).T.copy())

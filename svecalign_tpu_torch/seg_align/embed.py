@@ -19,9 +19,12 @@ CLI: ``python -m svecalign_tpu_torch.seg_align.embed METADATA OUT_DIR
 
 The flags are the JAX CLI's plus ``--device``: the stage runs on the card
 unless ``--device cpu`` is given, and raises without a card.
-``SVECALIGN_EMBED_PROFILE=1`` logs per-file phase times (``frontend_s``:
-SONAR's fbank or LASER's conv extractor; ``trunk_s``; ``pooler_s``: the
-attention pooler or the masked max pool).
+On a card the encoder's forward replays one CUDA graph per chunk shape,
+captured at the shape's first chunk (``models/encode_common.py``).
+``SVECALIGN_EMBED_PROFILE=1`` logs per-file phase times; a replayed
+forward is one phase, ``trunk_s`` (the eager forward, on the CPU, splits
+it into ``frontend_s``: SONAR's fbank or LASER's conv extractor;
+``trunk_s``; ``pooler_s``: the attention pooler or the masked max pool).
 """
 
 import argparse

@@ -47,7 +47,8 @@ def add_embed_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="number of audios per batch.")
     parser.add_argument("--n_proc", type=int, default=1)
     parser.add_argument("--compile_sonar", action="store_true", default=False,
-                        help="accepted for CLI parity; the port runs eagerly.")
+                        help="accepted for CLI parity; on a card the port replays one "
+                             "CUDA graph per chunk shape either way.")
     parser.add_argument("--upload_precision", type=str, default="int16",
                         choices=["int16", "fp32"],
                         help="waveform host->device upload precision: int16 "
