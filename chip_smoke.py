@@ -2355,6 +2355,50 @@ def _traced_embed(run):
     return wall, trace.totals()
 
 
+def replay_overlap(spans) -> list:
+    """How far a mesh chunk's shards ran at the same time, from the
+    tracer's resolved spans (``trace.spans()``): the ``embed.replay`` spans
+    grouped by their ``mesh.issue`` parent; per chunk of two or more
+    shards whose spans are all resolved, (the sum of the replays' device
+    seconds less the length of their union) over (that sum less the
+    longest): 0 where they ran one after another, 1 where each lay within
+    the longest one's stretch."""
+    issues = {s.id for s in spans if s.name == "mesh.issue"}
+    chunks = {}
+    for s in spans:
+        if s.name == "embed.replay" and s.parent in issues:
+            chunks.setdefault(s.parent, []).append(s)
+    out = []
+    for group in chunks.values():
+        if len(group) < 2 or any(s.device_s is None for s in group):
+            continue
+        iv = sorted((s.device_start_ns * 1e-9, s.device_start_ns * 1e-9 + s.device_s)
+                    for s in group)
+        union, end = 0.0, iv[0][0]
+        for a, b in iv:
+            union += max(b - max(a, end), 0.0)
+            end = max(end, b)
+        total = sum(s.device_s for s in group)
+        longest = max(s.device_s for s in group)
+        # the intervals' ends are rounded to ns: a serial chunk may read a hair below 0
+        out.append(max(total - union, 0.0) / (total - longest) if total > longest else 1.0)
+    return out
+
+
+def _mesh_overlap(run) -> str:
+    """``run()``, a mesh's encode, with the ``EMBED`` spans on: the mean over
+    its chunks of how far the shards' replays ran at the same time
+    (:func:`replay_overlap`: 0 one after another, 1 together), as text."""
+    from svecalign_tpu_torch.utils import trace
+
+    _traced_embed(run)
+    overlap = replay_overlap(trace.spans())
+    if not overlap:
+        return "shards' replay overlap not measured (no device spans)"
+    return (f"shards' replay overlap mean {np.mean(overlap):.3f} over {len(overlap)} chunks, "
+            f"min {min(overlap):.3f}")
+
+
 def _span_report(totals) -> str:
     """Each span name's count, host seconds, device seconds and (a
     host-only span) the card's idle seconds."""
@@ -4734,6 +4778,7 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
         (gm, wm), (_, w1) = encode(dp), encode(one)
         (em, wm_e), (_, w1_e) = encode(dp, eager=True), encode(one, eager=True)
         w1, wm, w1_e, wm_e = (w / minutes for w in (w1, wm, w1_e, wm_e))
+        overlap = _mesh_overlap(lambda: encode(dp))
         ge = _row_cosines(gm.astype(np.float32), em.astype(np.float32))
         if ge.min() < GRAPH_MIN_COSINE:
             raise AssertionError(f"{kind} over {n_shards} shards: graph rows against eager, min "
@@ -4745,7 +4790,8 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
              f"{[len(st['capture_s']) for st in dp.program_stats()]}")
         _log(f"[time] multi stage 5.3 {kind}, encode_spans of the {seconds} s document, warm: "
              f"one device {w1:.4f}s per minute of audio, {n_shards} shards {wm:.4f}s "
-             f"({w1 / wm:.2f}x); eager forward: one device {w1_e:.4f}s, {n_shards} shards "
+             f"({w1 / wm:.2f}x; {overlap}); eager forward: one device {w1_e:.4f}s, "
+             f"{n_shards} shards "
              f"{wm_e:.4f}s ({w1_e / wm_e:.2f}x); first runs {first_one:.3f}s and "
              f"{first_mesh:.3f}s")
         out[kind] = {"one_s_per_min": w1, "mesh_s_per_min": wm, "min_cos": float(cos.min()),
@@ -4757,10 +4803,12 @@ def _multi_encode(workdir, device, mesh, seconds, kinds, pipeline_chunks=False):
                 m.max_tokens = PIPE_MAX_TOKENS
             walls = [[encode(m)[1] for _ in range(2)] for m in big]  # first, warm
             w1, wm = (w[1] / minutes for w in walls)
+            overlap = _mesh_overlap(lambda: encode(big[1]))
             _log(f"[time] multi stage 5.3 speech_laser at the pipeline's {PIPE_MAX_TOKENS // 16000} s "
                  "chunks, warm: one "
                  f"device {w1:.4f}s per minute of audio, {n_shards} shards {wm:.4f}s "
-                 f"({w1 / wm:.2f}x); first runs {walls[0][0]:.3f}s and {walls[1][0]:.3f}s")
+                 f"({w1 / wm:.2f}x; {overlap}); first runs {walls[0][0]:.3f}s and "
+                 f"{walls[1][0]:.3f}s")
             out["speech_laser_600s"] = {"one_s_per_min": w1, "mesh_s_per_min": wm}
     return out
 

@@ -44,11 +44,14 @@ when there is more than one, as in JAX), the weights are replicated on
 every shard's device (:func:`place_model`), each chunk's rows are split
 into contiguous slices, one per shard, and the rows come back to the
 mesh's first device, ``self.device``, in row order. Chunks keep a row
-count that is a multiple of the shard count. One thread makes every
-shard's copy-in and replay in turn (``parallel.mesh.run_on_shards``), and
-only then gathers their outputs, so distinct cards run their shards at
-the same time, as the JAX program's shards do. Each replica has its own
-programs, also where two shards share a card.
+count that is a multiple of the shard count. One thread queues every
+shard's copy-in, then every shard's replay (``parallel.mesh.run_on_shards``),
+and only then gathers their outputs, so distinct cards run their shards at
+the same time, as the JAX program's shards do. The copy-ins go first
+because a copy between cards runs on the source card's stream, the first
+card's: a copy queued after that card's replay would start its own card
+only when that replay ended. Each replica has its own programs, also
+where two shards share a card.
 
 ``keep_device`` (the fused pipeline's handoff, ``utils/embed_cache.py``)
 also writes every chunk's rows, as fp16, into one (embed_cache.max_rows,
@@ -67,13 +70,17 @@ at a stage's entry, or :func:`start_encode_profile`): ``embed.quantize``
 (the waveform's int16 blocks on the host, host-only), ``embed.plan`` (the
 span plan, host-only), ``embed.assemble`` (the waveform's upload and each
 chunk's gather, on the device), ``embed.replay`` (a program's copy-in and
-replay, one per shard on a mesh, on the shard's device), ``mesh.issue``
-(per chunk on a mesh: every shard's issue and the gather on the first
-device, host), ``embed.pull`` (on the device), and in the eager forward
+replay; on a mesh one per shard, on the shard's device, and the replay
+alone once the shape is captured), ``mesh.issue`` (per chunk on a mesh:
+every shard's issue and the gather on the first device, host) and inside
+it ``mesh.scatter`` (the queueing of every shard's copy-in, host),
+``embed.pull`` (on the device), and in the eager forward
 ``embed.frontend``, ``embed.trunk`` and ``embed.pooler``; no span runs
 inside a capture. Counters: ``embed.captures``, ``embed.replays``,
-``embed.upload_bytes``, ``embed.pull_bytes``. The tracer's events are
-resolved after each pull, where the host has waited for the device.
+``embed.upload_bytes``, ``embed.pull_bytes``, ``mesh.scatter_bytes`` (the
+input bytes the scatter copies to the shards other than the first). The
+tracer's events are resolved after each pull, where the host has waited
+for the device.
 """
 
 import copy
@@ -234,21 +241,34 @@ class SpanPrograms:
         self.programs: Dict[tuple, Program] = {}
         self.failed: list = []
 
-    def run(self, key: tuple, forward: Callable, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def load(self, key: tuple, inputs: Sequence[torch.Tensor]) -> bool:
+        """Copy ``inputs`` into the static inputs of ``key``'s program,
+        without replaying it; False, and nothing copied, where ``key`` has
+        no program yet. A copy from another device runs on that device's
+        current stream, after the two streams' work queued so far."""
+        prog = self.programs.get(key)
+        if prog is None:
+            return False
+        for static, x in zip(prog.inputs, inputs):
+            static.copy_(x)
+        return True
+
+    def run(self, key: tuple, forward: Callable, inputs: Sequence[torch.Tensor],
+            loaded: bool = False) -> torch.Tensor:
         """``forward(*inputs)`` by the program of ``key``: captured at the
         key's first call, from static copies of ``inputs``, then replayed
-        with ``inputs`` copied in. Returns the static output, which the
-        next replay of ``key`` overwrites. A failed capture raises and
-        stores no program; the replica's later captures take a fresh pool
-        and stream (:attr:`failed` keeps the failed graphs)."""
+        with ``inputs`` copied in (``loaded``: :meth:`load` has copied them
+        in already). Returns the static output, which the next replay of
+        ``key`` overwrites. A failed capture raises and stores no program;
+        the replica's later captures take a fresh pool and stream
+        (:attr:`failed` keeps the failed graphs)."""
         with trace.EMBED.span("embed.replay", self.device):
             prog = self.programs.get(key)
             if prog is None:
                 prog = self._capture(forward, inputs)
                 self.programs[key] = prog
-            else:
-                for static, x in zip(prog.inputs, inputs):
-                    static.copy_(x)
+            elif not loaded:
+                self.load(key, inputs)
             prog.graph.replay()
         trace.count("embed.replays")
         _build.count_replay(prog.launches)
@@ -416,14 +436,22 @@ class SpanEncoderMixin:
                  "capture_s": {key: prog.capture_s for key, prog in pr.programs.items()}}
                 for i, pr in sorted(progs.items())]
 
-    def _replay(self, i: int, rows_q, row_scales, lengths, bucket) -> torch.Tensor:
+    def _program_key(self, i: int, inputs, bucket) -> tuple:
+        """The key of replica ``i``'s program for ``inputs`` (rows, scales,
+        lengths) of ``bucket``."""
+        return (bucket, *inputs[0].shape, *(x.dtype for x in inputs),
+                self._forward_variant(self._replicas[i]))
+
+    def _replay(self, i: int, rows_q, row_scales, lengths, bucket,
+                loaded: bool = False) -> torch.Tensor:
         """Replica ``i``'s forward of one chunk (or shard) by its program;
-        returns the program's static output."""
+        returns the program's static output. ``loaded``: the program's
+        :meth:`SpanPrograms.load` has copied the inputs in."""
         model = self._replicas[i]
         inputs = (rows_q, row_scales, lengths)
-        key = (bucket, *rows_q.shape, *(x.dtype for x in inputs), self._forward_variant(model))
         return self._programs(i).run(
-            key, lambda q, s, n: self._forward(model, q, s, n, bucket), inputs)
+            self._program_key(i, inputs, bucket),
+            lambda q, s, n: self._forward(model, q, s, n, bucket), inputs, loaded)
 
     @torch.inference_mode()
     def _span_forward(self, rows_q, row_scales, lengths, bucket, eager: bool = False):
@@ -447,12 +475,21 @@ class SpanEncoderMixin:
                                                shard_slices(rows_q.shape[0], self.mesh)))
         if self.mesh is None:
             return self._replay(0, rows_q, row_scales, lengths, bucket).clone()
-        # every shard's copy-in and replay, then the gather (a copy) in row order
+        # Every shard's copy-in first, then every shard's replay, then the
+        # gather (a copy) in row order. A copy between cards runs on the
+        # source card's stream, the first card's: queued behind that card's
+        # replay, it would hold its own card until that replay ended.
+        shards = [(rows_q[sl], row_scales[sl], lengths[sl])
+                  for sl in shard_slices(rows_q.shape[0], self.mesh)]
         with trace.EMBED.span("mesh.issue"):
+            with trace.EMBED.span("mesh.scatter"):
+                loaded = run_on_shards(self.mesh, lambda i, dev, x: self._programs(i).load(
+                    self._program_key(i, x, bucket), x), shards)
+            trace.count("mesh.scatter_bytes", sum(x.nbytes for part, done in
+                                                  zip(shards[1:], loaded[1:]) if done
+                                                  for x in part))
             outs = run_on_shards(
-                self.mesh, lambda i, dev, sl: self._replay(i, rows_q[sl], row_scales[sl],
-                                                           lengths[sl], bucket),
-                shard_slices(rows_q.shape[0], self.mesh))
+                self.mesh, lambda i, dev, x: self._replay(i, *x, bucket, loaded[i]), shards)
             return torch.cat([o.to(self.device) for o in outs])
 
     def encode_spans(self, waveform, spans, keep_device: bool = False,

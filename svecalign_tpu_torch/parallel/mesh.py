@@ -302,11 +302,15 @@ def shard_scope(index: int, device: torch.device):
 def run_on_shards(mesh: Mesh, fn: Callable, per_shard: Sequence) -> list:
     """``fn(index, device, item)`` for each data shard and its item, in
     shard order on the calling thread, each under :func:`shard_scope`;
-    the results in shard order. Work a shard issues without waiting on its
-    device overlaps the next shard's; a shard that waits (a pull) holds
-    the others back. One worker thread per shard was measured slower on
-    one card and on four: the shards' launches pass the interpreter lock
-    back and forth (``PERF.md``)."""
+    the results in shard order. A shard's work overlaps the next shard's
+    only where neither waits for the other: a shard that waits on the
+    host (a pull) holds the others back, and so does a copy between
+    devices, which runs on the source device's current stream after the
+    work queued there (the encoders queue every shard's copy-in before
+    any replay for this reason: ``encode_common._span_forward``). One
+    worker thread per shard was measured slower on one card and on four:
+    the shards' launches pass the interpreter lock back and forth
+    (``PERF.md``)."""
     devs = mesh.data_devices
     if len(per_shard) != len(devs):
         raise ValueError(f"{len(per_shard)} items for {len(devs)} data shards")

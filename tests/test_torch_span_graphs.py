@@ -20,6 +20,11 @@ that same output, as a graph's replay overwrites its output. Through it:
 - a 2-shard CPU mesh: one set of programs per replica, rows bit-equal to
   the mesh's eager rows and within cosine 1 - 1e-5 of one device's (the
   forward runs on half the rows: CPU products may round differently);
+- on a mesh of 2 and 4 CPU shards every shard's copy-in is queued before
+  the chunk's first replay, with rows bit-equal to the former order's
+  (each shard's copy-in and replay in turn), and one ``mesh.scatter``
+  span a chunk counts the bytes sent to the shards other than the first;
+  one device copies in, then replays;
 - launches inside a program count at each replay, per shard too; the
   tracer sees one span a replayed chunk (``embed.replay``) and the eager
   forward's three;
@@ -44,7 +49,7 @@ from svecalign_tpu_torch.models import encode_common
 from svecalign_tpu_torch.models import laser_encoder as tlaser
 from svecalign_tpu_torch.models import sonar_encoder as tsonar
 from svecalign_tpu_torch.ops import _build
-from svecalign_tpu_torch.parallel.mesh import Mesh
+from svecalign_tpu_torch.parallel.mesh import Mesh, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils import trace
 from tests.test_torch_laser import SMALL as LASER_SMALL
 from tests.test_torch_sonar import SMALL as SONAR_SMALL
@@ -282,6 +287,125 @@ def test_two_shard_mesh_has_programs_per_replica(kind):
     out, dev = model.encode_spans(wave, spans, keep_device=True, fp16_pull=True)
     np.testing.assert_array_equal(out, want.astype(np.float16))
     np.testing.assert_array_equal(dev[: len(spans)].numpy(), out)
+
+
+class OrderGraph(RerunGraph):
+    """A :class:`RerunGraph` whose arenas are numbered, one a replica in
+    the order they are made (by shard), and whose replays are logged with
+    their shard in :attr:`log`; :func:`log_loads` logs the copy-ins."""
+
+    log = []
+    arenas = 0
+
+    @staticmethod
+    def arena(device):
+        OrderGraph.arenas += 1
+        return OrderGraph.arenas - 1
+
+    def __init__(self, device, arena):
+        super().__init__(device, arena)
+        self.shard = arena
+
+    def replay(self):
+        OrderGraph.log.append(("replay", self.shard))
+        super().replay()
+
+
+def log_loads(monkeypatch):
+    load = encode_common.SpanPrograms.load
+
+    def logged(programs, key, inputs):
+        done = load(programs, key, inputs)
+        if done:
+            OrderGraph.log.append(("load", programs.arena))
+        return done
+
+    monkeypatch.setattr(encode_common.SpanPrograms, "load", logged)
+
+
+def parent_order(model):
+    """The mesh branch of ``_span_forward`` in its former order: each
+    shard's copy-in and replay in turn, then the gather."""
+
+    @torch.inference_mode()
+    def forward(rows_q, row_scales, lengths, bucket, eager=False):
+        outs = run_on_shards(model.mesh, lambda i, dev, sl: model._replay(
+            i, rows_q[sl], row_scales[sl], lengths[sl], bucket),
+            shard_slices(rows_q.shape[0], model.mesh))
+        return torch.cat([o.to(model.device) for o in outs])
+
+    return forward
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_mesh_queues_every_copy_in_before_any_replay(kind, shards, monkeypatch):
+    """On a mesh every shard's copy-in is queued before the first replay
+    of the chunk (a copy between cards runs on the first card's stream,
+    behind whatever it holds), and the rows are bit-equal to those of the
+    former order, each shard's copy-in and replay in turn. One device
+    copies in, then replays, as before."""
+    OrderGraph.arenas = 0
+    model = make_model(kind, mesh=Mesh(["cpu"] * shards), graph_type=OrderGraph)
+    wave, spans = document(kind)
+    n_chunks = sum(chunks_per_bucket(model, spans, len(wave)).values())
+    log_loads(monkeypatch)
+    model.encode_spans(wave, spans)  # captures every shape
+    OrderGraph.log.clear()
+    got = model.encode_spans(wave, spans)
+    per_shard = [("load", i) for i in range(shards)] + [("replay", i) for i in range(shards)]
+    assert OrderGraph.log == per_shard * n_chunks
+
+    OrderGraph.arenas = 0
+    parent = copy.copy(model)  # programs of its own
+    parent._span_forward = parent_order(parent)
+    parent.encode_spans(wave, spans)
+    OrderGraph.log.clear()
+    want = parent.encode_spans(wave, spans)
+    assert OrderGraph.log == [(step, i) for i in range(shards)
+                              for step in ("load", "replay")] * n_chunks
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, model.encode_spans(wave, spans, eager=True))
+
+    OrderGraph.arenas = 0
+    one = make_model(kind, graph_type=OrderGraph)
+    one.encode_spans(wave, spans)
+    OrderGraph.log.clear()
+    one.encode_spans(wave, spans)
+    assert OrderGraph.log == [("load", 0), ("replay", 0)] * sum(
+        chunks_per_bucket(one, spans, len(wave)).values())
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_mesh_scatter_span_and_bytes(shards):
+    """``mesh.scatter``: one span a mesh chunk, inside ``mesh.issue``;
+    ``mesh.scatter_bytes``: the input bytes copied to the shards other
+    than the first (fp32 rows, fp32 scales, int64 lengths). On one
+    device neither."""
+    model = make_model("speech_laser", mesh=Mesh(["cpu"] * shards) if shards > 1 else None)
+    wave, spans = document("speech_laser")
+    plan = chunks_per_bucket(model, spans, len(wave))
+    model.encode_spans(wave, spans)  # captures every shape
+    try:
+        trace.reset()
+        encode_common.start_encode_profile()
+        model.encode_spans(wave, spans)
+        got = trace.totals()
+        counts = trace.traced_counts()
+    finally:
+        encode_common.stop_encode_profile()
+        trace.reset()
+    if shards == 1:
+        assert "mesh.scatter" not in got and "mesh.issue" not in got
+        assert "mesh.scatter_bytes" not in counts
+        return
+    want = sum(n * model._rows_per_chunk(b) * (shards - 1) // shards
+               * (4 * model._bucket_width(b) + 4 + 8) for b, n in plan.items())
+    assert got["mesh.scatter"].count == got["mesh.issue"].count == sum(plan.values())
+    assert counts["mesh.scatter_bytes"] == want
+    scatter = trace.spans("mesh.scatter")
+    issue = {s.id for s in trace.spans("mesh.issue")}
+    assert all(s.parent in issue for s in scatter)
 
 
 @pytest.mark.parametrize("mesh", [None, ["cpu", "cpu"]])

@@ -14,6 +14,8 @@ The card's timing events are played by stand-ins behind
 - (``test_torch_trace_clock.py``: the clock spans share with
   ``torch.profiler``);
 - counters count for life and, while tracing is on, for the trace;
+- ``chip_smoke.replay_overlap`` reads how far a mesh chunk's shard
+  replays ran at the same time from their resolved spans;
 - the benchmark's readers of the tracer return a number on a tiny stage
   run and None with tracing off.
 """
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 from bench_port import harness
-from chip_smoke import cli_argv, write_synthetic_corpus
+from chip_smoke import cli_argv, replay_overlap, write_synthetic_corpus
 from svecalign_tpu_torch.models import encode_common
 from svecalign_tpu_torch.parallel.mesh import Mesh
 from svecalign_tpu_torch.seg_align import align as talign
@@ -259,6 +261,30 @@ def test_counters_count_for_life_and_for_the_trace():
     assert dict(batch.upload_stats)["bytes"] == before["bytes"] + 15
     with pytest.raises(KeyError):
         batch.upload_stats["nope"]
+
+
+def test_replay_overlap_of_resolved_spans():
+    """``chip_smoke.replay_overlap``: per mesh chunk, 0 where the
+    shards' replays ran one after another, 1 where each lay within the
+    longest one's stretch; chunks of one shard or with a span unresolved,
+    and replays outside a ``mesh.issue`` (one device's), are left out."""
+
+    def span(name, sid, parent=None, start_ms=None, ms=None):
+        s = trace.Span()
+        s.name, s.id, s.parent = name, sid, parent
+        s.device_start_ns = None if start_ms is None else round(start_ms * 1e6)
+        s.device_s = None if ms is None else ms * 1e-3
+        return s
+
+    spans = [span("mesh.issue", i) for i in range(1, 6)] + [span("embed.file", 6)]
+    spans += [span("embed.replay", 10 + k, parent, start, ms) for k, (parent, start, ms) in
+              enumerate([(1, 0, 10), (1, 10, 10),  # in turn
+                         (2, 0, 10), (2, 2, 6), (2, 1, 9),  # inside the first
+                         (3, 0, 10), (3, 5, 10),  # half
+                         (4, 0, 10),  # one shard
+                         (5, 0, 10), (5, None, None),  # unresolved
+                         (6, 0, 10), (6, 0, 10), (None, 0, 10)])]  # one device's
+    assert replay_overlap(spans) == pytest.approx([0.0, 1.0, 0.5])
 
 
 # --- the benchmark's readers of the tracer ---------------------------------

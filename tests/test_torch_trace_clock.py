@@ -3,8 +3,10 @@
 ``record_function`` range's, and on a card a device span's entry event,
 put on the host clock by its device's anchor, agrees with the start of
 the kernel it precedes in the profiler's trace, and its device seconds
-with the kernel's. This file imports no JAX, so that it runs on the
-card's machine, without the tests' conftest:
+with the kernel's. On a mesh of two cards, the shards' ``embed.replay``
+intervals, each on its own card's clock, show the two cards replaying
+a chunk at the same time. This file imports no JAX, so that it runs on
+the card's machine, without the tests' conftest:
 
     python -m pytest --noconftest tests/test_torch_trace_clock.py -q
 """
@@ -71,3 +73,47 @@ def test_device_span_is_on_the_profilers_device_clock(card):
     slack = 100_000  # an event's stamp against CUPTI's, ns
     assert span.device_start_ns - slack <= k0 and k1 <= end + slack, (
         span.device_start_ns - k0, end - k1, span.device_s, seen)
+
+
+@pytest.mark.card
+def test_mesh_shards_replay_at_the_same_time(tmp_path):
+    """A 10-minute document through SpeechLASER (random weights, the
+    stage CLI's 150 s chunks, int16 uploads) on a mesh of two cards, its
+    shapes captured first: on most chunks shard 1's replay starts on its
+    card before shard 0's ends on the first card (every shard's copy-in
+    is queued before any replay), and the rows are bit-equal to the same
+    model's eager rows."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import numpy as np
+
+    from chip_smoke import replay_overlap, write_synthetic_document
+    from svecalign_tpu_torch.parallel.mesh import Mesh
+    from svecalign_tpu_torch.utils import embed_model_utils
+    from svecalign_tpu_torch.utils.audio_utils import load_waveform
+
+    paths, lines = write_synthetic_document(tmp_path / "doc", 600, seed=0)
+    wave = load_waveform(str(paths["wav"]), sr=16000)
+    spans = [tuple(map(int, line.split())) for line in lines]
+    model = embed_model_utils.load_embed_model(
+        "speech_laser", mesh=Mesh(["cuda:0", "cuda:1"]), max_tokens=150 * 16000,
+        upload_precision="int16", device="cuda:0")
+    model.encode_spans(wave, spans, fp16_pull=True)  # every shape captured
+    trace.reset()
+    got = model.encode_spans(wave, spans, fp16_pull=True)
+    kept = trace.spans()
+    issues = [s.id for s in kept if s.name == "mesh.issue"]
+    replays = {i: sorted((s for s in kept if s.name == "embed.replay" and s.parent == i),
+                         key=lambda s: s.id) for i in issues}
+    assert issues and all(len(r) == 2 and r[0].device == "cuda:0" and r[1].device == "cuda:1"
+                          and all(s.device_s is not None for s in r) for r in replays.values())
+    overlapping = [r[1].device_start_ns < r[0].device_start_ns + r[0].device_s * 1e9
+                   for r in replays.values()]
+    assert sum(overlapping) > len(overlapping) / 2, [
+        ((r[1].device_start_ns - r[0].device_start_ns) * 1e-6, r[0].device_s * 1e3)
+        for r in replays.values()]
+    assert trace.totals()["mesh.scatter"].count == len(issues)
+    overlap = replay_overlap(kept)
+    assert len(overlap) == len(issues) and sum(overlap) / len(overlap) > 0.5, overlap
+    want = model.encode_spans(wave, spans, fp16_pull=True, eager=True)
+    np.testing.assert_array_equal(got, want)
