@@ -5,21 +5,34 @@ clips and pages are the JAX tool's, byte for byte.
 
 Slices each aligned (src, tgt) span pair to ogg files and emits HTML pages
 (100 rows each) with embedded ``<audio>`` players so a bilingual listener
-can spot-check mining quality. Optional ASR transcription hooks in when a
-whisper implementation is importable. (Reference analysis/
-dump_alignments.py:141-239 — same outputs, native audio encode instead of
-soundfile.)
+can spot-check mining quality. (Reference analysis/dump_alignments.py:
+141-239 — same outputs, native audio encode instead of soundfile.)
+
+``--asr`` transcribes both sides of every dumped alignment with the port's
+own Whisper (``models/whisper.py``, ``analysis/asr.py``; no ``whisper``
+package): it loads openai's checkpoint file ``<whisper_root>/<whisper_size>.pt``
+(``--whisper_root`` defaults to openai's download root,
+``$XDG_CACHE_HOME/whisper`` or ``~/.cache/whisper``) onto ``--device`` and
+raises, naming the path, where there is none: nothing is downloaded. Both
+sides of a pair are one call, in batches, greedy, each side in its
+language (``--src_lang`` / ``--tgt_lang``, required with ``--asr``: no
+language detection). The pages show the token ids: no vocabulary file is
+in the repository to turn them into text.
 
 CLI: ``python -m svecalign_tpu_torch.analysis.dump_alignments METADATA OUT_DIR
 --align_dir A --seg_dir D --src_lang S --tgt_lang T [--max_rows N]
-[--with_asr] [--rows_per_page 100]``
+[--asr --whisper_size SIZE --whisper_root DIR --device cuda|cpu]
+[--rows_per_page 100]``
 """
 
 import argparse
 import html
+import os
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+from svecalign_tpu_torch.analysis import asr
+from svecalign_tpu_torch.models import whisper
 from svecalign_tpu_torch.utils.audio_utils import Segment
 from svecalign_tpu_torch.utils.file_utils import (
     alignments_to_timestamps,
@@ -29,6 +42,7 @@ from svecalign_tpu_torch.utils.file_utils import (
     read_segments,
 )
 from svecalign_tpu_torch.utils.log_utils import logging, my_tqdm
+from svecalign_tpu_torch.utils.torch_setup import DEVICES, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -52,9 +66,14 @@ def parse_args(argv=None):
     parser.add_argument("--tgt_wav", type=str, default=None)
     parser.add_argument("--out_dir", type=str, default=None)
     parser.add_argument("--asr", dest="with_asr", action="store_true", default=False,
-                        help="transcribe both sides if a whisper package is importable.")
-    parser.add_argument("--whisper_size", type=str, default="medium")
-    parser.add_argument("--whisper_root", type=str, default=None)
+                        help="transcribe both sides with the port's Whisper (token ids).")
+    parser.add_argument("--whisper_size", type=str, default="medium",
+                        help="the checkpoint <whisper_root>/<whisper_size>.pt")
+    parser.add_argument("--whisper_root", type=str, default=None,
+                        help="directory of openai's checkpoints (default: openai's "
+                             "download root)")
+    parser.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                        help="where --asr runs Whisper")
     # shared knobs
     parser.add_argument("--max_rows", type=int, default=None,
                         help="cap the number of dumped alignments per pair.")
@@ -62,25 +81,29 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-_ASR_MODEL = None
+_ASR = {}  # checkpoint path and device -> Transcriber: one load per process
 
 
-def _maybe_asr(
-    paths: List[Path], size: str = "medium", root: Optional[str] = None
-) -> Optional[List[str]]:
-    """Transcribe the dumped clips if a whisper package is importable
-    (reference analysis/dump_alignments.py:141-163)."""
-    try:
-        import whisper  # noqa: F401  (optional)
-    except ImportError:
-        logger.warning("no whisper implementation importable; skipping ASR")
-        return None
-    global _ASR_MODEL
-    if _ASR_MODEL is None or _ASR_MODEL[0] != size:
-        # one load per process: dump() transcribes both sides of every pair
-        _ASR_MODEL = (size, whisper.load_model(size, download_root=root))
-    model = _ASR_MODEL[1]
-    return [model.transcribe(str(p))["text"] for p in paths]
+def default_whisper_root() -> str:
+    """openai's download root: ``$XDG_CACHE_HOME/whisper`` or
+    ``~/.cache/whisper``."""
+    cache = os.getenv("XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(cache, "whisper")
+
+
+def _transcribe(sides, size: str, root: Optional[str], device) -> List[List[str]]:
+    """Each side's clips (``(audio path, spans, lang)``) as strings of
+    Whisper token ids, both sides in one call."""
+    path = Path(root or default_whisper_root()) / f"{size}.pt"
+    dev = resolve_device(device)
+    key = (str(path), str(dev))
+    if key not in _ASR:
+        _ASR.clear()  # one model at a time
+        _ASR[key] = asr.Transcriber(whisper.load_checkpoint(path, dev))
+        logger.info(f"ASR: Whisper from {path} on {dev}; transcripts are token ids (no "
+                    f"vocabulary file is in the repository)")
+    return [[" ".join(map(str, t.tokens)) for t in side]
+            for side in asr.transcribe_sides(_ASR[key], sides)]
 
 
 def write_single_html(
@@ -124,7 +147,12 @@ def dump(
     with_asr: bool,
     whisper_size: str = "medium",
     whisper_root: Optional[str] = None,
+    src_lang: Optional[str] = None,
+    tgt_lang: Optional[str] = None,
+    device="cuda",
 ) -> None:
+    if with_asr and not (src_lang and tgt_lang):
+        raise ValueError("--asr needs --src_lang and --tgt_lang (no language detection)")
     try:
         scored = read_alignments_with_score(align_path)
         aligns = [(s, t) for s, t, _ in scored]
@@ -162,17 +190,13 @@ def dump(
             )
         )
 
-    if with_asr:
-        src_texts = _maybe_asr(
-            [wav_dir / f"{i}.src.ogg" for i in range(n)], whisper_size, whisper_root
-        )
-        tgt_texts = _maybe_asr(
-            [wav_dir / f"{i}.tgt.ogg" for i in range(n)], whisper_size, whisper_root
-        )
-        if src_texts and tgt_texts:
-            for r, s, t in zip(rows, src_texts, tgt_texts):
-                r["src_text"] = s
-                r["tgt_text"] = t
+    if with_asr and n:
+        src_texts, tgt_texts = _transcribe(
+            [(src_audio, src_times[:n], src_lang), (tgt_audio, tgt_times[:n], tgt_lang)],
+            whisper_size, whisper_root, device)
+        for r, s, t in zip(rows, src_texts, tgt_texts):
+            r["src_text"] = s
+            r["tgt_text"] = t
 
     n_pages = -(-len(rows) // rows_per_page)
     for page in range(n_pages):
@@ -202,6 +226,9 @@ def main(argv=None):
             args.with_asr,
             args.whisper_size,
             args.whisper_root,
+            args.src_lang,
+            args.tgt_lang,
+            args.device,
         )
         logger.info("Finished!")
         return
@@ -234,6 +261,9 @@ def main(argv=None):
             args.with_asr,
             args.whisper_size,
             args.whisper_root,
+            src_lang,
+            tgt_lang,
+            args.device,
         )
     logger.info("Finished!")
 

@@ -19,6 +19,15 @@ and ``fbank_batch``'s ``on_host``. Here ``fbank`` is ``fbank_batch`` of
 one waveform, and the batch runs on the device the caller names, in
 chunks of :data:`FRAME_CHUNK` frames so that the peak memory stays a few
 hundred MB whatever the corpus.
+
+Whisper's log-mel (:func:`whisper_log_mel`, openai ``audio.py``) sits
+beside the Kaldi fbank: a centred STFT of 400 points at hop 160 under a
+periodic Hann window, the power of every bin but the last frame, the
+Slaney mel filters that ``librosa.filters.mel(sr=16000, n_fft=400,
+n_mels=n)`` computes and openai's ``mel_filters.npz`` holds
+(:func:`slaney_mel_filters`), ``log10`` clamped at 1e-10, each clip
+floored at its own maximum less 8, then (x + 4) / 4. Batched over clips
+on the caller's device, fp32, TF32 off.
 """
 
 import math
@@ -209,3 +218,61 @@ def fbank(
     (channels, n) waveform (first channel used), on ``device``."""
     return fbank_batch([waveform], sample_rate, num_mel_bins, frame_length_ms,
                        frame_shift_ms, device)[0]
+
+
+WHISPER_N_FFT = 400
+WHISPER_HOP = 160
+
+
+def _hz_to_mel_slaney(f):
+    """Slaney's mel scale (librosa's ``htk=False``): linear below 1 kHz at
+    3 mels per 200 Hz, logarithmic above at 27 mels per factor 6.4."""
+    f = np.asarray(f, dtype=np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, np.log(6.4) / 27.0
+    return np.where(f >= min_log_hz, min_log_mel + np.log(np.maximum(f, 1e-300) / min_log_hz)
+                    / logstep, f / f_sp)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)), f_sp * m)
+
+
+def slaney_mel_filters(n_mels: int, n_fft: int = WHISPER_N_FFT,
+                       sample_rate: int = 16000) -> np.ndarray:
+    """(n_mels, n_fft // 2 + 1) float32 triangles, equally spaced on the
+    Slaney mel scale from 0 Hz to Nyquist, each scaled to unit area
+    (``norm="slaney"``): librosa's ``filters.mel`` at its defaults,
+    computed in float64."""
+    freqs = np.fft.rfftfreq(n_fft, 1.0 / sample_rate)
+    edges = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(0.0),
+                                          _hz_to_mel_slaney(sample_rate / 2.0), n_mels + 2))
+    widths = np.diff(edges)
+    ramps = edges[:, None] - freqs[None, :]
+    lower = -ramps[:-2] / widths[:-1, None]
+    upper = ramps[2:] / widths[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (edges[2:] - edges[:-2]))[:, None]
+    return weights.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _whisper_constants(n_mels: int, device: torch.device):
+    """The periodic Hann window and the mel filters on ``device``."""
+    window = torch.hann_window(WHISPER_N_FFT, device=device)
+    return window, torch.from_numpy(slaney_mel_filters(n_mels)).to(device)
+
+
+def whisper_log_mel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """Whisper's log-mel of (B, n) fp32 clips at 16 kHz -> (B, n_mels,
+    n // 160) fp32, each clip floored at its own maximum less 8, so a
+    clip's features do not depend on its batch-mates."""
+    window, filters = _whisper_constants(n_mels, audio.device)
+    stft = torch.stft(audio, WHISPER_N_FFT, WHISPER_HOP, window=window, return_complex=True)
+    power = stft[..., :-1].abs() ** 2
+    log_spec = torch.clamp(filters @ power, min=1e-10).log10()
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+    return (log_spec + 4.0) / 4.0

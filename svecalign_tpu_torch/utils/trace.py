@@ -44,7 +44,9 @@ entry, :meth:`Area.switch`); an area's spans record only while it is on:
 - ``VAD`` (``SVECALIGN_VAD_PROFILE``): the Silero VAD of stage 4.1;
 - ``UNTRANS`` (``SVECALIGN_UNTRANS_PROFILE``): stages 4.2 and 6.2;
 - ``TRAIN`` (``SVECALIGN_TRAIN_PROFILE``): the trainer's steps;
-- ``PIPELINE`` (on while any of the six is "1"): the pipeline's stages.
+- ``PIPELINE`` (on while any of the six is "1"): the pipeline's stages;
+- ``ASR`` (``SVECALIGN_ASR_PROFILE``): Whisper's transcription, the audit
+  stage's (``analysis/asr.py``).
 
 While an area is off a span costs one boolean test: no event, no
 allocation, no synchronise.
@@ -520,3 +522,4 @@ VAD = _area("vad", "SVECALIGN_VAD_PROFILE")
 UNTRANS = _area("untrans", "SVECALIGN_UNTRANS_PROFILE")
 TRAIN = _area("train", "SVECALIGN_TRAIN_PROFILE")
 PIPELINE = _area("pipeline", tuple(a.env[0] for a in AREAS.values()))
+ASR = _area("asr", "SVECALIGN_ASR_PROFILE")
