@@ -28,6 +28,14 @@ Numerics follow the flax modules:
 The positional conv mixes padded frames into valid ones, so a row's
 embedding depends on its bucket's width: the buckets are the JAX ones.
 
+The extractor and the positional conv run a batch in row groups of at
+most ``CONV_GROUP_SAMPLES`` rows x samples (:func:`conv_groups`), one
+after another: above that cuDNN runs the positional conv on its
+implicit-GEMM fallback kernels. Every op of the two is per row, so the
+rows are those of one call. ``SpeechLaserModel`` counts the extractor's
+groups of each chunk (each shard's on a mesh) in the tracer's counter
+``embed.extractor_groups``.
+
 ``SpeechLaserModel`` is the host wrapper. Weights come from a JAX ``.npz``
 (``save_params_npz``) or, without one, from the JAX package's numpy init
 for ``seed``, so both packages hold the same random weights.
@@ -62,6 +70,33 @@ from svecalign_tpu_torch.utils.torch_setup import resolve_device
 logger = logging.getLogger(__name__)
 
 FLAX_EPS = 1e-6  # flax LayerNorm / GroupNorm default epsilon
+
+# The most rows x samples that one call of a conv takes: the extractor's
+# convs on a group's waveforms, the positional conv on a group's frames
+# (x 320, the samples they cover). Measured (measure/extractor_convs.py;
+# H100 80GB HBM3, torch 2.11.0+cu128, cuDNN 9.22, heuristic choice): the
+# positional conv runs a cutlass tensor-op kernel (2.5-5.6 ms) up to 8 rows
+# of 60 s (7.68 M samples) and 100 rows of 4 s, and falls to cuDNN's
+# implicit_convolve_sgemm + precomputed_convolve_sgemm (74-88 ms) from
+# 25 rows of 20 s (8.0 M) and 128 rows of 4 s, at every bucket; the
+# extractor's layers 1-6 take tensor-op kernels at every size measured
+# (0.77-9.6 M) and its layer 0 (one input channel) the implicit-GEMM
+# kernel at every size. Groups halve the extractor's intermediates too.
+CONV_GROUP_SAMPLES = 7_680_000
+
+
+def conv_groups(rows: int, samples: int) -> int:
+    """The row groups a LASER conv runs (rows, samples) of input in: the
+    fewest that keep each at most :data:`CONV_GROUP_SAMPLES` (as even as
+    ``tensor_split`` makes them)."""
+    return max(1, min(rows, -(-rows * samples // CONV_GROUP_SAMPLES)))
+
+
+def by_row_groups(fn, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``fn`` over ``groups`` row groups of ``x`` in turn, concatenated
+    along the rows: ``fn(x)`` where ``fn`` works row by row."""
+    parts = x.tensor_split(groups)
+    return fn(x) if len(parts) == 1 else torch.cat([fn(part) for part in parts])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +177,12 @@ class ConvFeatureExtractor(nn.Module):
                                             channel_axis=1)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        """The rows in :func:`conv_groups` groups, one after another (every
+        op of the stack, the norms too, is per row)."""
+        return by_row_groups(self._stack, wav, conv_groups(*wav.shape)).transpose(1, 2)
+
+    def _stack(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, samples) -> (B, conv_dim, frames), channels-first."""
         dt = compute_dtype(self.cfg)
         x = wav[:, None, :]  # (B, 1, T): torch convs are channels-first
         for i, (_, _, stride) in enumerate(self.cfg.conv_layers):
@@ -154,7 +195,7 @@ class ConvFeatureExtractor(nn.Module):
                 x = self.group_norm(x)
             # back to the compute dtype before the activation, as in JAX
             x = gelu(x.to(dt))
-        return x.transpose(1, 2)
+        return x
 
 
 class MultiHeadAttention(nn.Module):
@@ -202,6 +243,24 @@ class TransformerLayer(nn.Module):
         return x + dense(self.ffn_out, y, dt)
 
 
+def positional(cfg: LaserEncoderConfig, x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """GELU of the positional conv of (B, frames, d) ``x`` in the compute
+    dtype, its rows in :func:`conv_groups` groups (by the samples its
+    frames cover)."""
+    dt = compute_dtype(cfg)
+    w, b = weight.to(dt), bias.to(dt)
+
+    def conv(part):
+        # same-padded; the trailing frame of the even kernel is dropped
+        return F.conv1d(part.transpose(1, 2), w, b, padding=cfg.conv_pos_kernel // 2,
+                        groups=cfg.conv_pos_groups)
+
+    hop = cfg.receptive_field()[1]
+    pos = by_row_groups(conv, x, conv_groups(x.shape[0], x.shape[1] * hop))
+    return gelu(pos[:, :, : x.shape[1]].transpose(1, 2))
+
+
 def frame_mask(cfg: LaserEncoderConfig, lengths: torch.Tensor, n_frames: int) -> torch.Tensor:
     """(B, n_frames) bool validity from (B,) sample lengths: frames whose
     whole receptive field is inside the length, at least one per row
@@ -241,11 +300,7 @@ class LaserSpeechEncoder(nn.Module):
         cfg = self.cfg
         dt = compute_dtype(cfg)
         x = dense(self.post_extract_proj, self.post_extract_norm(feats), dt)
-        pc = self.pos_conv
-        # same-padded; the trailing frame of the even kernel is dropped
-        pos = F.conv1d(x.transpose(1, 2), pc.weight.to(dt), pc.bias.to(dt),
-                       padding=cfg.conv_pos_kernel // 2, groups=cfg.conv_pos_groups)
-        x = x + gelu(pos[:, :, : x.shape[1]].transpose(1, 2))
+        x = x + positional(cfg, x, self.pos_conv.weight, self.pos_conv.bias)
         for i in range(cfg.encoder_layers):
             x = getattr(self, f"layer_{i}")(x, mask)
         return self.encoder_norm(x)
@@ -340,6 +395,15 @@ class SpeechLaserModel(SpanEncoderMixin):
     def _span_plan(self, start: int, ln: int):
         bucket = self._bucket(ln)
         return bucket, (start, ln, min(ln, bucket)), ln > self.BUCKETS[-1]
+
+    def _span_forward(self, rows_q, row_scales, lengths, bucket, eager: bool = False):
+        """The mixin's, after counting ``embed.extractor_groups``: the row
+        groups the chunk's extractor runs, each shard's on a mesh. Counted
+        here on the host, as a captured forward runs without Python."""
+        rows = rows_q.shape[0] // self.data_shards
+        trace.count("embed.extractor_groups",
+                    self.data_shards * conv_groups(rows, rows_q.shape[1]))
+        return super()._span_forward(rows_q, row_scales, lengths, bucket, eager)
 
     def _forward(self, model, rows_q, row_scales, lengths, bucket):
         """(rows, bucket) int16 or fp32 waveforms, (rows,) scales and

@@ -52,6 +52,7 @@ from svecalign_tpu_torch.models.laser_encoder import (
     frame_mask,
     gelu,
     masked_max_pool,
+    positional,
 )
 from svecalign_tpu_torch.models.w2v_bert import compute_dtype
 from svecalign_tpu_torch.parallel.mesh import Mesh, model_slice, shard_params, shard_slices
@@ -256,9 +257,7 @@ def tp_forward(model: LaserSpeechEncoder, shards: List[Dict], devs: List[torch.d
     mask = frame_mask(cfg, lengths, feats.shape[1])
     x = functional_call(model.post_extract_norm, _sub(p0, "post_extract_norm"), (feats,))
     x = _linear(x, p0["post_extract_proj.weight"], p0["post_extract_proj.bias"], dt)
-    pos = F.conv1d(x.transpose(1, 2), p0["pos_conv.weight"].to(dt), p0["pos_conv.bias"].to(dt),
-                   padding=cfg.conv_pos_kernel // 2, groups=cfg.conv_pos_groups)
-    x = x + gelu(pos[:, :, : x.shape[1]].transpose(1, 2))
+    x = x + positional(cfg, x, p0["pos_conv.weight"], p0["pos_conv.bias"])
     for l in range(cfg.encoder_layers):
         x = _tp_layer(model, l, shards, devs, x, mask, clock)
     x = functional_call(model.encoder_norm, _sub(p0, "encoder_norm"), (x,))

@@ -382,6 +382,66 @@ def test_rows_per_chunk_and_truncation(encoders, caplog):
     np.testing.assert_array_equal(got, tm.encode([w[:32000]]))
 
 
+# --- the convs' row groups ------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_row_groups_equal_one_call(port_models, mode, monkeypatch):
+    """7 rows in 3 groups of 3, 2 and 2 rows, a padded row among them: the
+    extractor's output and the encoder's hidden states (its positional
+    conv in groups too) are bit-equal in fp32 to the rows in one call
+    (every op of the extractor, the group norm too, is per row)."""
+    model = port_models[mode, "float32"]
+    wav = _wav(7, 2000, seed=5)
+    wav[4, 900:] = 0.0
+    wav = torch.from_numpy(wav)
+    lengths = torch.tensor([2000, 2000, 1500, 2000, 900, 31, 2000])
+    assert tlaser.conv_groups(7, 2000) == 1
+    want = model.feature_extractor(wav), model(wav, lengths, return_hidden=True)[0]
+    monkeypatch.setattr(tlaser, "CONV_GROUP_SAMPLES", 3 * 2000)
+    # the positional conv's 99 frames cover 99 x 20 samples
+    assert tlaser.conv_groups(7, 2000) == tlaser.conv_groups(7, 99 * 20) == 3
+    assert [len(p) for p in wav.tensor_split(3)] == [3, 2, 2]
+    got = model.feature_extractor(wav), model(wav, lengths, return_hidden=True)[0]
+    assert got[0].shape == want[0].shape == (7, 99, 32)
+    assert got[1].shape == want[1].shape == (7, 99, 128)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_conv_group_counts():
+    """At the committed limit: a 600 s chunk (150 rows of 4 s, 30 of 20 s,
+    13 of 45 s) in two groups, a four-card shard of it (38 rows of 4 s),
+    the CLI's 150 s chunk (37 rows) and the trainer's 16 clips of 10 s in
+    one; groups as even as ``tensor_split`` makes them."""
+    want = {(150, 64000): 2, (38, 64000): 1, (30, 320000): 2, (13, 720000): 2,
+            (37, 64000): 1, (16, 160000): 1, (10, 960000): 2, (8, 960000): 1}
+    assert {shape: tlaser.conv_groups(*shape) for shape in want} == want
+    assert [len(p) for p in torch.zeros(13, 1).tensor_split(2)] == [7, 6]
+    assert tlaser.conv_groups(0, 64000) == 1 and tlaser.conv_groups(3, 10**8) == 3
+
+
+@pytest.mark.parametrize("shards,limit,groups", [(1, None, 3), (1, 32000, 6), (2, None, 6),
+                                                 (2, 16000, 8)])
+def test_extractor_groups_counter(encoders, shards, limit, groups, monkeypatch):
+    """``embed.extractor_groups`` counts each chunk's row groups, each
+    shard's on a mesh: SPANS make one chunk of 4 rows of 16000 samples and
+    two of 2 rows of 32000. The rows are those of one group a chunk."""
+    from svecalign_tpu_torch.parallel.mesh import Mesh
+    from svecalign_tpu_torch.utils import trace
+
+    _, tm = encoders["fp32"]
+    if shards > 1:
+        tm = tm.with_mesh(Mesh(["cpu"] * shards))
+    w = _document()
+    want = tm.encode_spans(w, SPANS)
+    if limit is not None:
+        monkeypatch.setattr(tlaser, "CONV_GROUP_SAMPLES", limit)
+    before = trace.counts["embed.extractor_groups"]
+    got = tm.encode_spans(w, SPANS)
+    assert trace.counts["embed.extractor_groups"] - before == groups
+    np.testing.assert_array_equal(got, want)
+
+
 # --- against transformers ---------------------------------------------------------------
 
 
