@@ -162,7 +162,7 @@ def model_runs(dev):
         laser_encoder.CONV_GROUP_SAMPLES = limit
         model = copy.copy(base)  # programs of its own
         for bucket in model.BUCKETS:
-            rows = model._rows_for_bucket(bucket)
+            rows = model._rows_per_chunk(bucket)
             q = torch.from_numpy(gen.integers(-8000, 8000, (rows, bucket),
                                               dtype=np.int16)).to(dev)
             scales = torch.full((rows,), 1 / 32768, device=dev)

@@ -27,7 +27,15 @@ Ported so far:
   stage 5.3 to stages 5.4, 6.6 and 6.7 (``utils/embed_cache.py``);
 - several cards in one process (``parallel/mesh.py``): data-parallel
   encoding in stages 5.3 and 6.5, the data-parallel aligner
-  (``--data_parallel``) and the sharded kNN index (``--sharded_index``).
+  (``--data_parallel``) and the sharded kNN index (``--sharded_index``);
+- the encoder trainer (``train.py`` -> ``models/training.py``), data- and
+  tensor-parallel over the mesh;
+- the audit stage's ASR, which the JAX package only tried to import:
+  Whisper's batched greedy decoding (``analysis/dump_alignments.py --asr``
+  -> ``analysis/asr.py`` -> ``models/whisper.py``).
+On a card the encoders' chunk forwards and Whisper's encoder and decode
+steps are CUDA graphs, captured once per shape and replayed, through one
+program cache (``utils/programs.py``), which on the CPU runs them eagerly.
 Every stage CLI of the JAX package has its counterpart here. It imports
 neither ``jax`` nor ``svecalign_tpu``.
 
@@ -36,17 +44,20 @@ Subpackages
 - ``ops``      : cost products (torch), the dense and banded DPs, fbank,
                  window assembly, rel-key attention, the kNN search, and
                  the CUDA kernel wrappers with their build
-- ``models``   : the SONAR and SpeechLASER encoders, the span encode
-                 loop, the JAX-parameter loader, and the VADs
+- ``models``   : the SONAR and SpeechLASER encoders and their shared
+                 host wrapper (``encode_common.py``), Whisper, the
+                 trainer's model and steps, the JAX-parameter loader,
+                 and the VADs
 - ``vecalign`` : coarse-to-fine driver, traceback, deletion knob, scorer
 - ``preprocess``: the stage-4.1 and 4.2 CLIs
 - ``seg_align``: the stage-5.1 to 5.4 CLIs
 - ``postprocess``: the stage-6 CLIs
-- ``analysis`` : the alignment audit dump (clips and HTML pages)
+- ``analysis`` : the alignment audit dump (clips and HTML pages) and
+                 its ASR (``asr.py``)
 - ``parallel`` : the device mesh, placement and per-shard runs
 - ``utils``    : file/audio/embedding/index IO, sharding and worker
-                 processes, phase timers, the device/fp32 setup and the
-                 fused pipeline's row cache
+                 processes, the tracer, the program cache, the
+                 device/fp32 setup and the fused pipeline's row cache
 """
 
 __version__ = "0.1.0"

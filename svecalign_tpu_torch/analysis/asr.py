@@ -19,16 +19,17 @@ token ids that greedy decoding at temperature 0 gives:
   ``sample_len``; default ``n_text_ctx // 2``). A row that is done keeps
   being computed and its tokens are dropped; the check whether every row
   is done waits for the card every :data:`DONE_CHECK_EVERY` steps only;
-- on a card the encoder and every step are programs of fixed shape,
-  captured at their first use and replayed, as the stage-5.3 encoders run
-  (``models/encode_common.py::SpanPrograms``: one program for the encoder
-  and one per step index, sharing one memory pool): the caches are then
-  buffers allocated once, the cross-attention K/V copied in per batch and
-  the self-attention K/V of ``n_text_ctx`` positions, of which step j
-  reads the first 4 + j. An eager step launches ~22 kernels a layer, and
-  at large-v3 on an H100 its host time (17-28 ms) is longer than its
-  device time (~12 ms); replayed, the step is bound by the card. On the
-  CPU both run eagerly;
+- the encoder and every step run through one program cache
+  (``utils/programs.py``, as the stage-5.3 encoders do): on a card they
+  are programs of fixed shape, captured at their first use and replayed
+  (one program for the encoder and one per step index, sharing one
+  memory pool), and the caches are buffers allocated once, the
+  cross-attention K/V copied in per batch and the self-attention K/V of
+  ``n_text_ctx`` positions, of which step j reads the first 4 + j. An
+  eager step launches ~22 kernels a layer, and at large-v3 on an H100 its
+  host time (17-28 ms) is longer than its device time (~12 ms); replayed,
+  the step is bound by the card. On the CPU both run eagerly, over
+  caches allocated per batch;
 - logit filters, as openai's ``DecodingTask`` applies them: ``suppress_blank``
   (``" "`` and ``<|endoftext|>`` at the first sampled position) and the
   ids of ``suppress_tokens`` at every position.
@@ -79,10 +80,10 @@ import numpy as np
 import torch
 
 from svecalign_tpu_torch.models import whisper
-from svecalign_tpu_torch.models.encode_common import SpanPrograms
 from svecalign_tpu_torch.ops.fbank import whisper_log_mel
 from svecalign_tpu_torch.utils import trace
 from svecalign_tpu_torch.utils.audio_utils import load_waveform
+from svecalign_tpu_torch.utils.programs import Programs
 
 SAMPLE_RATE = 16000
 N_SAMPLES = 30 * SAMPLE_RATE  # one piece: Whisper's 30 s input
@@ -150,9 +151,11 @@ class Transcript:
 
 
 class Transcriber:
-    """Greedy batched decoding with one loaded :class:`whisper.Whisper`: on
-    a card the encoder and each step index replay a program over K/V
-    buffers allocated at the first batch; on the CPU all runs eagerly."""
+    """Greedy batched decoding with one loaded :class:`whisper.Whisper`:
+    the encoder and each step index run through one
+    :class:`~svecalign_tpu_torch.utils.programs.Programs`, which on a card
+    replays them over K/V buffers allocated at the first batch; on the
+    CPU all runs eagerly, over K/V allocated per batch."""
 
     def __init__(self, model: whisper.Whisper, batch: int = 64,
                  suppress_tokens: Sequence[int] = (), suppress_blank: bool = True,
@@ -165,8 +168,7 @@ class Transcriber:
         self.suppress_tokens = sorted(set(int(t) for t in suppress_tokens))
         self.suppress_blank = suppress_blank
         # graph_type: a stand-in for the CUDA graph (the tests' programs on the CPU)
-        self.programs = (SpanPrograms(self.device, graph_type)
-                         if self.device.type == "cuda" or graph_type is not None else None)
+        self.programs = Programs(self.device, graph_type)
         self._cross = self._cache = None  # the programs' K/V buffers
 
     def transcribe(self, clips: Sequence[np.ndarray], langs: Union[str, Sequence[str]],
@@ -216,21 +218,14 @@ class Transcriber:
                 audio[r, :n] = flat[start:start + n]
             mel = whisper_log_mel(audio, model.dims.n_mels)
         with trace.ASR.span("asr.encode", dev):
-            if self.programs is None:
-                xa = model.encoder(mel)
-            else:
-                xa = self.programs.run(("whisper.encoder", tuple(mel.shape)), model.encoder,
-                                       (mel,))
+            xa = self.programs.run(("whisper.encoder", tuple(mel.shape)), model.encoder, (mel,))
         with trace.ASR.span("asr.cross_kv", dev):
-            if self.programs is None:
-                cross = model.decoder.cross_kv(xa)
-            else:
-                if self._cross is None:
-                    self._cross = model.decoder.new_cache(len(part), model.dims.n_audio_ctx)
-                    self._cache = model.decoder.new_cache(len(part), model.dims.n_text_ctx)
-                    trace.count("asr.cache_bytes",
-                                whisper.cache_bytes(model, len(part), model.dims.n_text_ctx))
-                cross = model.decoder.cross_kv(xa, self._cross)
+            if self.programs.replays and self._cross is None:
+                self._cross = model.decoder.new_cache(len(part), model.dims.n_audio_ctx)
+                self._cache = model.decoder.new_cache(len(part), model.dims.n_text_ctx)
+                trace.count("asr.cache_bytes",
+                            whisper.cache_bytes(model, len(part), model.dims.n_text_ctx))
+            cross = model.decoder.cross_kv(xa, self._cross)
         with trace.ASR.span("asr.decode", dev):
             tokens, kept = self._decode(cross, prompts, budgets, keep)
         with trace.ASR.span("asr.write", dev, host_only=True):
@@ -258,11 +253,10 @@ class Transcriber:
         done) and the kept rows' (k, max budget, n_vocab) fp32 logits."""
         dev, dec, sp = self.device, self.model.decoder, self.special
         b, steps, p = len(budgets), max(budgets), len(prompts[0])
-        if self.programs is None:
+        cache = self._cache
+        if not self.programs.replays:
             cache = dec.new_cache(b, p + steps - 1)
             trace.count("asr.cache_bytes", whisper.cache_bytes(self.model, b, p + steps - 1))
-        else:
-            cache = self._cache
         ids = torch.full((b, steps), sp.eot, dtype=torch.int64, device=dev)
         budget = torch.tensor(budgets, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -298,11 +292,8 @@ class Transcriber:
             if j % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
             with trace.ASR.span("asr.step", dev):
-                if self.programs is None:
-                    logits = step(tok[:, None], p + j - 1)
-                else:
-                    logits = self.programs.run(("whisper.step", b, p, j),
-                                               lambda t, o=p + j - 1: step(t, o), (tok[:, None],))
+                logits = self.programs.run(("whisper.step", b, p, j),
+                                           lambda t, o=p + j - 1: step(t, o), (tok[:, None],))
                 tok = pick(logits, j)
             ran += 1
         trace.count("asr.steps", ran)

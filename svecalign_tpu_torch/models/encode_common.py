@@ -1,42 +1,33 @@
-"""The span-encode loop shared by the speech encoders, and the phase
-timers of an encode.
+"""The speech encoders' host wrapper, shared by SpeechLASER and SONAR,
+and the phase timers of an encode.
 
 Port of the JAX package's ``models/encode_common.py``.
-``SpanEncoderMixin.encode_spans`` embeds overlap windows of ONE waveform:
-the waveform goes to the device once (int16 per 1 s block, or fp32), is
-dequantised there once, and each chunk of windows is gathered out of it
-(``ops/assemble.py``) and encoded. The model supplies its shape policy
-through the same hooks as in JAX:
+:class:`SpanEncoderMixin` holds everything but a model's shape policy and
+its forward: the weights' set-up, the host-sliced ``encode``,
+``encode_spans`` and the one chunk loop under both, the per-chunk forward
+on one device or a mesh, and the pull. ``encode_spans`` embeds overlap
+windows of ONE waveform: the waveform goes to the device once (int16 per
+1 s block, or fp32), is dequantised there once, and each chunk of
+windows is gathered out of it (``ops/assemble.py``); ``encode`` stages
+each chunk's rows on the host (:func:`stage_rows`) and uploads them. The
+model supplies its shape policy through the same hooks as in JAX:
 
     _span_plan(start, ln)     -> (bucket, (start, n_samples, out_len), truncated?)
     _span_buckets()           -> the bucket list (model units)
     _bucket_width(bucket)     -> window width in SAMPLES
     _rows_per_chunk(bucket)   -> batch rows for that bucket
-    _span_forward(rows, scales, lengths, bucket) -> (rows, dim) embeddings
+    _forward(module, rows, scales, lengths, bucket) -> (rows, dim) embeddings
 
-plus ``_embed_dim``, ``_trunc_unit``, ``upload_dtype`` and ``device``;
-``_span_forward`` calls the model's ``_forward(module, rows, scales,
-lengths, bucket)`` on its replica of the weights.
+plus ``_embed_dim`` and ``_trunc_unit``.
 
-Per-shape programs (the JAX package's ``jax.jit`` of the forward, one
-compiled program per bucket and row count): on a card every
-``_span_forward`` replays a CUDA graph, captured at the first chunk of its
-shape, per replica and per (bucket, rows, width, input dtypes), and kept
-for the model's life (:class:`SpanPrograms`). The capture follows
-PyTorch's recipe: one eager warm-up on a side stream (it fills what the
-forward caches on first use: the fbank constants, cuFFT plans, cuDNN's
-and cuBLAS's choices and workspace, the kernels' libraries and
-attributes), then ``torch.cuda.graph`` under ``torch.inference_mode()``.
-A replay copies the chunk into the graph's static inputs, replays, and
-copies the static output out, so the next replay of the shape cannot
-overwrite rows a caller holds. A replica's graphs share one memory pool
-(one bucket's activations at a time, not all nine) and one side stream.
-A capture that fails raises; nothing falls back to the eager forward. The
-eager forward runs on the CPU, where it is the tests' route, and wherever
-a caller passes ``eager=True`` (the card's comparisons). What stays
-outside the graph, as it stays outside the JAX program: the waveform's
-upload and the windows' gather (``ops/assemble.py``), the pulls. Kernel
-launches inside a graph are counted at each replay (``ops/_build.py``).
+Every chunk's forward goes through a replica's program cache
+(``utils/programs.py``, one :class:`~svecalign_tpu_torch.utils.programs.Programs`
+per replica, a program per bucket, rows, width, input dtypes and
+``_forward_variant``, kept for the model's life): on a card it replays a
+CUDA graph captured at its shape's first chunk, on the CPU, or with
+``eager=True`` (the card's comparisons), it runs the eager forward. What
+stays outside the graph, as it stays outside the JAX program: the
+waveform's upload and the windows' gather, the pulls.
 
 Data parallelism (the JAX package's mesh branch): with a mesh of more
 than one data shard (``parallel/mesh.py``; by default every local card
@@ -45,13 +36,13 @@ every shard's device (:func:`place_model`), each chunk's rows are split
 into contiguous slices, one per shard, and the rows come back to the
 mesh's first device, ``self.device``, in row order. Chunks keep a row
 count that is a multiple of the shard count. One thread queues every
-shard's copy-in, then every shard's replay (``parallel.mesh.run_on_shards``),
-and only then gathers their outputs, so distinct cards run their shards at
-the same time, as the JAX program's shards do. The copy-ins go first
-because a copy between cards runs on the source card's stream, the first
-card's: a copy queued after that card's replay would start its own card
-only when that replay ended. Each replica has its own programs, also
-where two shards share a card.
+shard's copy-in, then every shard's replay or forward
+(``parallel.mesh.run_on_shards``), and only then gathers their outputs, so
+distinct cards run their shards at the same time, as the JAX program's
+shards do. The copy-ins go first because a copy between cards runs on
+the source card's stream, the first card's: a copy queued after that
+card's replay would start its own card only when that replay ended.
+Each replica has its own programs, also where two shards share a card.
 
 ``keep_device`` (the fused pipeline's handoff, ``utils/embed_cache.py``)
 also writes every chunk's rows, as fp16, into one (embed_cache.max_rows,
@@ -69,31 +60,33 @@ Spans (``utils/trace.py``, the ``EMBED`` area: ``SVECALIGN_EMBED_PROFILE=1``
 at a stage's entry, or :func:`start_encode_profile`): ``embed.quantize``
 (the waveform's int16 blocks on the host, host-only), ``embed.plan`` (the
 span plan, host-only), ``embed.assemble`` (the waveform's upload and each
-chunk's gather, on the device), ``embed.replay`` (a program's copy-in and
-replay; on a mesh one per shard, on the shard's device, and the replay
-alone once the shape is captured), ``mesh.issue`` (per chunk on a mesh:
-every shard's issue and the gather on the first device, host) and inside
-it ``mesh.scatter`` (the queueing of every shard's copy-in, host),
-``embed.pull`` (on the device), and in the eager forward
+chunk's gather, on the device), ``embed.replay`` (the program cache's; on
+a mesh one per shard, on the shard's device), ``mesh.issue`` (per chunk
+on a mesh: every shard's issue and the gather on the first device, host)
+and inside it ``mesh.scatter`` (the queueing of every shard's copy-in,
+host), ``embed.pull`` (on the device), and in the eager forward
 ``embed.frontend``, ``embed.trunk`` and ``embed.pooler``; no span runs
-inside a capture. Counters: ``embed.captures``, ``embed.replays``,
-``embed.upload_bytes``, ``embed.pull_bytes``, ``mesh.scatter_bytes`` (the
-input bytes the scatter copies to the shards other than the first). The
-tracer's events are resolved after each pull, where the host has waited
-for the device.
+inside a capture. Counters: ``embed.captures`` and ``embed.replays`` (the
+program cache's), ``embed.upload_bytes``, ``embed.pull_bytes``,
+``mesh.scatter_bytes`` (the input bytes the scatter copies to the shards
+other than the first). The tracer's events are resolved after each pull,
+where the host has waited for the device.
 """
 
 import copy
-import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from svecalign_tpu_torch.ops import _build
+from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
+from svecalign_tpu_torch.models.w2v_bert import compute_dtype
+from svecalign_tpu_torch.ops import assemble
 from svecalign_tpu_torch.parallel.mesh import Mesh, default_mesh, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils import embed_cache, trace
 from svecalign_tpu_torch.utils.log_utils import logging
+from svecalign_tpu_torch.utils.programs import Programs
 from svecalign_tpu_torch.utils.torch_setup import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -135,168 +128,6 @@ def switch_profile(device) -> bool:
     if not trace.EMBED.forced:
         encode_profile = dict.fromkeys(PROFILE_KEYS, 0.0) if on else None
     return on
-
-
-class CudaGraph:
-    """``torch.cuda.CUDAGraph`` behind the interface :class:`SpanPrograms`
-    uses (a test puts a stand-in with the same methods in
-    :attr:`SpanEncoderMixin.graph_type`):
-
-    - ``arena(device)``: what one replica's graphs share, one memory pool
-      (``torch.cuda.graph_pool_handle()``) and the side stream that warms
-      up and captures them all;
-    - ``CudaGraph(device, arena)``; ``warm_up(fn)`` runs ``fn`` eagerly
-      on the side stream, after the work queued before it; ``capture(fn)``
-      captures ``fn`` into the graph and returns its output, the graph's
-      static output; ``replay()`` launches the graph on the device's
-      current stream;
-    - ``arena_bytes(device, arena)``: the device bytes the pool holds.
-    """
-
-    @staticmethod
-    def arena(device: torch.device):
-        with torch.cuda.device(device):
-            return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
-
-    def __init__(self, device: torch.device, arena):
-        self.device = device
-        self.pool, self.stream = arena
-        self.graph = torch.cuda.CUDAGraph()
-
-    def warm_up(self, fn: Callable) -> None:
-        with torch.cuda.device(self.device):
-            self.stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self.stream):
-                fn()
-
-    def capture(self, fn: Callable):
-        with torch.cuda.device(self.device):
-            current = torch.cuda.current_stream()
-            try:
-                # "thread_local": only this thread is held to what a capture
-                # allows, so that another thread (the pipeline's
-                # --overlap_untrans) may go on using the card meanwhile
-                with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
-                                      capture_error_mode="thread_local"):
-                    out = fn()
-            except BaseException:
-                # a failed capture_end leaves the allocator routing to the
-                # pool, and no later capture into it could begin
-                end = getattr(torch._C, "_cuda_endAllocateToPool", None)
-                if end is not None:
-                    try:
-                        end(self.device.index, self.pool)
-                    except RuntimeError:  # the capture had ended the routing
-                        pass
-                raise
-            finally:
-                # a failed capture leaves the side stream current
-                torch.cuda.set_stream(current)
-            current.wait_stream(self.stream)
-        return out
-
-    def replay(self) -> None:
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-
-    @staticmethod
-    def arena_bytes(device: torch.device, arena) -> int:
-        pool = tuple(arena[0])
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if seg.get("device") == device.index
-                   and tuple(seg.get("segment_pool_id", ())) == pool)
-
-
-class Program(NamedTuple):
-    """One captured forward: its graph, the static inputs it reads and
-    the static output it writes (alive as long as the graph), the kernel
-    launches it holds (counted at each replay) and the wall seconds of
-    its warm-up and capture."""
-
-    graph: object
-    inputs: Tuple[torch.Tensor, ...]
-    output: torch.Tensor
-    launches: list
-    capture_s: float
-
-
-class SpanPrograms:
-    """The per-shape programs of ONE replica of an encoder on ``device``:
-    a dict from a shape key to a :class:`Program`, one memory pool and one
-    side stream for all of them (``graph_type.arena``). ``graph_type``
-    None is :class:`CudaGraph`, which needs a card: on any other device
-    the constructor raises (the CPU's route is the eager forward, which
-    the caller chooses; this class never runs it)."""
-
-    def __init__(self, device, graph_type=None):
-        device = torch.device(device)
-        if graph_type is None:
-            if device.type != "cuda":
-                raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-            graph_type = CudaGraph
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device, self.graph_type = device, graph_type
-        self.arena = graph_type.arena(device)
-        self.programs: Dict[tuple, Program] = {}
-        self.failed: list = []
-
-    def load(self, key: tuple, inputs: Sequence[torch.Tensor]) -> bool:
-        """Copy ``inputs`` into the static inputs of ``key``'s program,
-        without replaying it; False, and nothing copied, where ``key`` has
-        no program yet. A copy from another device runs on that device's
-        current stream, after the two streams' work queued so far."""
-        prog = self.programs.get(key)
-        if prog is None:
-            return False
-        for static, x in zip(prog.inputs, inputs):
-            static.copy_(x)
-        return True
-
-    def run(self, key: tuple, forward: Callable, inputs: Sequence[torch.Tensor],
-            loaded: bool = False) -> torch.Tensor:
-        """``forward(*inputs)`` by the program of ``key``: captured at the
-        key's first call, from static copies of ``inputs``, then replayed
-        with ``inputs`` copied in (``loaded``: :meth:`load` has copied them
-        in already). Returns the static output, which the next replay of
-        ``key`` overwrites. A failed capture raises and stores no program;
-        the replica's later captures take a fresh pool and stream
-        (:attr:`failed` keeps the failed graphs)."""
-        with trace.EMBED.span("embed.replay", self.device):
-            prog = self.programs.get(key)
-            if prog is None:
-                prog = self._capture(forward, inputs)
-                self.programs[key] = prog
-            elif not loaded:
-                self.load(key, inputs)
-            prog.graph.replay()
-        trace.count("embed.replays")
-        _build.count_replay(prog.launches)
-        return prog.output
-
-    def _capture(self, forward: Callable, inputs: Sequence[torch.Tensor]) -> Program:
-        trace.count("embed.captures")
-        t0 = time.perf_counter()
-        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs)
-        for s, x in zip(static, inputs):
-            s.copy_(x)
-        graph = self.graph_type(self.device, self.arena)
-        # set-up, as a program's compile is: its launches not counted, no span
-        with _build.holding_launches(), trace.holding():
-            graph.warm_up(lambda: forward(*static))
-        try:
-            with _build.holding_launches() as launches, trace.holding():
-                output = graph.capture(lambda: forward(*static))
-        except BaseException:
-            # later captures take a fresh pool and stream; the failed graph
-            # is kept, as the allocator may still refer to it
-            self.failed.append(graph)
-            self.arena = self.graph_type.arena(self.device)
-            raise
-        return Program(graph, static, output, launches, time.perf_counter() - t0)
-
-    def pool_bytes(self) -> int:
-        return self.graph_type.arena_bytes(self.device, self.arena)
 
 
 def _copy_to(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
@@ -378,15 +209,56 @@ def pull_rows(pending: Sequence[Tuple[List[int], torch.Tensor]], n: int, dim: in
 
 
 class SpanEncoderMixin:
-    """encode_spans() for models exposing the hook set described above."""
+    """A speech encoder's host wrapper for a model that supplies the hooks
+    described above: the weights' set-up, ``encode`` and ``encode_spans``."""
 
     mesh: Optional[Mesh] = None
-    _replicas: Sequence[torch.nn.Module] = ()
+    _replicas: Sequence[nn.Module] = ()
     graph_type = None
-    """How a forward runs: None replays a :class:`CudaGraph` per shape on
-    a card and runs the eager forward on the CPU; a class with
-    :class:`CudaGraph`'s interface (a test's stand-in) is used on any
-    device."""
+    """The program caches' graph type (``utils/programs.py``): None
+    replays a CUDA graph per shape on a card and runs the eager forward on
+    the CPU; a class with ``programs.CudaGraph``'s interface (a test's
+    stand-in) is used on any device."""
+    WAVE_BUCKETS_S: Sequence[int] = assemble.WAVE_BUCKETS_S
+    """``encode_spans``' waveform buckets, in seconds (a test sets its own)."""
+    KEEP_FP32: Tuple[str, ...] = ()
+    """Names of Linear and Conv modules whose weights stay fp32."""
+
+    def __init__(self, encoder: Callable[..., nn.Module], config, ckpt_path: Optional[str],
+                 seed: int, upload_dtype: str, device, mesh: Optional[Mesh]):
+        """Build ``encoder(config)`` on the meta device, load its weights
+        from a JAX ``.npz`` (``save_params_npz``) or, without one, from the
+        JAX package's numpy init for ``seed`` (so that both packages hold
+        the same random weights), store every Linear and Conv weight not
+        in :attr:`KEEP_FP32` in the compute dtype once (the same rounding
+        as flax's per-call cast; the LayerNorms stay fp32), and place the
+        weights on every data shard's device (:func:`place_model`).
+        ``upload_dtype``: int16 (half the bytes) or fp32 (exact)."""
+        if upload_dtype not in ("int16", "fp32"):
+            raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
+        self.config = config
+        self.upload_dtype = upload_dtype
+        resolve_device(device)  # no card and no device="cpu": raise before the init
+
+        with torch.device("meta"):
+            model = encoder(config)
+        flat = load_params_npz(ckpt_path) if ckpt_path else {}
+        state = params_from_jax(flat, model, seed=seed, source=ckpt_path or "random init")
+        model.load_state_dict(state, assign=True)
+        name = type(self).__name__
+        if ckpt_path:
+            logger.info(f"Loaded {name} params from {ckpt_path}")
+        else:
+            logger.warning(f"{name} initialized with RANDOM weights (no checkpoint given); "
+                           "embeddings are not meaningful for mining.")
+        dt = compute_dtype(config)
+        for mod_name, mod in model.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)) and mod_name not in self.KEEP_FP32:
+                mod.to(dt)
+        self.device, self.mesh, self._replicas = place_model(
+            model.eval().requires_grad_(False), device, mesh)
+        self.model = self._replicas[0]
+        self._fit_rows_to_mesh()
 
     @property
     def data_shards(self) -> int:
@@ -396,7 +268,7 @@ class SpanEncoderMixin:
         """Hook for a model with a fixed chunk row count: round it up to a
         multiple of :attr:`data_shards`."""
 
-    def _forward_variant(self, model: torch.nn.Module) -> tuple:
+    def _forward_variant(self, model: nn.Module) -> tuple:
         """What besides the shapes picks the kernels of ``model``'s forward
         (a SONAR trunk's attention routes): part of a program's key."""
         return ()
@@ -420,21 +292,21 @@ class SpanEncoderMixin:
         other._fit_rows_to_mesh()
         return other
 
-    def _programs(self, i: int) -> SpanPrograms:
-        """Replica ``i``'s programs, made at its first use."""
+    def _programs(self, i: int) -> Programs:
+        """Replica ``i``'s program cache, made at its first use."""
         progs = self.__dict__.setdefault("_span_programs", {})
         if i not in progs:
             dev = self.device if self.mesh is None else self.mesh.data_devices[i]
-            progs[i] = SpanPrograms(dev, self.graph_type)
+            progs[i] = Programs(dev, self.graph_type)
         return progs[i]
 
     def program_stats(self) -> List[dict]:
-        """Per replica with programs: its device, each program's key and
-        capture seconds, and the bytes of its graph pool."""
+        """Per replica whose cache replays: its device, each program's key
+        and capture seconds, and the bytes of its graph pool."""
         progs = self.__dict__.get("_span_programs", {})
         return [{"replica": i, "device": str(pr.device), "pool_bytes": pr.pool_bytes(),
                  "capture_s": {key: prog.capture_s for key, prog in pr.programs.items()}}
-                for i, pr in sorted(progs.items())]
+                for i, pr in sorted(progs.items()) if pr.replays]
 
     def _program_key(self, i: int, inputs, bucket) -> tuple:
         """The key of replica ``i``'s program for ``inputs`` (rows, scales,
@@ -443,38 +315,27 @@ class SpanEncoderMixin:
                 self._forward_variant(self._replicas[i]))
 
     def _replay(self, i: int, rows_q, row_scales, lengths, bucket,
-                loaded: bool = False) -> torch.Tensor:
-        """Replica ``i``'s forward of one chunk (or shard) by its program;
-        returns the program's static output. ``loaded``: the program's
-        :meth:`SpanPrograms.load` has copied the inputs in."""
+                loaded: bool = False, eager: bool = False) -> torch.Tensor:
+        """Replica ``i``'s forward of one chunk (or shard) through its
+        program cache (:meth:`Programs.run`: on a replay, the program's
+        static output). ``loaded``: :meth:`Programs.load` has copied the
+        inputs in."""
         model = self._replicas[i]
         inputs = (rows_q, row_scales, lengths)
         return self._programs(i).run(
             self._program_key(i, inputs, bucket),
-            lambda q, s, n: self._forward(model, q, s, n, bucket), inputs, loaded)
+            lambda q, s, n: self._forward(model, q, s, n, bucket), inputs, loaded, eager)
 
     @torch.inference_mode()
     def _span_forward(self, rows_q, row_scales, lengths, bucket, eager: bool = False):
         """(rows, width) int16 or fp32 waveforms, (rows,) scales and
         lengths on ``self.device`` -> (rows, dim) fp32 there, a tensor of
         its own; with a mesh, each shard's slice of the rows on its own
-        replica and device. On a card by the replay of the chunk shape's
-        program (:class:`SpanPrograms`); on the CPU, or with ``eager``, by
-        the eager forward."""
-        if eager or (self.graph_type is None and self.device.type != "cuda"):
-            if self.mesh is None:
-                return self._forward(self._replicas[0], rows_q, row_scales, lengths, bucket)
-
-            def shard(i, dev, sl):
-                return self._forward(self._replicas[i], rows_q[sl].to(dev),
-                                     row_scales[sl].to(dev), lengths[sl].to(dev),
-                                     bucket).to(self.device)
-
-            with trace.EMBED.span("mesh.issue"):
-                return torch.cat(run_on_shards(self.mesh, shard,
-                                               shard_slices(rows_q.shape[0], self.mesh)))
+        replica and device. ``eager``: the eager forward where a card
+        would replay the chunk shape's program."""
         if self.mesh is None:
-            return self._replay(0, rows_q, row_scales, lengths, bucket).clone()
+            # a replay returns the program's output, which the next overwrites
+            return self._replay(0, rows_q, row_scales, lengths, bucket, eager=eager).clone()
         # Every shard's copy-in first, then every shard's replay, then the
         # gather (a copy) in row order. A copy between cards runs on the
         # source card's stream, the first card's: queued behind that card's
@@ -483,14 +344,71 @@ class SpanEncoderMixin:
                   for sl in shard_slices(rows_q.shape[0], self.mesh)]
         with trace.EMBED.span("mesh.issue"):
             with trace.EMBED.span("mesh.scatter"):
-                loaded = run_on_shards(self.mesh, lambda i, dev, x: self._programs(i).load(
-                    self._program_key(i, x, bucket), x), shards)
+                loaded = run_on_shards(self.mesh, lambda i, dev, x: not eager and self._programs(
+                    i).load(self._program_key(i, x, bucket), x), shards)
             trace.count("mesh.scatter_bytes", sum(x.nbytes for part, done in
                                                   zip(shards[1:], loaded[1:]) if done
                                                   for x in part))
-            outs = run_on_shards(
-                self.mesh, lambda i, dev, x: self._replay(i, *x, bucket, loaded[i]), shards)
+            outs = run_on_shards(self.mesh, lambda i, dev, x: self._replay(
+                i, *x, bucket, loaded[i], eager), shards)
             return torch.cat([o.to(self.device) for o in outs])
+
+    def _encode_chunks(self, plans, make_chunk: Callable, keep_device: bool, fp16_pull: bool,
+                       eager: bool):
+        """The chunk loop of :meth:`encode` and :meth:`encode_spans`.
+        ``plans``: per input, ``(bucket, item, truncated?)``. Each bucket's
+        items go in chunks of ``_rows_per_chunk(bucket)`` rows;
+        ``make_chunk(bucket, rows, items)`` puts a chunk's (rows, scales,
+        lengths) on ``self.device`` (padding rows have length 0); the rows
+        come back in input order (:func:`pull_rows`)."""
+        by_bucket: dict = {}
+        for i, (bucket, item, _) in enumerate(plans):
+            by_bucket.setdefault(bucket, []).append((i, item))
+        n_truncated = sum(truncated for *_, truncated in plans)
+        if n_truncated:
+            logger.warning(
+                f"{n_truncated}/{len(plans)} inputs exceed the largest length bucket "
+                f"({self._trunc_unit}) and are TRUNCATED to it -- their embeddings cover "
+                "only the prefix"
+            )
+        pending = []
+        for bucket, items in sorted(by_bucket.items()):
+            rows = self._rows_per_chunk(bucket)
+            for c0 in range(0, len(items), rows):
+                chunk = items[c0:c0 + rows]
+                emb = self._span_forward(*make_chunk(bucket, rows, [x for _, x in chunk]),
+                                         bucket, eager)
+                pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
+        return pull_rows(pending, len(plans), self._embed_dim, fp16_pull, self.device,
+                         keep_device)
+
+    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False,
+               eager: bool = False):
+        """Encode waveforms -> (N, dim) float32 (float16 under
+        ``fp16_pull``: cast on the device, bit-equal to the writer's host
+        fp32 -> fp16 cast). Each input is planned as a span of its own;
+        each chunk's rows are staged on the host, cut to their bucket's
+        width and padded to a fixed (rows, width) shape. ``keep_device``
+        returns ``(out, device fp16 rows)`` (:func:`pull_rows`). ``eager``:
+        the eager forward where a card would replay the chunk shape's
+        program."""
+        fp32 = self.upload_dtype == "fp32"
+        plans = []
+        for w in waveforms:
+            w = np.asarray(w, dtype=np.float32)
+            if w.ndim == 2:
+                w = w[:, 0]  # channel 0, as slice_segments/encode_spans
+            bucket, (_, _, out_len), truncated = self._span_plan(0, len(w))
+            plans.append((bucket, (w, out_len), truncated))
+
+        def stage(bucket, rows, items):
+            padded, scales = stage_rows([w for w, _ in items], rows, self._bucket_width(bucket),
+                                        fp32)
+            lengths = np.zeros((rows,), dtype=np.int32)
+            lengths[: len(items)] = [out_len for _, out_len in items]
+            return tuple(torch.from_numpy(a).to(self.device) for a in (padded, scales, lengths))
+
+        return self._encode_chunks(plans, stage, keep_device, fp16_pull, eager)
 
     def encode_spans(self, waveform, spans, keep_device: bool = False,
                      fp16_pull: bool = False, eager: bool = False):
@@ -500,17 +418,12 @@ class SpanEncoderMixin:
         in fp32 upload mode, within about one quantization step in int16
         mode (per 1 s block, then per row on the device). Waveforms longer
         than the largest wave bucket fall back to host-sliced encode().
-        ``fp16_pull`` casts the rows to fp16 on the device. ``keep_device``
-        returns ``(out, device fp16 rows)``, as :func:`pull_rows` says.
-        ``eager`` runs the eager forward where a card would replay a
-        program (``_span_forward``).
+        ``fp16_pull``, ``keep_device`` and ``eager`` as in :meth:`encode`.
         """
-        from svecalign_tpu_torch.ops import assemble
-
         waveform = np.asarray(waveform, dtype=np.float32)
         if waveform.ndim == 2:
             waveform = waveform[:, 0]
-        buckets_s = sorted(self.WAVE_BUCKETS_S or assemble.WAVE_BUCKETS_S)
+        buckets_s = sorted(self.WAVE_BUCKETS_S)
         wave_len = next((b * 16000 for b in buckets_s if len(waveform) <= b * 16000), None)
         if wave_len is None:
             logger.warning(
@@ -531,37 +444,20 @@ class SpanEncoderMixin:
                                         torch.from_numpy(block_scales).to(dev), slack)
         trace.count("embed.upload_bytes", wave_host.nbytes + block_scales.nbytes)
 
-        by_bucket: dict = {}
-        n_truncated = 0
         with trace.EMBED.span("embed.plan", dev, host_only=True):
-            for i, (s, e) in enumerate(spans):
-                # clamp to the waveform like host slicing (waveform[s:e] is
-                # short when e overruns the file)
-                ln = max(min(e, len(waveform)) - s, 0)
-                bucket, idx_row, truncated = self._span_plan(s, ln)
-                n_truncated += truncated
-                by_bucket.setdefault(bucket, []).append((i, idx_row))
-        if n_truncated:
-            logger.warning(
-                f"{n_truncated}/{len(spans)} spans exceed the largest "
-                f"length bucket ({self._trunc_unit}) and are TRUNCATED "
-                "to it -- their embeddings cover only the prefix"
-            )
+            # clamp to the waveform like host slicing (waveform[s:e] is
+            # short when e overruns the file)
+            plans = [self._span_plan(s, max(min(e, len(waveform)) - s, 0)) for s, e in spans]
 
-        pending = []
-        for bucket, items in sorted(by_bucket.items()):
-            rows = self._rows_per_chunk(bucket)
-            width = self._bucket_width(bucket)
-            for c0 in range(0, len(items), rows):
-                chunk = items[c0:c0 + rows]
-                # [start, n_samples, out_len] per row; padding rows read
-                # nothing (n_samples 0) and have length 0
-                idx = np.zeros((rows, 3), np.int64)
-                idx[: len(chunk)] = [idx_row for _, idx_row in chunk]
-                with trace.EMBED.span("embed.assemble", dev):
-                    rows_q, row_scales, lengths = assemble.assemble(
-                        wave_dev, torch.from_numpy(idx).to(dev), width, fp32)
-                trace.count("embed.upload_bytes", idx.nbytes)
-                emb = self._span_forward(rows_q, row_scales, lengths, bucket, eager)
-                pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
-        return pull_rows(pending, len(spans), self._embed_dim, fp16_pull, dev, keep_device)
+        def gather(bucket, rows, items):
+            # [start, n_samples, out_len] per row; padding rows read
+            # nothing (n_samples 0) and have length 0
+            idx = np.zeros((rows, 3), np.int64)
+            idx[: len(items)] = items
+            with trace.EMBED.span("embed.assemble", dev):
+                chunk = assemble.assemble(wave_dev, torch.from_numpy(idx).to(dev),
+                                          self._bucket_width(bucket), fp32)
+            trace.count("embed.upload_bytes", idx.nbytes)
+            return chunk
+
+        return self._encode_chunks(plans, gather, keep_device, fp16_pull, eager)

@@ -36,38 +36,26 @@ rows are those of one call. ``SpeechLaserModel`` counts the extractor's
 groups of each chunk (each shard's on a mesh) in the tracer's counter
 ``embed.extractor_groups``.
 
-``SpeechLaserModel`` is the host wrapper. Weights come from a JAX ``.npz``
-(``save_params_npz``) or, without one, from the JAX package's numpy init
-for ``seed``, so both packages hold the same random weights.
-``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
-on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
-With more than one card (or a given ``mesh``), each chunk's rows are split
-over the mesh's data axis, the weights replicated on every card, and the
-chunk's row count rounded up to a multiple of the shard count, as in JAX
-(``models/encode_common.py``). On a card each chunk's forward (extractor,
-trunk, pool) is the replay of a CUDA graph captured once per replica and
-chunk shape, the JAX package's jitted program per bucket
-(``encode_common.SpanPrograms``); ``eager=True`` runs it eagerly. Left
-out, as in the SONAR port: buffer donation and the staging thread.
+``SpeechLaserModel`` is the model's shape policy (its length buckets in
+samples, rows per chunk from ``max_tokens``) and its forward; the host
+wrapper it inherits (``models/encode_common.py::SpanEncoderMixin``) loads
+the weights, chunks, runs each chunk's forward (extractor, trunk, pool)
+through the program cache (``utils/programs.py``: a replayed CUDA graph
+per replica and chunk shape on a card, the JAX package's jitted program
+per bucket), splits chunks over a mesh and pulls the rows. With a mesh a
+chunk's row count rounds up to a multiple of the shard count, as in JAX.
 """
 
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from svecalign_tpu_torch.models import encode_common
 from svecalign_tpu_torch.models.encode_common import SpanEncoderMixin
-from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
 from svecalign_tpu_torch.models.w2v_bert import FlaxLayerNorm, compute_dtype, dense
 from svecalign_tpu_torch.utils import trace
-from svecalign_tpu_torch.utils.log_utils import logging
-from svecalign_tpu_torch.utils.torch_setup import resolve_device
-
-logger = logging.getLogger(__name__)
 
 FLAX_EPS = 1e-6  # flax LayerNorm / GroupNorm default epsilon
 
@@ -318,13 +306,8 @@ class LaserSpeechEncoder(nn.Module):
 
 
 class SpeechLaserModel(SpanEncoderMixin):
-    """Host wrapper: bucketed batched forward on the device."""
-
-    supports_spans = True
-    # encode(..., keep_device=True) returns (out, device fp16 rows): the
-    # fused pipeline's handoff (utils/embed_cache.py)
-    supports_keep_device = True
-    WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
+    """SpeechLASER's shape policy and forward (the host wrapper is
+    :class:`~svecalign_tpu_torch.models.encode_common.SpanEncoderMixin`)."""
 
     # length buckets in samples at 16 kHz, the JAX package's: 8 and 14 s fill
     # the gaps where overlap windows fall; 45/60 s exist for embed_align
@@ -342,44 +325,14 @@ class SpeechLaserModel(SpanEncoderMixin):
         device="cuda",
         mesh=None,
     ):
-        if upload_dtype not in ("int16", "fp32"):
-            raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
-        self.config = config
         self.max_tokens = max_tokens
-        self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
-        resolve_device(device)  # no card and no device="cpu": raise before the init
-
-        with torch.device("meta"):
-            model = LaserSpeechEncoder(config)
-        flat = load_params_npz(ckpt_path) if ckpt_path else {}
-        state = params_from_jax(flat, model, seed=seed, source=ckpt_path or "random init")
-        model.load_state_dict(state, assign=True)
-        if ckpt_path:
-            logger.info(f"Loaded encoder params from {ckpt_path}")
-        else:
-            logger.warning("Encoder initialized with RANDOM weights (no --ckpt given); "
-                           "embeddings are not meaningful for mining.")
-        # conv and Dense weights are stored in the compute dtype once (the
-        # same rounding as flax's per-call cast); the LayerNorms stay fp32
-        dt = compute_dtype(config)
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
-                mod.to(dt)
-        # data-parallel inference: weights on every data shard's card
-        self.device, self.mesh, self._replicas = encode_common.place_model(
-            model.eval().requires_grad_(False), device, mesh)
-        self.model = self._replicas[0]
+        super().__init__(LaserSpeechEncoder, config, ckpt_path, seed, upload_dtype, device, mesh)
 
     def _bucket(self, n: int) -> int:
         for b in self.BUCKETS:
             if n <= b:
                 return b
         return self.BUCKETS[-1]
-
-    def _rows_for_bucket(self, bucket: int) -> int:
-        rows = max(1, self.max_tokens // bucket)
-        # round up so that a chunk splits evenly over the data axis
-        return -(-rows // self.data_shards) * self.data_shards
 
     # --- SpanEncoderMixin hooks (units: samples at 16 kHz) ---
 
@@ -390,7 +343,9 @@ class SpeechLaserModel(SpanEncoderMixin):
         return bucket
 
     def _rows_per_chunk(self, bucket: int) -> int:
-        return self._rows_for_bucket(bucket)
+        rows = max(1, self.max_tokens // bucket)
+        # round up so that a chunk splits evenly over the data axis
+        return -(-rows // self.data_shards) * self.data_shards
 
     def _span_plan(self, start: int, ln: int):
         bucket = self._bucket(ln)
@@ -427,45 +382,3 @@ class SpeechLaserModel(SpanEncoderMixin):
     @property
     def _trunc_unit(self) -> str:
         return f"{self.BUCKETS[-1] // 16000} s"
-
-    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False,
-               eager: bool = False):
-        """Encode waveforms -> (N, encoder_dim) float32 (float16 under
-        ``fp16_pull``: cast on the device, bit-equal to the writer's host
-        fp32 -> fp16 cast). Each bucket's chunks are padded to a fixed
-        (rows, bucket) shape; padding rows have length 0 and are dropped.
-        ``keep_device`` returns ``(out, device fp16 rows)``
-        (``encode_common.pull_rows``). ``eager``: the eager forward where a
-        card would replay the chunk shape's CUDA graph."""
-        by_bucket: dict = {}
-        n_truncated = 0
-        for i, w in enumerate(waveforms):
-            w = np.asarray(w, dtype=np.float32)
-            if w.ndim == 2:
-                w = w[:, 0]  # channel 0, as slice_segments/encode_spans
-            n_truncated += len(w) > self.BUCKETS[-1]
-            by_bucket.setdefault(self._bucket(len(w)), []).append((i, w))
-        if n_truncated:
-            logger.warning(
-                f"{n_truncated}/{len(waveforms)} inputs exceed the largest "
-                f"length bucket ({self._trunc_unit}) and are TRUNCATED to it "
-                "-- their embeddings cover only the prefix"
-            )
-
-        fp32 = self.upload_dtype == "fp32"
-        pending = []
-        for bucket, items in sorted(by_bucket.items()):
-            rows = self._rows_for_bucket(bucket)
-            for c0 in range(0, len(items), rows):
-                chunk = items[c0:c0 + rows]
-                padded, scales = encode_common.stage_rows([w for _, w in chunk], rows, bucket,
-                                                          fp32)
-                lengths = np.zeros((rows,), dtype=np.int32)
-                lengths[: len(chunk)] = [min(len(w), bucket) for _, w in chunk]
-                emb = self._span_forward(
-                    torch.from_numpy(padded).to(self.device),
-                    torch.from_numpy(scales).to(self.device),
-                    torch.from_numpy(lengths).to(self.device), bucket, eager)
-                pending.append(([i for i, _ in chunk], emb.half() if fp16_pull else emb))
-        return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
-                                       self.device, keep_device)

@@ -9,26 +9,16 @@ log-fbank on the 16-bit-scaled waveform (``ops/fbank.py``), per-utterance
 per-bin normalisation over valid frames (ddof = 1), stride-2 stacking to
 160 dims.
 
-``SonarSpeechModel`` is the host wrapper. Weights come from a JAX ``.npz``
-(``save_params_npz``) or, without one, from the JAX package's numpy init
-for ``seed`` (``models/param_utils.py``), so both packages hold the same
-random weights. Inputs are bucketed into fixed (batch_size, samples)
-chunks as in JAX, uploaded as per-row int16 (or fp32) and dequantised,
-featurised and encoded on the device.
-
-``encode(..., keep_device=True)`` and ``encode_spans`` also leave the rows
-on the device for the fused pipeline (``models/encode_common.py::pull_rows``).
-
-With more than one card (or a given ``mesh``), each chunk's rows are split
-over the mesh's data axis and the weights replicated on every card, the
-rel-key kernel launching on each; ``batch_size`` rounds up to a multiple
-of the shard count, as in JAX (``models/encode_common.py``). On a card
-each chunk's forward (frontend, trunk with the rel-key kernel, pooler) is
-the replay of a CUDA graph captured once per replica and chunk shape, the
-JAX package's jitted program per bucket (``encode_common.SpanPrograms``);
-the trunk's attention routes are part of a program's key, and
-``eager=True`` runs the forward eagerly. Left out, as TPU workarounds:
-the staging thread pool and buffer donation.
+``SonarSpeechModel`` is the model's shape policy (frame buckets, a fixed
+``batch_size`` of rows a chunk, rounded up to a multiple of a mesh's
+shard count as in JAX) and its forward (frontend, trunk with the rel-key
+kernel on a card, pooler); the host wrapper it inherits
+(``models/encode_common.py::SpanEncoderMixin``) loads the weights (the
+pooler's ``out_proj`` kept fp32), chunks, uploads each chunk as per-row
+int16 (or fp32), runs its forward through the program cache
+(``utils/programs.py``: a replayed CUDA graph per replica and chunk shape
+on a card; the trunk's attention routes are part of a program's key),
+splits chunks over a mesh and pulls the rows.
 """
 
 import dataclasses
@@ -38,9 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from svecalign_tpu_torch.models import encode_common
 from svecalign_tpu_torch.models.encode_common import SpanEncoderMixin
-from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
 from svecalign_tpu_torch.models.w2v_bert import (
     W2vBertConfig,
     W2vBertModel,
@@ -49,10 +37,6 @@ from svecalign_tpu_torch.models.w2v_bert import (
 )
 from svecalign_tpu_torch.ops.fbank import fbank_device
 from svecalign_tpu_torch.utils import trace
-from svecalign_tpu_torch.utils.log_utils import logging
-from svecalign_tpu_torch.utils.torch_setup import resolve_device
-
-logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,18 +142,14 @@ def sonar_frontend(wav: torch.Tensor, lengths: torch.Tensor, n_frames: int, n_me
 
 
 class SonarSpeechModel(SpanEncoderMixin):
-    """Host wrapper: bucketed batched forward on the device."""
-
-    supports_spans = True
-    # encode(..., keep_device=True) returns (out, device fp16 rows): the
-    # fused pipeline's handoff (utils/embed_cache.py)
-    supports_keep_device = True
-    WAVE_BUCKETS_S = None  # None = ops.assemble.WAVE_BUCKETS_S
+    """SONAR's shape policy and forward (the host wrapper is
+    :class:`~svecalign_tpu_torch.models.encode_common.SpanEncoderMixin`)."""
 
     # 10 ms frames (pre-stack), the JAX package's buckets: 700/1400 fill
     # the 500 -> 1000 -> 2000 gaps where overlap windows fall; 4500/6000
     # exist for embed_align spans. Longer inputs truncate, loudly.
     BUCKET_FRAMES = (200, 500, 700, 1000, 1400, 2000, 3000, 4500, 6000)
+    KEEP_FP32 = ("pooler.out_proj",)
 
     def __init__(
         self,
@@ -181,36 +161,8 @@ class SonarSpeechModel(SpanEncoderMixin):
         device="cuda",
         mesh=None,
     ):
-        if upload_dtype not in ("int16", "fp32"):
-            raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
-        self.config = config
-        self.upload_dtype = upload_dtype  # int16 (half bytes) | fp32 (exact)
-        resolve_device(device)  # no card and no device="cpu": raise before the init
-
-        with torch.device("meta"):
-            model = SonarSpeechEncoder(config)
-        flat = load_params_npz(ckpt_path) if ckpt_path else {}
-        state = params_from_jax(flat, model, seed=seed, source=ckpt_path or "random init")
-        model.load_state_dict(state, assign=True)
-        if ckpt_path:
-            logger.info(f"Loaded SONAR params from {ckpt_path}")
-        else:
-            logger.warning("SONAR encoder initialized with RANDOM weights; "
-                           "embeddings are not meaningful for mining.")
-        # the weights of every compute-dtype layer are stored in that
-        # dtype once, not cast per call (the same rounding as flax's
-        # per-call cast); LayerNorms and the fp32 out_proj stay fp32
-        dt = compute_dtype(config)
-        for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)) and name != "pooler.out_proj":
-                mod.to(dt)
-        # data-parallel inference: weights on every data shard's card, and
-        # chunk rows that split evenly over the data axis
-        self.device, self.mesh, self._replicas = encode_common.place_model(
-            model.eval().requires_grad_(False), device, mesh)
-        self.model = self._replicas[0]
-        self.batch_size = batch_size
-        self._fit_rows_to_mesh()
+        self.batch_size = batch_size  # rounded up to the mesh's shard count
+        super().__init__(SonarSpeechEncoder, config, ckpt_path, seed, upload_dtype, device, mesh)
 
     def _fit_rows_to_mesh(self) -> None:
         self.batch_size = -(-self.batch_size // self.data_shards) * self.data_shards
@@ -263,45 +215,3 @@ class SonarSpeechModel(SpanEncoderMixin):
     @property
     def _trunc_unit(self) -> str:
         return f"{self.BUCKET_FRAMES[-1]} x 10 ms"
-
-    def encode(self, waveforms, keep_device: bool = False, fp16_pull: bool = False,
-               eager: bool = False):
-        """Encode waveforms -> (N, pool_dim) float32 (float16 under
-        ``fp16_pull``: cast on the device, bit-equal to the writer's host
-        fp32 -> fp16 cast). ``keep_device`` returns ``(out, device fp16
-        rows)`` (``encode_common.pull_rows``). ``eager``: the eager forward
-        where a card would replay the chunk shape's CUDA graph."""
-        by_bucket: dict = {}
-        n_truncated = 0
-        for i, w in enumerate(waveforms):
-            w = np.asarray(w, dtype=np.float32)
-            if w.ndim == 2:
-                w = w[:, 0]  # channel 0, as slice_segments/encode_spans
-            n_frames = 0 if len(w) < 400 else 1 + (len(w) - 400) // 160
-            n_truncated += n_frames > self.BUCKET_FRAMES[-1]
-            by_bucket.setdefault(self._bucket(n_frames), []).append((i, w, n_frames))
-        if n_truncated:
-            logger.warning(
-                f"{n_truncated}/{len(waveforms)} inputs exceed the largest "
-                f"frame bucket ({self.BUCKET_FRAMES[-1]} x 10 ms) and are "
-                "TRUNCATED to it -- their embeddings cover only the prefix"
-            )
-
-        fp32 = self.upload_dtype == "fp32"
-        pending = []
-        for bucket, items in sorted(by_bucket.items()):
-            samples = self._bucket_width(bucket)
-            for c0 in range(0, len(items), self.batch_size):
-                chunk = items[c0:c0 + self.batch_size]
-                # fixed (batch_size, samples) chunks; padding rows have length 0
-                padded, scales = encode_common.stage_rows(
-                    [w for _, w, _ in chunk], self.batch_size, samples, fp32)
-                lengths = np.zeros((self.batch_size,), dtype=np.int32)
-                lengths[: len(chunk)] = [min(n_frames, bucket) for *_, n_frames in chunk]
-                emb = self._span_forward(
-                    torch.from_numpy(padded).to(self.device),
-                    torch.from_numpy(scales).to(self.device),
-                    torch.from_numpy(lengths).to(self.device), bucket, eager)
-                pending.append(([i for i, *_ in chunk], emb.half() if fp16_pull else emb))
-        return encode_common.pull_rows(pending, len(waveforms), self._embed_dim, fp16_pull,
-                                       self.device, keep_device)

@@ -186,13 +186,8 @@ def embed_segments_to_file(
     written file to it. The write and rename are the span ``embed.write``
     (``utils/trace.py``).
     """
-    fused = (
-        embed_cache.enabled
-        and cache_key is not None
-        and fp16
-        and getattr(embed_model, "supports_keep_device", False)
-    )
-    if window_assembly == "device" and getattr(embed_model, "supports_spans", False):
+    fused = embed_cache.enabled and cache_key is not None and fp16
+    if window_assembly == "device":
         if waveform is None:
             waveform = load_waveform(wave_path, sr=SAMPLE_RATE)
         emb = embed_model.encode_spans(waveform, segments, keep_device=fused, fp16_pull=fp16)

@@ -45,7 +45,7 @@ def chunk_forward(model, card):
     under the profiler: (pooled rows, each conv call's kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    rows, bucket = model._rows_for_bucket(64000), 64000
+    rows, bucket = model._rows_per_chunk(64000), 64000
     gen = torch.Generator(device=card).manual_seed(0)
     q = torch.randint(-8000, 8000, (rows, bucket), device=card, dtype=torch.int16,
                       generator=gen)
@@ -69,7 +69,7 @@ def test_600s_chunk_convs_run_tensor_op_kernels(card, monkeypatch):
     measured, so it is the one conv left out. The pooled rows match those
     of one call a conv within the bf16 tolerance."""
     model = tlaser.SpeechLaserModel(max_tokens=600 * 16000, device=card)
-    assert model._rows_for_bucket(64000) == 150 and tlaser.conv_groups(150, 64000) == 2
+    assert model._rows_per_chunk(64000) == 150 and tlaser.conv_groups(150, 64000) == 2
     got, calls = chunk_forward(model, card)
     n_convs = len(model.config.conv_layers) + 1  # the extractor's and the positional conv
     assert len(calls) == 2 * n_convs and all(names for _, names in calls), calls

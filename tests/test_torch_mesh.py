@@ -337,7 +337,7 @@ def test_data_parallel_encode_spans_matches_jax(kind):
                                       mesh=m, **kw) for m in (mesh, None)]
         for m in [jm, *tm]:
             m.BUCKETS = (16000,)
-        assert tm[0]._rows_for_bucket(16000) == jm._rows_for_bucket(16000) == 8
+        assert tm[0]._rows_per_chunk(16000) == jm._rows_for_bucket(16000) == 8
     else:
         kw = dict(batch_size=2, upload_dtype="fp32")
         jm = jsonar.SonarSpeechModel(jsonar.SonarEncoderConfig(**TINY_SONAR,

@@ -1,12 +1,12 @@
-"""The encoders' per-shape programs (``svecalign_tpu_torch.models.
-encode_common.SpanPrograms``) on the CPU, through a stand-in for
-``torch.cuda.CUDAGraph``.
+"""The encoders' per-shape programs (one ``svecalign_tpu_torch.utils.
+programs.Programs`` per replica) on the CPU, through the stand-in for
+``torch.cuda.CUDAGraph`` in ``tests/rerun_graph.py``.
 
 On a card every ``_span_forward`` replays a CUDA graph captured once per
 (replica, bucket, rows, width, input dtypes). The CPU has no graphs, so
-the stand-in below plays one: its capture runs the forward into the
-static output, and each replay runs it again from the static inputs into
-that same output, as a graph's replay overwrites its output. Through it:
+the stand-in plays one: its capture runs the forward into the static
+output, and each replay runs it again from the static inputs into that
+same output, as a graph's replay overwrites its output. Through it:
 
 - ``encode_spans`` and the host-sliced ``encode`` equal the eager rows bit
   for bit, for SpeechLASER and SONAR at the tiny geometries of their
@@ -28,13 +28,14 @@ that same output, as a graph's replay overwrites its output. Through it:
 - launches inside a program count at each replay, per shard too; the
   tracer sees one span a replayed chunk (``embed.replay``) and the eager
   forward's three;
-- the CUDA program cache refuses a CPU device, and a failed capture
-  raises to the caller and stores nothing;
 - the slice as a whole against the JAX package's jitted encoders, at the
   parity tests' tolerance (fp32 uploads and compute, as every test here
   runs: 5e-5 of the largest
   row value for SONAR, whose rows inherit the fbank's rounding; 1e-4 for
   SpeechLASER).
+
+The cache's own cases (the CPU refusal, failed captures) are in
+``tests/test_torch_programs.py``.
 """
 
 import copy
@@ -50,7 +51,8 @@ from svecalign_tpu_torch.models import laser_encoder as tlaser
 from svecalign_tpu_torch.models import sonar_encoder as tsonar
 from svecalign_tpu_torch.ops import _build
 from svecalign_tpu_torch.parallel.mesh import Mesh, run_on_shards, shard_slices
-from svecalign_tpu_torch.utils import trace
+from svecalign_tpu_torch.utils import programs, trace
+from tests.rerun_graph import RerunGraph
 from tests.test_torch_laser import SMALL as LASER_SMALL
 from tests.test_torch_sonar import SMALL as SONAR_SMALL
 
@@ -59,65 +61,6 @@ torch.set_num_threads(2)
 KINDS = ("speech_laser", "sonar")
 JAX_TOL = {"speech_laser": 1e-4, "sonar": 5e-5}
 MESH_MIN_COSINE = 1 - 1e-5
-
-
-class RerunGraph:
-    """A stand-in for ``torch.cuda.CUDAGraph`` behind
-    ``encode_common.CudaGraph``'s interface: capture runs the forward into
-    the static output; a replay runs it again from the static inputs and
-    writes the same output, its launches uncounted as a graph's are."""
-
-    captures = []  # (device, graph) of every capture, in order
-
-    @staticmethod
-    def arena(device):
-        return None
-
-    @staticmethod
-    def arena_bytes(device, arena):
-        return 0
-
-    def __init__(self, device, arena):
-        self.device = device
-
-    def warm_up(self, fn):
-        fn()
-
-    def capture(self, fn):
-        self.fn = fn
-        self.out = fn()
-        RerunGraph.captures.append((self.device, self))
-        return self.out
-
-    def replay(self):
-        # a graph's replay runs no Python: the launches the forward counts
-        # are the capture's, counted by the program cache, and its spans
-        # are not opened
-        with _build.holding_launches(), trace.holding():
-            self.out.copy_(self.fn())
-
-
-class FailingGraph(RerunGraph):
-    def capture(self, fn):
-        raise RuntimeError("capture refused: operation not permitted when stream is capturing")
-
-
-class FailOnceGraph(RerunGraph):
-    """Its first capture fails; arenas are numbered."""
-
-    arenas = []
-    failures = 0
-
-    @staticmethod
-    def arena(device):
-        FailOnceGraph.arenas.append(len(FailOnceGraph.arenas))
-        return FailOnceGraph.arenas[-1]
-
-    def capture(self, fn):
-        if not FailOnceGraph.failures:
-            FailOnceGraph.failures += 1
-            raise RuntimeError("capture refused once")
-        return super().capture(fn)
 
 
 # buckets and rows per chunk: three buckets, two full chunks and a partial
@@ -312,15 +255,15 @@ class OrderGraph(RerunGraph):
 
 
 def log_loads(monkeypatch):
-    load = encode_common.SpanPrograms.load
+    load = programs.Programs.load
 
-    def logged(programs, key, inputs):
-        done = load(programs, key, inputs)
+    def logged(cache, key, inputs):
+        done = load(cache, key, inputs)
         if done:
-            OrderGraph.log.append(("load", programs.arena))
+            OrderGraph.log.append(("load", cache.arena))
         return done
 
-    monkeypatch.setattr(encode_common.SpanPrograms, "load", logged)
+    monkeypatch.setattr(programs.Programs, "load", logged)
 
 
 def parent_order(model):
@@ -456,42 +399,6 @@ def test_replay_is_one_timed_phase():
     finally:
         encode_common.stop_encode_profile()
         trace.reset()
-
-
-def test_cuda_program_cache_refuses_the_cpu():
-    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
-        encode_common.SpanPrograms(torch.device("cpu"))
-    # the CPU's route is the eager forward, chosen by the model, not a fallback
-    model = make_model("speech_laser", graph_type=None)
-    wave, spans = document("speech_laser")
-    model.encode_spans(wave, spans)
-    assert model.program_stats() == [] and not RerunGraph.captures
-
-
-@pytest.mark.parametrize("kind", KINDS)
-def test_failed_capture_raises_and_stores_nothing(kind):
-    model = make_model(kind, graph_type=FailingGraph)
-    wave, spans = document(kind)
-    with pytest.raises(RuntimeError, match="capture refused"):
-        model.encode_spans(wave, spans)
-    with pytest.raises(RuntimeError, match="capture refused"):
-        model.encode([wave[s:e] for s, e in spans])
-    assert all(not s["capture_s"] for s in model.program_stats())
-
-
-def test_capture_after_a_failed_one_takes_a_fresh_arena():
-    FailOnceGraph.arenas.clear()
-    FailOnceGraph.failures = 0
-    model = make_model("speech_laser", graph_type=FailOnceGraph)
-    wave, spans = document("speech_laser")
-    with pytest.raises(RuntimeError, match="capture refused once"):
-        model.encode_spans(wave, spans)
-    programs = model._programs(0)
-    assert len(programs.failed) == 1 and not programs.programs
-    assert programs.arena == 1 and FailOnceGraph.arenas == [0, 1]
-    np.testing.assert_array_equal(model.encode_spans(wave, spans),
-                                  model.encode_spans(wave, spans, eager=True))
-    assert len(programs.programs) == 3 and programs.arena == 1
 
 
 @pytest.mark.parametrize("kind", KINDS)

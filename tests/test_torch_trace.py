@@ -2,7 +2,7 @@
 
 The card's timing events are played by stand-ins behind
 ``trace.CudaEvents``' interface (``trace.event_type``), as
-``encode_common.SpanPrograms`` takes a stand-in for ``CUDAGraph``:
+``utils.programs.Programs`` takes a stand-in for ``CUDAGraph``:
 
 - off, a span is one shared object: nothing is recorded and no event
   made, in the stages too;

@@ -27,6 +27,7 @@ from svecalign_tpu_torch.analysis import dump_alignments
 from svecalign_tpu_torch.models import whisper
 from svecalign_tpu_torch.ops.fbank import slaney_mel_filters, whisper_log_mel
 from svecalign_tpu_torch.utils import audio_io, trace
+from tests.rerun_graph import RerunGraph
 
 EOT = 50257
 
@@ -386,37 +387,6 @@ def test_published_sizes(size, params):
     assert sum(v.numel() for v in m.state_dict().values()) == params
 
 
-class RerunGraph:
-    """A stand-in for ``torch.cuda.CUDAGraph`` behind
-    ``encode_common.CudaGraph``'s interface: capture runs the function into
-    the static output, a replay runs it again from the static inputs."""
-
-    captures = 0
-
-    @staticmethod
-    def arena(device):
-        return None
-
-    @staticmethod
-    def arena_bytes(device, arena):
-        return 0
-
-    def __init__(self, device, arena):
-        pass
-
-    def warm_up(self, fn):
-        fn()
-
-    def capture(self, fn):
-        RerunGraph.captures += 1
-        self.fn = fn
-        self.out = fn()
-        return self.out
-
-    def replay(self):
-        self.out.copy_(self.fn())
-
-
 def test_programs_give_the_eager_transcripts():
     """The card's route (the encoder and every step a program of fixed
     shape over buffers allocated once) gives the eager route's ids and
@@ -426,7 +396,7 @@ def test_programs_give_the_eager_transcripts():
     cs = clips([3.0, 8.0, 1.5, 5.0, 2.2])
     budgets, keep = [6, 10, 4, 9, 3], [0, 1, 3, 4]
     want = asr.Transcriber(m, batch=2).transcribe(cs, "en", budgets, keep_logits=keep)
-    RerunGraph.captures = 0
+    RerunGraph.captures.clear()
     tr = asr.Transcriber(m, batch=2, graph_type=RerunGraph)
     got = tr.transcribe(cs, "en", budgets, keep_logits=keep)
     for g, w in zip(got, want):
@@ -436,10 +406,10 @@ def test_programs_give_the_eager_transcripts():
     keys = set(tr.programs.programs)
     assert sum(k[0] == "whisper.encoder" for k in keys) == 1
     assert {k[3] for k in keys if k[0] == "whisper.step"} == set(range(1, 10))
-    assert RerunGraph.captures == len(keys)
+    assert len(RerunGraph.captures) == len(keys)
     ptr = tr._cross[0][0].data_ptr()
     tr.transcribe(cs[:2], "de", 4)
-    assert RerunGraph.captures == len(keys) and tr._cross[0][0].data_ptr() == ptr
+    assert len(RerunGraph.captures) == len(keys) and tr._cross[0][0].data_ptr() == ptr
 
 
 def test_programs_count_their_cache_buffers_once(clean_tracer):
