@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero:
    banded walk on every banded case's planes and on its own edge cases
    (a ring that wraps, int32 planes, a long tail, buckets of 1-64 pairs,
    walks past the shared-memory records, corrupt pointers and starts),
-   the rel-key attention (up to T = 3000); the dense DP's and the banded
-   walk's launch plans against the sources' own;
+   the rel-key attention (up to T = 3000), the LayerNorm (both layouts,
+   fp32 and bf16 in and out, its conv-bias prologue and GELU epilogue);
+   the dense DP's, the banded walk's and the LayerNorm's launch plans
+   against the sources' own;
 3. run the stage-5.4 CLI (``svecalign_tpu_torch.seg_align.align``) on a
    synthetic hour-scale plenary pair written from a seed: the launch
    counts show it went through the kernels, its output must equal a run
@@ -136,7 +138,9 @@ with ``-DWALK_PRODUCERS=k``);
 ``--laser`` runs phases 1, 2 and 6-8; ``--mining`` phases 1, 2 and 9 and
 ``--front`` phases 1, 2 and 10 (no encoder is built), ``--pipeline``
 phases 1, 2 and 11, ``--multi`` phases 1, 2 and 12, ``--train`` phases 1,
-2 and 13; ``--profile``
+2 and 13; ``--norm`` builds, checks the LayerNorm kernel and times it at
+the encoders' shapes against its plain version and its bytes bound (the
+times also run in phase 5); ``--profile``
 profiles one warm stage-5.3 run with each encoder instead, by graph replay
 and with the eager forward.
 
@@ -570,6 +574,159 @@ def phase_attention_checks(device):
             max_err = max(max_err, err)
             _log(f"[check] relkey_attention {dname} {name}: ok (max abs err {err:.3e})")
     return max_err
+
+
+# The LayerNorm kernel at the main path's shapes: (name, memory shape,
+# axis, view, in dtype, out dtype, conv bias and GELU fused)
+NORM_TIMES = (
+    ("extractor layer 0, a 600 s group (75 x 512 x 12799)", (75, 512, 12799), 1, None,
+     "bfloat16", "bfloat16", True),
+    ("extractor layer 0 without the bias and GELU (the epilogue's cost)", (75, 512, 12799), 1,
+     None, "bfloat16", "bfloat16", False),
+    ("post_extract_norm, a 600 s chunk (150 x 199 x 512)", (150, 512, 199), 2, "transpose",
+     "bfloat16", "bfloat16", False),
+    ("LASER trunk norm, a 600 s chunk (29850 x 1024)", (150, 199, 1024), 2, None,
+     "bfloat16", "bfloat16", False),
+    ("LASER encoder_norm, fp32 out (29850 x 1024)", (150, 199, 1024), 2, None,
+     "bfloat16", "float32", False),
+    ("SONAR norm, modal bucket (16 x 250 x 1024)", (16, 250, 1024), 2, None,
+     "bfloat16", "bfloat16", False),
+    ("SONAR depthwise_layer_norm, modal bucket (16 x 1024 x 250)", (16, 1024, 250), 2,
+     "transpose", "bfloat16", "bfloat16", False),
+)
+# (memory shape, axis, view) of the kernel checks: both layouts and the
+# transposed output at the encoders' widths, ragged T, one row
+NORM_CHECKS = (
+    ((3, 1000, 1024), 2, None), ((1, 77, 160), 2, None), ((2, 40, 512), 2, "slice"),
+    ((3, 512, 12799), 1, None), ((1, 512, 3), 1, None), ((2, 1024, 251), 2, "transpose"),
+    ((4, 512, 199), 2, "transpose"),
+)
+
+
+def _norm_operands(shape, axis, view, in_dtype, device, seed):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    C = shape[1] if view == "transpose" or axis == 1 else shape[-1]
+    x = (2 * torch.randn(shape, device=device, generator=gen) + 0.7).to(in_dtype)
+    if view == "transpose":
+        x = x.transpose(1, 2)
+    elif view == "slice":
+        x = x[:, : shape[1] - 5]
+    w = 1 + 0.3 * torch.randn(C, device=device, generator=gen)
+    b = 0.2 * torch.randn(C, device=device, generator=gen)
+    cb = (0.5 * torch.randn(C, device=device, generator=gen)).to(in_dtype)
+    return x, w, b, cb
+
+
+def _bf16_ulps(got, want):
+    """The largest gap in bf16 units of the last place over the values
+    not within 2^-10 of the output's largest magnitude of zero, infinity
+    where any gap passes one unit plus 2^-16 of that magnitude (near zero
+    the fp32 statistics' order of summation decides;
+    ``tests/test_torch_layer_norm_card.py::bf16_ulps``)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    a = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - 7)
+    scale = float(w.abs().max())
+    gap = (g - w).abs()
+    if bool((gap > ulp + scale * 2.0 ** -16).any()):
+        return float("inf")
+    away = a >= scale * 2.0 ** -10
+    return float((gap / ulp)[away].max()) if bool(away.any()) else 0.0
+
+
+def phase_norm_checks(device):
+    """The LayerNorm kernel against its plain version on the card: the
+    source's channels-first plan against the wrapper's copy, then every
+    NORM_CHECKS geometry in bf16 and fp32 in and out, with and without the
+    conv bias and GELU. Returns the largest bf16 gap in ulps and fp32 gap
+    (relative to the output's largest value)."""
+    import torch
+
+    from svecalign_tpu_torch.ops import layer_norm, layer_norm_cuda
+
+    for C in range(8, layer_norm_cuda.MAX_WIDTH + 1, 8):
+        for size in (2, 4):
+            if layer_norm_cuda.source_cfirst_plan(C, size) != layer_norm_cuda.cfirst_plan(C, size):
+                raise AssertionError(f"layer_norm: the wrapper's plan of C={C}, {size}-byte "
+                                     "inputs is not the source's")
+    worst_ulps, worst_rel, gelu_equal, n = 0.0, 0.0, 0, 0
+    dts = (torch.float32, torch.bfloat16)
+    for shape, axis, view in NORM_CHECKS:
+        for in_dt in dts:
+            for out_dt in dts:
+                for with_bias in (False, True):
+                    x, w, b, cb = _norm_operands(shape, axis, view, in_dt, device, n)
+                    args, pre = (x, w, b, 1e-5, axis), cb if with_bias else None
+                    got = layer_norm_cuda.flax_layer_norm_cuda(*args, out_dt, pre)
+                    got_gelu = layer_norm_cuda.flax_layer_norm_cuda(*args, out_dt, pre, True)
+                    torch.cuda.synchronize()
+                    want = layer_norm.flax_layer_norm(*args, axis, out_dt, pre)
+                    n += 1
+                    what = f"{tuple(x.shape)} axis {axis} {in_dt}->{out_dt} bias={with_bias}"
+                    if not (torch.isfinite(got).all() and torch.isfinite(got_gelu).all()):
+                        raise AssertionError(f"layer_norm {what}: not finite")
+                    if out_dt == torch.bfloat16:
+                        ulps = _bf16_ulps(got, want)
+                        worst_ulps = max(worst_ulps, ulps)
+                        if ulps > 1.0:
+                            raise AssertionError(f"layer_norm {what}: {ulps} bf16 ulps")
+                    else:
+                        rel = float((got - want).abs().max() / want.abs().max())
+                        worst_rel = max(worst_rel, rel)
+                        if rel > 1e-5:
+                            raise AssertionError(f"layer_norm {what}: fp32 gap {rel:.3e}")
+                    # the epilogue against PyTorch's GELU of the kernel's own output
+                    gap = (got_gelu.float() - layer_norm.gelu(got).float()).abs()
+                    gelu_equal += int(not bool(gap.any()))
+                    if float((gap / got_gelu.float().abs().clamp_min(1e-30)).max()) > 2 ** -7:
+                        raise AssertionError(f"layer_norm {what}: the GELU epilogue is off")
+    _log(f"[check] layer_norm: {n} cases ok (bf16 outputs within {worst_ulps:.2f} ulp, "
+         f"fp32 within {worst_rel:.2e} relative; the GELU epilogue bit-equal to PyTorch's in "
+         f"{gelu_equal} of {n})")
+    return worst_ulps, worst_rel
+
+
+def phase_norm_times(device):
+    """Device ms a launch of the LayerNorm kernel and of its plain version
+    (both as CUDA-graph replays) at NORM_TIMES' shapes, beside the bytes
+    bound at 3.35 TB/s (x read once, the output written once, the C-wide
+    operands). Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from svecalign_tpu_torch.ops import layer_norm, layer_norm_cuda
+
+    rows = []
+    for name, shape, axis, view, in_name, out_name, fused in NORM_TIMES:
+        in_dt, out_dt = getattr(torch, in_name), getattr(torch, out_name)
+        x, w, b, cb = _norm_operands(shape, axis, view, in_dt, device, 0)
+        pre = cb if fused else None
+        C = x.shape[axis]
+        kernel = lambda: layer_norm_cuda.flax_layer_norm_cuda(x, w, b, 1e-6, axis, out_dt, pre,
+                                                              fused)
+        plain = lambda: layer_norm.flax_layer_norm(x, w, b, 1e-6, axis, axis, out_dt, pre, fused)
+        reps = 20 if x.numel() < 1e8 else 4
+        ms = _graph_time_ms(kernel, reps=reps)
+        plain_ms = _graph_time_ms(plain, reps=max(1, reps // 4), replays=3)
+        library_ms = None
+        if view is None and axis == x.dim() - 1:
+            # PyTorch's own LayerNorm over the last axis (two-pass variance;
+            # the port never calls it): the yardstick of the rows route
+            wl, bl = w.to(in_dt), b.to(in_dt)
+            library_ms = _graph_time_ms(lambda: F.layer_norm(x, (C,), wl, bl, 1e-6), reps=reps)
+        moved = x.numel() * (in_dt.itemsize + out_dt.itemsize) + C * (8 + in_dt.itemsize)
+        bound_ms = moved / 3.35e12 * 1e3
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "gb_per_s": moved / ms * 1e-6})
+        library = "" if library_ms is None else f", F.layer_norm {library_ms:.4f} ms"
+        _log(f"[time] layer_norm {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms{library}), bound "
+             f"{bound_ms:.4f} ms by bytes ({moved / 1e6:.1f} MB), {moved / ms * 1e-6:.0f} GB/s, "
+             f"{bound_ms / ms:.1%} of the bound")
+    return rows
 
 
 def phase_build():
@@ -2301,19 +2458,21 @@ def embed_output(out_dir, lang=SRC_LANG):
 
 def _reset_launches():
     from svecalign_tpu_torch.models import w2v_bert
-    from svecalign_tpu_torch.ops import attention_cuda, dense_dp_cuda, dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import (attention_cuda, dense_dp_cuda, dp_cuda, layer_norm_cuda,
+                                         traceback_cuda)
 
     for counts in (dp_cuda.LAUNCHES, dense_dp_cuda.LAUNCHES, traceback_cuda.LAUNCHES,
-                   attention_cuda.LAUNCHES, w2v_bert.ATTENTION_CALLS):
+                   attention_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES, w2v_bert.ATTENTION_CALLS):
         for name in counts:
             counts[name] = 0
 
 
 def _launches():
-    from svecalign_tpu_torch.ops import attention_cuda, dense_dp_cuda, dp_cuda, traceback_cuda
+    from svecalign_tpu_torch.ops import (attention_cuda, dense_dp_cuda, dp_cuda, layer_norm_cuda,
+                                         traceback_cuda)
 
     return {**dp_cuda.LAUNCHES, **dense_dp_cuda.LAUNCHES, **traceback_cuda.LAUNCHES,
-            **attention_cuda.LAUNCHES}
+            **attention_cuda.LAUNCHES, **layer_norm_cuda.LAUNCHES}
 
 
 def _bucket_plan(model, lines, n_samples):
@@ -2589,6 +2748,10 @@ def phase_embed_path(workdir, device):
                              f"times, want {n_layers} x {n_chunks}")
     if calls["torch"] != 0:
         raise AssertionError(f"the plain attention ran {calls['torch']} times")
+    norms = 1 + 6 * n_layers  # fp_layer_norm, six a conformer layer
+    if launches["layer_norm"] != norms * n_chunks:
+        raise AssertionError(f"layer_norm launched {launches['layer_norm']} times, want "
+                             f"{norms} x {n_chunks}")
 
     rows = np.fromfile(embed_output(workdir / "out"), dtype=np.float16)
     if rows.size != len(lines) * model.config.pool_dim:
@@ -2940,6 +3103,7 @@ def phase_laser_path(workdir, device):
     what the chain needs."""
     import torch
 
+    from svecalign_tpu_torch.models.laser_encoder import conv_groups
     from svecalign_tpu_torch.seg_align import embed as stage
     from svecalign_tpu_torch.utils import embed_model_utils
     from svecalign_tpu_torch.utils.audio_utils import load_waveform
@@ -2978,9 +3142,21 @@ def phase_laser_path(workdir, device):
          "PFLOP: " + ", ".join(f"{k} {v / 1e12:.1f} TFLOP" for k, v in parts.items()))
 
     out = workdir / "emb"
+    _reset_launches()
     wall, peak_first = _peak_above(
         device, lambda: _run_embed(stage, paths, out, kind="speech_laser", device=dev))
     capture_s, pool_bytes = log_programs("LASER", model)
+    # seven extractor norms a row group, post_extract_norm, two a layer,
+    # encoder_norm: 57 a chunk of one group, 64 of two (a 600 s chunk)
+    norm_launches = _launches()["layer_norm"]
+    shards = model.data_shards
+    per_chunk = {b: shards * (len(cfg.conv_layers) * conv_groups(rows_of[b] // shards, b)
+                              + 2 + 2 * cfg.encoder_layers) for b in plan}
+    want_norms = sum(chunks[b] * per_chunk[b] for b in plan)
+    _log(f"[laser] layer_norm launches {norm_launches} over {sum(chunks.values())} chunks "
+         f"(a chunk's by bucket: {per_chunk})")
+    if norm_launches != want_norms:
+        raise AssertionError(f"layer_norm launched {norm_launches} times, want {want_norms}")
     rows = np.load(embed_output(out))
     if rows.dtype != np.float16 or rows.shape != (len(lines), cfg.encoder_dim):
         raise AssertionError(f".embed holds {rows.dtype} {rows.shape}, want float16 "
@@ -3057,7 +3233,8 @@ def phase_laser_path(workdir, device):
         raise AssertionError(f"device and host assembly: min cosine {cos.min()} < "
                              f"{UPLOAD_MIN_COSINE}")
     return {"paths": paths, "lines": lines, "waveform": waveform, "emb_dir": out,
-            "graphs": {**turns, "capture_s": capture_s, "pool_bytes": pool_bytes}}
+            "graphs": {**turns, "capture_s": capture_s, "pool_bytes": pool_bytes},
+            "norm_launches": norm_launches}
 
 
 def _span_chunks(model, spans, n_samples):
@@ -5397,6 +5574,10 @@ def main(argv=None):
                       help="only build, the kernel checks and encoder training (phases 1, 2, "
                            "13: a card-against-CPU gate, the training CLI at full width, timed "
                            "steps); prints no result line")
+    mode.add_argument("--norm", action="store_true",
+                      help="only build, the LayerNorm kernel's checks and its times at the "
+                           "encoders' shapes against its plain version and its bound; prints "
+                           "no result line")
     mode.add_argument("--front", action="store_true",
                       help="only build, the kernel checks and the front of the pipeline "
                            "(phases 1, 2, 10: stages 4.1, 4.2, 6.2 at hour scale; no encoder "
@@ -5418,10 +5599,16 @@ def main(argv=None):
         for kind in ("sonar", "speech_laser"):
             profile_embed(device, kind)
         return 0
+    if args.norm:
+        phase_norm_checks(device)
+        phase_norm_times(device)
+        _log(f"[done] LayerNorm phases passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     check_err = phase_kernel_checks(device)
     dense_err = phase_dense_checks(device)
     if not args.dp:
         attn_err = phase_attention_checks(device)
+        norm_err = phase_norm_checks(device)
     if args.checks:
         _log(f"[done] kernel checks passed in {time.perf_counter() - t_start:.1f}s")
         return 0
@@ -5473,6 +5660,7 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as td:
             info, embed_launches = phase_embed_path(Path(td), device)
         a, _ = phase_attention_times(info, device)
+        norm_times = phase_norm_times(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as td:
         laser = phase_laser_path(Path(td), device)
         phase_chain(Path(td), device, laser)
@@ -5516,6 +5704,14 @@ def main(argv=None):
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
     }]
+    kernels.append({
+        "name": "layer_norm", "route": "cuda", "source": "svecalign_tpu_torch/csrc/layer_norm.cu",
+        "replaces": None, "launches": embed_launches["layer_norm"],
+        "laser_launches": laser["norm_launches"], "pipeline_launches": None,
+        "max_bf16_ulps": norm_err[0], "max_fp32_rel": norm_err[1], "times": norm_times,
+        "library_ms": next(r["library_ms"] for r in norm_times
+                           if r["name"].startswith("LASER trunk")),
+    })
     for name, source, replaces in (
             ("dense_dp", "dense_dp.cu", "svecalign_tpu/ops/dp.py:49"),
             ("dense_traceback_walk", "traceback_walk.cu", "svecalign_tpu/ops/dp.py:215"),

@@ -82,7 +82,7 @@ from torch import nn
 
 from svecalign_tpu_torch.models.param_utils import load_params_npz, params_from_jax
 from svecalign_tpu_torch.models.w2v_bert import compute_dtype
-from svecalign_tpu_torch.ops import assemble
+from svecalign_tpu_torch.ops import _build, assemble, layer_norm_cuda
 from svecalign_tpu_torch.parallel.mesh import Mesh, default_mesh, run_on_shards, shard_slices
 from svecalign_tpu_torch.utils import embed_cache, trace
 from svecalign_tpu_torch.utils.log_utils import logging
@@ -238,7 +238,9 @@ class SpanEncoderMixin:
             raise ValueError(f"upload_dtype must be int16 or fp32, got {upload_dtype!r}")
         self.config = config
         self.upload_dtype = upload_dtype
-        resolve_device(device)  # no card and no device="cpu": raise before the init
+        if resolve_device(device).type == "cuda":  # no card and no device="cpu": raise
+            # nvcc builds the LayerNorm kernel while the weights are made
+            _build.prebuild([layer_norm_cuda.KERNEL])
 
         with torch.device("meta"):
             model = encoder(config)

@@ -15,9 +15,13 @@ a flax parameter path maps to a ``state_dict`` key by ``/`` -> ``.``
 Numerics follow the flax modules:
 
 - convs and Dense layers compute in the compute dtype (bf16 on the main
-  path); every LayerNorm (epsilon 1e-6, flax's fast variance) computes and
-  returns fp32; the extractor casts back to the compute dtype before its
-  GELU; the residual stream is in the compute dtype;
+  path); every LayerNorm (epsilon 1e-6, flax's fast variance) computes in
+  fp32 and returns the compute dtype where a dense or conv follows
+  (``encoder_norm`` fp32, for the pool); the extractor casts back to it
+  before its GELU (on a card the conv's bias add, the norm, the cast and
+  the GELU are one launch of the LayerNorm kernel:
+  ``models/w2v_bert.py::FlaxLayerNorm``); the residual stream is in the
+  compute dtype;
 - GELU is the tanh approximation below 32 bits and exact erf in fp32;
 - attention scales the query by 1/sqrt(head size) and masks padded keys.
   The JAX package runs it as plain XLA (its Pallas kernel was measured
@@ -55,6 +59,7 @@ from torch import nn
 
 from svecalign_tpu_torch.models.encode_common import SpanEncoderMixin
 from svecalign_tpu_torch.models.w2v_bert import FlaxLayerNorm, compute_dtype, dense
+from svecalign_tpu_torch.ops.layer_norm import gelu
 from svecalign_tpu_torch.utils import trace
 
 FLAX_EPS = 1e-6  # flax LayerNorm / GroupNorm default epsilon
@@ -121,14 +126,6 @@ class LaserEncoderConfig:
         return size, hop
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``_gelu``: tanh approximation below 32 bits, exact
-    erf in fp32."""
-    if x.dtype.itemsize < 4:
-        return F.gelu(x, approximate="tanh")
-    return F.gelu(x)
-
-
 class HeadsDense(nn.Linear):
     """A flax ``DenseGeneral`` of attention, stored as a plain Linear:
     ``side="in"`` is a query/key/value projection (kernel (d, heads, dh),
@@ -175,14 +172,24 @@ class ConvFeatureExtractor(nn.Module):
         x = wav[:, None, :]  # (B, 1, T): torch convs are channels-first
         for i, (_, _, stride) in enumerate(self.cfg.conv_layers):
             conv = getattr(self, f"conv_{i}")
+            w = conv.weight.to(dt)
+            if self.layer_mode and x.is_cuda and conv.bias is not None:
+                # a conv on a card adds its bias in a pass of its own over
+                # the output, in the compute dtype: the LayerNorm kernel
+                # takes that add in, bit for bit, with the norm, the cast
+                # and the GELU
+                x = F.conv1d(x.to(dt), w, stride=stride)
+                x = getattr(self, f"layer_norm_{i}")(x, dt, conv.bias, gelu_out=True)
+                continue
             bias = None if conv.bias is None else conv.bias.to(dt)
-            x = F.conv1d(x.to(dt), conv.weight.to(dt), bias, stride=stride)
-            if self.layer_mode:
-                x = getattr(self, f"layer_norm_{i}")(x)
-            elif i == 0:
-                x = self.group_norm(x)
+            x = F.conv1d(x.to(dt), w, bias, stride=stride)
             # back to the compute dtype before the activation, as in JAX
-            x = gelu(x.to(dt))
+            if self.layer_mode:
+                x = getattr(self, f"layer_norm_{i}")(x, dt, gelu_out=True)
+            elif i == 0:
+                x = self.group_norm(x, dt, gelu_out=True)
+            else:
+                x = gelu(x)
         return x
 
 
@@ -226,8 +233,8 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.cfg)
-        x = x + self.attn(self.attn_norm(x), mask)
-        y = gelu(dense(self.ffn_in, self.ffn_norm(x), dt))
+        x = x + self.attn(self.attn_norm(x, dt), mask)
+        y = gelu(dense(self.ffn_in, self.ffn_norm(x, dt), dt))
         return x + dense(self.ffn_out, y, dt)
 
 
@@ -287,7 +294,7 @@ class LaserSpeechEncoder(nn.Module):
         hidden states (after encoder_norm)."""
         cfg = self.cfg
         dt = compute_dtype(cfg)
-        x = dense(self.post_extract_proj, self.post_extract_norm(feats), dt)
+        x = dense(self.post_extract_proj, self.post_extract_norm(feats, dt), dt)
         x = x + positional(cfg, x, self.pos_conv.weight, self.pos_conv.bias)
         for i in range(cfg.encoder_layers):
             x = getattr(self, f"layer_{i}")(x, mask)

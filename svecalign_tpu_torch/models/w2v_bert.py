@@ -18,7 +18,8 @@ loosely:
 - parameters are fp32; a Linear or the depthwise conv casts its input and
   weights to the compute dtype, as flax ``Dense(dtype=...)`` does;
 - LayerNorms compute in fp32 with flax's fast variance, E[x^2] - E[x]^2
-  clipped at 0, and the caller casts back to the compute dtype;
+  clipped at 0, and return the compute dtype where a dense follows
+  (``FlaxLayerNorm``: one kernel on a card);
 - the residual stream is in the compute dtype; softmax runs in fp32 and is
   cast back.
 
@@ -54,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from svecalign_tpu_torch.ops import _build
+from svecalign_tpu_torch.ops import _build, layer_norm, layer_norm_cuda
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -103,23 +104,38 @@ class FlaxLayerNorm(nn.Module):
     ``channel_axis``; both are the last axis by default. On a channels-first
     (B, C, T) tensor, ``axis=1, channel_axis=1`` is a LayerNorm over the
     channels and ``axis=2, channel_axis=1`` a flax ``GroupNorm`` with one
-    group per channel (each channel over the whole length)."""
+    group per channel (each channel over the whole length).
+
+    A call may fuse its neighbours in (``ops/layer_norm.py``): ``dtype``
+    rounds the output to it, ``conv_bias`` is a conv's bias added to ``x``
+    first, ``gelu_out`` applies the JAX package's GELU after the rounding.
+
+    Where the call runs: a CUDA tensor goes to the LayerNorm kernel
+    (``ops/layer_norm_cuda.py``), which launches or raises, under autograd
+    too (the trainer's forward); a tensor on any other device runs the
+    plain arithmetic (``ops/layer_norm.py``). The GroupNorm form has no
+    kernel and raises on a CUDA tensor (wav2vec2-base's layer 0, which no
+    configuration runs)."""
 
     def __init__(self, dim: int, eps: float, axis: int = -1, channel_axis: int = -1):
         super().__init__()
         self.eps = eps
-        self.axis, self.channel_axis = axis, channel_axis
+        self.axis = axis
+        self.channel_axis = channel_axis
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mu = x.mean(self.axis, keepdim=True)
-        var = torch.clamp((x * x).mean(self.axis, keepdim=True) - mu * mu, min=0.0)
-        shape = [1] * x.dim()
-        shape[self.channel_axis] = -1
-        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight.float().view(shape)) \
-            + self.bias.float().view(shape)
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                conv_bias: Optional[torch.Tensor] = None, gelu_out: bool = False) -> torch.Tensor:
+        axis, channel_axis = self.axis % x.dim(), self.channel_axis % x.dim()
+        if not x.is_cuda:
+            return layer_norm.flax_layer_norm(x, self.weight, self.bias, self.eps, axis,
+                                              channel_axis, dtype, conv_bias, gelu_out)
+        if axis != channel_axis:
+            raise ValueError("FlaxLayerNorm: the GroupNorm form (statistics over axis "
+                             f"{axis}, channels along {channel_axis}) has no CUDA kernel")
+        return layer_norm_cuda.flax_layer_norm_cuda(x, self.weight, self.bias, self.eps, axis,
+                                                    dtype, conv_bias, gelu_out)
 
 
 def sinusoidal_rel_pe(seq_len: int, d_model: int) -> np.ndarray:
@@ -266,14 +282,14 @@ class _ConvModule(nn.Module):
         cfg = self.cfg
         dt = compute_dtype(cfg)
         h = cfg.hidden_size
-        x = self.layer_norm(x).to(dt)
+        x = self.layer_norm(x, dt)
         if pad_mask is not None:
             x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=dt, device=x.device))
         x = dense(self.pointwise_conv1, x, dt)
         x = x[..., :h] * torch.sigmoid(x[..., h:])  # GLU over channels
         x = F.pad(x.transpose(1, 2), (cfg.conv_depthwise_kernel_size - 1, 0))
         x = F.conv1d(x, self.depthwise_conv.weight.to(dt), groups=h).transpose(1, 2)
-        x = F.silu(self.depthwise_layer_norm(x).to(dt))
+        x = F.silu(self.depthwise_layer_norm(x, dt))
         return dense(self.pointwise_conv2, x, dt)
 
 
@@ -293,11 +309,11 @@ class W2vBertEncoderLayer(nn.Module):
 
     def forward(self, x, attn_bias, pad_mask, lengths=None, rel_pe=None):
         dt = compute_dtype(self.cfg)
-        x = x + 0.5 * self.ffn1(self.ffn1_layer_norm(x).to(dt))
-        x = x + self.self_attn(self.self_attn_layer_norm(x).to(dt), attn_bias, lengths, rel_pe)
+        x = x + 0.5 * self.ffn1(self.ffn1_layer_norm(x, dt))
+        x = x + self.self_attn(self.self_attn_layer_norm(x, dt), attn_bias, lengths, rel_pe)
         x = x + self.conv_module(x, pad_mask)
-        x = x + 0.5 * self.ffn2(self.ffn2_layer_norm(x).to(dt))
-        return self.final_layer_norm(x).to(dt)
+        x = x + 0.5 * self.ffn2(self.ffn2_layer_norm(x, dt))
+        return self.final_layer_norm(x, dt)
 
 
 class W2vBertModel(nn.Module):
@@ -328,7 +344,7 @@ class W2vBertModel(nn.Module):
         pad_mask: (B, T) bool, True = valid frame. Returns (B, T, H) in the
         compute dtype."""
         dt = compute_dtype(self.cfg)
-        x = dense(self.fp_projection, self.fp_layer_norm(feats.float()).to(dt), dt)
+        x = dense(self.fp_projection, self.fp_layer_norm(feats, dt), dt)
         attn_bias = lengths = None
         if pad_mask is not None:
             x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=dt, device=x.device))

@@ -52,27 +52,30 @@ launch, this counts those of each shard of a mesh."""
 _held = threading.local()
 
 
-def count_launch(launches: dict, *keys: str) -> None:
-    """Add one launch to ``launches[key]`` for each key, and to
-    :data:`SHARD_LAUNCHES` under the shard being issued. A wrapper calls
-    it where it launches its kernel, and nowhere else.
+def count_launch(launches: dict, *keys: str, counter: Optional[str] = None) -> None:
+    """Add one launch to ``launches[key]`` for each key, to
+    :data:`SHARD_LAUNCHES` under the shard being issued, and to the
+    tracer's counter ``counter`` if one is given. A wrapper calls it where
+    it launches its kernel, and nowhere else.
 
     Inside :func:`holding_launches` (a CUDA graph's warm-up or capture)
     the launch is recorded instead of counted: a captured launch runs at
     each replay, and :func:`count_replay` counts it there."""
     held = getattr(_held, "launches", None)
     if held is not None:
-        held.append((launches, keys))
+        held.append((launches, keys, counter))
         return
-    _count(launches, keys)
+    _count(launches, keys, counter)
 
 
-def _count(launches: dict, keys) -> None:
+def _count(launches: dict, keys, counter: Optional[str]) -> None:
     shard = current_shard()
     for key in keys:
         launches[key] += 1
         if shard is not None:
             SHARD_LAUNCHES[(shard, key)] += 1
+    if counter is not None:
+        trace.count(counter)
 
 
 @contextlib.contextmanager
@@ -90,8 +93,8 @@ def holding_launches():
 def count_replay(record) -> None:
     """Count once each launch of a :func:`holding_launches` record: one
     replay of the graph captured while it was made."""
-    for launches, keys in record:
-        _count(launches, keys)
+    for launches, keys, counter in record:
+        _count(launches, keys, counter)
 
 
 def kernel_names():
@@ -119,12 +122,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+_build_lock = threading.Lock()
+
+
+def prebuild(names: Iterable[str]) -> threading.Thread:
+    """:func:`build_all` of ``names`` on a thread of its own, so that nvcc
+    runs while the caller does other set-up; a later :func:`load` waits
+    for it. A failed build here raises nothing: the :func:`load` that
+    needs the kernel builds again and raises."""
+    def run():
+        try:
+            build_all(names)
+        except Exception:  # load() repeats the build and raises
+            pass
+
+    thread = threading.Thread(target=run, name="kernel-prebuild", daemon=True)
+    thread.start()
+    return thread
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named kernel (default: all of ``csrc/``) that is not
     built yet, one nvcc process per source, all started together. Returns
     each kernel's compiler output (ptxas register/shared-memory report;
-    empty when it was already built). Raises if any build fails."""
-    names = kernel_names() if names is None else list(names)
+    empty when it was already built). Raises if any build fails. One
+    build runs at a time in a process (:func:`prebuild`'s thread too)."""
+    with _build_lock:
+        return _build_all(kernel_names() if names is None else list(names))
+
+
+def _build_all(names) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     logs = {}

@@ -6,8 +6,8 @@ of 40 s a side, documents of 60 s), so that their control flow,
 file layout and checks run before the card sees them. The encoders are
 2-layer, 128-wide (LASER keeps the full conv geometry: 400-sample frames
 every 320); the rel-key "kernel" is its plain version, counted as a
-launch, since the CUDA kernel runs only on the card. Also the smoke's
-operation count.
+launch, since the CUDA kernel runs only on the card, and so is each
+LayerNorm call. Also the smoke's operation count.
 """
 
 import inspect
@@ -20,7 +20,7 @@ import chip_smoke as cs
 from svecalign_tpu_torch.models import laser_encoder as tlaser
 from svecalign_tpu_torch.models import sonar_encoder as tsonar
 from svecalign_tpu_torch.models import w2v_bert
-from svecalign_tpu_torch.ops import attention, attention_cuda
+from svecalign_tpu_torch.ops import attention, attention_cuda, layer_norm_cuda
 from svecalign_tpu_torch.utils import embed_model_utils as temu
 
 torch.set_num_threads(2)
@@ -35,8 +35,9 @@ SONAR_TINY = tsonar.SonarEncoderConfig(model_dim=128, n_layers=2, n_heads=2, ffn
 
 @pytest.fixture
 def tiny_card(monkeypatch):
-    """Tiny encoders from the loaders; the plain rel-key attention counted
-    as a kernel launch; no device to synchronise."""
+    """Tiny encoders from the loaders; the plain rel-key attention and
+    each LayerNorm call counted as a kernel launch; no device to
+    synchronise."""
     build = temu._build_embed_model
 
     def tiny(*args, **kwargs):
@@ -59,6 +60,13 @@ def tiny_card(monkeypatch):
     monkeypatch.setattr(w2v_bert._SelfAttention, "_use_kernel",
                         lambda self, x: self.attention_backend == "auto")
     monkeypatch.setattr(attention_cuda, "relkey_attention_cuda", plain_kernel)
+    norm_forward = w2v_bert.FlaxLayerNorm.forward
+
+    def counted_norm(self, x, *args, **kwargs):
+        layer_norm_cuda.LAUNCHES["layer_norm"] += 1
+        return norm_forward(self, x, *args, **kwargs)
+
+    monkeypatch.setattr(w2v_bert.FlaxLayerNorm, "forward", counted_norm)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "DOC_SECONDS", 120)
     temu._model_memo.clear()
@@ -72,6 +80,8 @@ def test_laser_phase_and_chain_rehearsal(tiny_card, tmp_path, capsys):
     result = cs.phase_chain(tmp_path, device, laser)
     out = capsys.readouterr().out
     assert "[laser] --upload_precision fp32" in out and "(bit-equal)" in out
+    assert f"[laser] layer_norm launches {laser['norm_launches']} over" in out
+    assert laser["norm_launches"] > 0
     assert "stage 6.3 (--max_num_align 3 --max_sil 1.0 --max_dur 20.0" in out
     assert out.count("stage 6.5") == 4
     # the chain starts from the stage-5.1 windows and stage 5.2, and ends in the mined tsv
