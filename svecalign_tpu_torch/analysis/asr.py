@@ -59,7 +59,8 @@ Departures from openai's ``transcribe()``, each deliberate:
 
 Spans (``utils/trace.py``, the ``ASR`` area, ``SVECALIGN_ASR_PROFILE=1``
 at a call's entry): ``asr.call`` (host, the call's request id),
-``asr.read`` (the audio files' read, host-only), and per batch
+``asr.read`` (the wait for the first batch's clips, read on a thread
+that reads the rest while the card works, host-only), and per batch
 ``asr.mel``, ``asr.encode``, ``asr.cross_kv`` and ``asr.decode`` (on the
 card; ``asr.decode`` holds ``asr.prefill`` and one ``asr.step`` a step,
 and ends with the pull of the batch's ids), then ``asr.write`` (the ids
@@ -73,8 +74,10 @@ self-attention's at ``n_text_ctx`` positions).
 """
 
 import itertools
+from collections.abc import Sequence
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -191,16 +194,10 @@ class Transcriber:
                 raise ValueError(f"a budget must lie in [1, {ctx - 4}], got {b}")
         keep = set(keep_logits)
         out = [Transcript(self.special.prompt(lang)) for lang in langs]
-        rows = []  # (clip, piece's samples)
-        for i, clip in enumerate(clips):
-            clip = np.asarray(clip, dtype=np.float32)
-            for lo in range(0, max(len(clip), 1), N_SAMPLES):
-                rows.append((i, clip[lo:lo + N_SAMPLES]))
         trace.count("asr.clips", n)
         silent = np.zeros(0, dtype=np.float32)
         with torch.inference_mode():
-            for lo in range(0, len(rows), self.batch):
-                part = rows[lo:lo + self.batch]
+            for part in batches(pieces(clips, N_SAMPLES), self.batch):
                 fill = self.batch - len(part)
                 self._batch(part + [(None, silent)] * fill,
                             [out[i].prompt for i, _ in part] + [out[part[0][0]].prompt] * fill,
@@ -300,28 +297,68 @@ class Transcriber:
         return ids.cpu().numpy(), (None if kept is None else kept.cpu().numpy())
 
 
-def transcribe_sides(transcriber: Transcriber,
+def pieces(clips: Sequence[np.ndarray], size: int):
+    """Each clip's pieces of at most ``size`` samples, in order, as ``(clip
+    index, samples)``; a clip of no samples is one empty piece. Lazy: a
+    clip is taken when its batch is made (a read in flight is waited for
+    then)."""
+    for i, clip in enumerate(clips):
+        clip = np.asarray(clip, dtype=np.float32)
+        for lo in range(0, max(len(clip), 1), size):
+            yield i, clip[lo:lo + size]
+
+
+def batches(rows, batch: int):
+    """``rows`` in lists of ``batch``, the last one shorter."""
+    rows = iter(rows)
+    while part := list(itertools.islice(rows, batch)):
+        yield part
+
+
+class _Reads(Sequence):
+    """The clips of a call, read on a thread in order: an item waits for
+    its read."""
+
+    def __init__(self, reads):
+        self.reads = reads
+
+    def __len__(self):
+        return len(self.reads)
+
+    def __getitem__(self, i):
+        return self.reads[i].result()
+
+
+def _read_span(path: str, start: int, end: int) -> np.ndarray:
+    audio = load_waveform(path, start, end)
+    return audio[:, 0] if audio.ndim == 2 else audio
+
+
+def transcribe_sides(transcriber,
                      sides: Sequence[Tuple[str, Sequence[Tuple[int, int]], str]],
                      max_tokens: Union[None, int, Sequence[int]] = None,
                      keep_logits: Sequence[int] = (),
                      request=None) -> List[List[Transcript]]:
     """One call: the spans (start and end samples) of each side's audio
     file, each side in its language (``sides``: ``(path, spans, lang)``),
-    transcribed together, in order; returns the transcripts side by side.
-    ``max_tokens`` and ``keep_logits`` index the clips of all sides in
-    order."""
+    transcribed together, in order, by ``transcriber`` (Whisper's
+    :class:`Transcriber` or Parakeet's ``analysis.tdt.TdtTranscriber``: a
+    ``device`` and ``transcribe(clips, langs, max_tokens, keep_logits)``);
+    returns the transcripts side by side. ``max_tokens`` and
+    ``keep_logits`` index the clips of all sides in order. A thread reads
+    the spans in order while the transcriber works on the batches before,
+    which take their clips as they come; ``asr.read`` is the wait for the
+    first batch's clips, which nothing on the card hides."""
     dev = transcriber.device
     trace.ASR.switch(dev)
     request = f"call {next(_calls)}" if request is None else request
-    with trace.ASR.span("asr.call", request=request):
-        clips, langs = [], []
+    langs = [lang for _, spans, lang in sides for _ in spans]
+    with trace.ASR.span("asr.call", request=request), ThreadPoolExecutor(1) as pool:
+        reads = [pool.submit(_read_span, path, s, e) for path, spans, _ in sides
+                 for s, e in spans]
         with trace.ASR.span("asr.read", dev, host_only=True):
-            for path, spans, lang in sides:
-                audio = load_waveform(path)
-                if audio.ndim == 2:
-                    audio = audio[:, 0]
-                clips += [audio[s:e] for s, e in spans]
-                langs += [lang] * len(spans)
-        got = transcriber.transcribe(clips, langs, max_tokens, keep_logits)
+            for read in reads[:transcriber.batch]:
+                read.result()
+        got = transcriber.transcribe(_Reads(reads), langs, max_tokens, keep_logits)
     bounds = np.cumsum([0] + [len(spans) for _, spans, _ in sides])
     return [got[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]

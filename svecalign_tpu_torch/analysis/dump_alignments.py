@@ -16,12 +16,17 @@ package): it loads openai's checkpoint file ``<whisper_root>/<whisper_size>.pt``
 raises, naming the path, where there is none: nothing is downloaded. Both
 sides of a pair are one call, in batches, greedy, each side in its
 language (``--src_lang`` / ``--tgt_lang``, required with ``--asr``: no
-language detection). The pages show the token ids: no vocabulary file is
+language detection). ``--asr_model parakeet-tdt`` transcribes with the
+port's Parakeet-TDT instead (``models/parakeet.py``, ``analysis/tdt.py``):
+it loads NVIDIA's ``.nemo`` archive ``--parakeet_ckpt`` onto ``--device``
+and raises, naming the path, where there is none; the languages are then
+the model's to detect. The pages show the token ids: no vocabulary file is
 in the repository to turn them into text.
 
 CLI: ``python -m svecalign_tpu_torch.analysis.dump_alignments METADATA OUT_DIR
 --align_dir A --seg_dir D --src_lang S --tgt_lang T [--max_rows N]
-[--asr --whisper_size SIZE --whisper_root DIR --device cuda|cpu]
+[--asr [--asr_model whisper|parakeet-tdt] --whisper_size SIZE --whisper_root DIR
+--parakeet_ckpt FILE.nemo --device cuda|cpu]
 [--rows_per_page 100]``
 """
 
@@ -31,8 +36,8 @@ import os
 from pathlib import Path
 from typing import List, Optional, Tuple
 
-from svecalign_tpu_torch.analysis import asr
-from svecalign_tpu_torch.models import whisper
+from svecalign_tpu_torch.analysis import asr, tdt
+from svecalign_tpu_torch.models import parakeet, whisper
 from svecalign_tpu_torch.utils.audio_utils import Segment
 from svecalign_tpu_torch.utils.file_utils import (
     alignments_to_timestamps,
@@ -66,14 +71,19 @@ def parse_args(argv=None):
     parser.add_argument("--tgt_wav", type=str, default=None)
     parser.add_argument("--out_dir", type=str, default=None)
     parser.add_argument("--asr", dest="with_asr", action="store_true", default=False,
-                        help="transcribe both sides with the port's Whisper (token ids).")
+                        help="transcribe both sides with the port's ASR (token ids).")
+    parser.add_argument("--asr_model", type=str, default="whisper", choices=ASR_MODELS,
+                        help="the ASR of --asr")
     parser.add_argument("--whisper_size", type=str, default="medium",
                         help="the checkpoint <whisper_root>/<whisper_size>.pt")
     parser.add_argument("--whisper_root", type=str, default=None,
                         help="directory of openai's checkpoints (default: openai's "
                              "download root)")
+    parser.add_argument("--parakeet_ckpt", type=str, default=None,
+                        help="NVIDIA's .nemo archive of Parakeet-TDT (--asr_model "
+                             "parakeet-tdt)")
     parser.add_argument("--device", type=str, default="cuda", choices=DEVICES,
-                        help="where --asr runs Whisper")
+                        help="where --asr runs its model")
     # shared knobs
     parser.add_argument("--max_rows", type=int, default=None,
                         help="cap the number of dumped alignments per pair.")
@@ -81,7 +91,8 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-_ASR = {}  # checkpoint path and device -> Transcriber: one load per process
+ASR_MODELS = ("whisper", "parakeet-tdt")
+_ASR = {}  # checkpoint path and device -> transcriber: one load per process
 
 
 def default_whisper_root() -> str:
@@ -91,16 +102,28 @@ def default_whisper_root() -> str:
     return os.path.join(cache, "whisper")
 
 
-def _transcribe(sides, size: str, root: Optional[str], device) -> List[List[str]]:
+def _transcribe(sides, size: str, root: Optional[str], device, asr_model: str = "whisper",
+                parakeet_ckpt: Optional[str] = None) -> List[List[str]]:
     """Each side's clips (``(audio path, spans, lang)``) as strings of
-    Whisper token ids, both sides in one call."""
-    path = Path(root or default_whisper_root()) / f"{size}.pt"
+    token ids of ``asr_model``, both sides in one call."""
+    if asr_model not in ASR_MODELS:
+        raise ValueError(f"--asr_model must be one of {ASR_MODELS}, got {asr_model!r}")
+    if asr_model == "whisper":
+        path = Path(root or default_whisper_root()) / f"{size}.pt"
+    elif parakeet_ckpt is None:
+        raise ValueError("--asr_model parakeet-tdt needs --parakeet_ckpt (NVIDIA's .nemo "
+                         "archive; nothing is downloaded)")
+    else:
+        path = Path(parakeet_ckpt)
     dev = resolve_device(device)
-    key = (str(path), str(dev))
+    key = (asr_model, str(path), str(dev))
     if key not in _ASR:
         _ASR.clear()  # one model at a time
-        _ASR[key] = asr.Transcriber(whisper.load_checkpoint(path, dev))
-        logger.info(f"ASR: Whisper from {path} on {dev}; transcripts are token ids (no "
+        if asr_model == "whisper":
+            _ASR[key] = asr.Transcriber(whisper.load_checkpoint(path, dev))
+        else:
+            _ASR[key] = tdt.TdtTranscriber(parakeet.load_nemo(path, dev))
+        logger.info(f"ASR: {asr_model} from {path} on {dev}; transcripts are token ids (no "
                     f"vocabulary file is in the repository)")
     return [[" ".join(map(str, t.tokens)) for t in side]
             for side in asr.transcribe_sides(_ASR[key], sides)]
@@ -150,6 +173,8 @@ def dump(
     src_lang: Optional[str] = None,
     tgt_lang: Optional[str] = None,
     device="cuda",
+    asr_model: str = "whisper",
+    parakeet_ckpt: Optional[str] = None,
 ) -> None:
     if with_asr and not (src_lang and tgt_lang):
         raise ValueError("--asr needs --src_lang and --tgt_lang (no language detection)")
@@ -193,7 +218,7 @@ def dump(
     if with_asr and n:
         src_texts, tgt_texts = _transcribe(
             [(src_audio, src_times[:n], src_lang), (tgt_audio, tgt_times[:n], tgt_lang)],
-            whisper_size, whisper_root, device)
+            whisper_size, whisper_root, device, asr_model, parakeet_ckpt)
         for r, s, t in zip(rows, src_texts, tgt_texts):
             r["src_text"] = s
             r["tgt_text"] = t
@@ -229,6 +254,8 @@ def main(argv=None):
             args.src_lang,
             args.tgt_lang,
             args.device,
+            args.asr_model,
+            args.parakeet_ckpt,
         )
         logger.info("Finished!")
         return
@@ -264,6 +291,8 @@ def main(argv=None):
             src_lang,
             tgt_lang,
             args.device,
+            args.asr_model,
+            args.parakeet_ckpt,
         )
     logger.info("Finished!")
 

@@ -12,6 +12,13 @@ names are the flax module names, so a flax parameter path maps to a
                     -> LN -> swish -> pointwise), residual
        ffn2 half-step residual, final_layer_norm
 
+``conv_module="symmetric"`` is FastConformer's conv module instead
+(Parakeet, ``models/parakeet.py``): LN -> pointwise 2H with a bias + GLU
+-> padded frames zeroed -> symmetric depthwise conv (pad (k - 1) / 2
+each side) with a bias -> BatchNorm over its running statistics, in fp32
+-> swish -> pointwise with a bias. The default ``"causal"`` form, its
+parameters and its arithmetic are untouched by the other's presence.
+
 Numerics follow the flax modules, so that fp32 agrees tightly and bf16
 loosely:
 
@@ -83,6 +90,13 @@ class W2vBertConfig:
     # which equals the mask only for contiguous padding (the SONAR
     # frontend builds exactly that mask)
     attention_backend: str = "auto"
+    # "causal": w2v-BERT's conv module; "symmetric": FastConformer's
+    # (biases, symmetric depthwise padding, BatchNorm; see the module doc)
+    conv_module: str = "causal"
+    # True: each layer hands the next its final LayerNorm's output in fp32,
+    # so that the residual stream is fp32 between and inside the layers
+    # (Parakeet); False: in the compute dtype (SONAR)
+    residual_fp32: bool = False
 
     @property
     def head_size(self) -> int:
@@ -268,17 +282,27 @@ class _SelfAttention(nn.Module):
 class _ConvModule(nn.Module):
     def __init__(self, cfg: W2vBertConfig):
         super().__init__()
+        if cfg.conv_module not in ("causal", "symmetric"):
+            raise ValueError(f"unknown conv_module {cfg.conv_module!r}")
         self.cfg = cfg
         h, ks = cfg.hidden_size, cfg.conv_depthwise_kernel_size
+        sym = cfg.conv_module == "symmetric"
+        if sym and ks % 2 != 1:
+            raise ValueError(f"a symmetric depthwise conv needs an odd kernel, got {ks}")
         self.layer_norm = FlaxLayerNorm(h, cfg.layer_norm_eps)
-        self.pointwise_conv1 = nn.Linear(h, 2 * h, bias=False)
-        self.depthwise_conv = nn.Conv1d(h, h, ks, groups=h, bias=False)
-        self.depthwise_layer_norm = FlaxLayerNorm(h, cfg.layer_norm_eps)
-        self.pointwise_conv2 = nn.Linear(h, h, bias=False)
+        self.pointwise_conv1 = nn.Linear(h, 2 * h, bias=sym)
+        self.depthwise_conv = nn.Conv1d(h, h, ks, groups=h, bias=sym)
+        if sym:
+            self.batch_norm = nn.BatchNorm1d(h)
+        else:
+            self.depthwise_layer_norm = FlaxLayerNorm(h, cfg.layer_norm_eps)
+        self.pointwise_conv2 = nn.Linear(h, h, bias=sym)
 
     def forward(self, x, pad_mask):
         """pad_mask: (B, T) bool, True = valid. The depthwise conv is CAUSAL
-        (left pad k - 1)."""
+        (left pad k - 1), or symmetric in the FastConformer form."""
+        if self.cfg.conv_module == "symmetric":
+            return self._symmetric(x, pad_mask)
         cfg = self.cfg
         dt = compute_dtype(cfg)
         h = cfg.hidden_size
@@ -291,6 +315,26 @@ class _ConvModule(nn.Module):
         x = F.conv1d(x, self.depthwise_conv.weight.to(dt), groups=h).transpose(1, 2)
         x = F.silu(self.depthwise_layer_norm(x, dt))
         return dense(self.pointwise_conv2, x, dt)
+
+    def _symmetric(self, x, pad_mask):
+        """FastConformer: the pointwise conv's bias makes padded frames
+        non-zero, so they are zeroed after the GLU; the BatchNorm is the
+        inference form, a per-channel affine of the running statistics in
+        fp32."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg)
+        h = cfg.hidden_size
+        x = dense(self.pointwise_conv1, self.layer_norm(x, dt), dt)
+        x = x[..., :h] * torch.sigmoid(x[..., h:])  # GLU over channels
+        if pad_mask is not None:
+            x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=dt, device=x.device))
+        conv = self.depthwise_conv
+        x = F.conv1d(x.transpose(1, 2), conv.weight.to(dt), conv.bias.to(dt),
+                     padding=(cfg.conv_depthwise_kernel_size - 1) // 2, groups=h)
+        bn = self.batch_norm
+        x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         False, 0.0, bn.eps)
+        return dense(self.pointwise_conv2, F.silu(x).to(dt).transpose(1, 2), dt)
 
 
 class W2vBertEncoderLayer(nn.Module):
@@ -313,7 +357,7 @@ class W2vBertEncoderLayer(nn.Module):
         x = x + self.self_attn(self.self_attn_layer_norm(x, dt), attn_bias, lengths, rel_pe)
         x = x + self.conv_module(x, pad_mask)
         x = x + 0.5 * self.ffn2(self.ffn2_layer_norm(x, dt))
-        return self.final_layer_norm(x, dt)
+        return self.final_layer_norm(x, torch.float32 if self.cfg.residual_fp32 else dt)
 
 
 class W2vBertModel(nn.Module):
@@ -361,11 +405,14 @@ class W2vBertModel(nn.Module):
         return x
 
     def rel_pe(self, t: int, device: torch.device) -> torch.Tensor:
-        """The (2t - 1, H) fp32 table of the 'relative' flavor on
-        ``device``, made once per length and device, at an eager call (an
-        encoder's warm-up runs before any CUDA graph's capture)."""
-        key = (t, torch.device(device))
-        if key not in self._rel_pe:
-            self._rel_pe[key] = torch.from_numpy(
-                sinusoidal_rel_pe(t, self.cfg.hidden_size)).to(device)
-        return self._rel_pe[key]
+        return cached_rel_pe(self._rel_pe, t, self.cfg.hidden_size, device)
+
+
+def cached_rel_pe(cache: dict, t: int, d_model: int, device) -> torch.Tensor:
+    """The (2t - 1, d_model) fp32 table of the 'relative' flavor on
+    ``device``, made once per length and device into ``cache``, at an eager
+    call (an encoder's warm-up runs before any CUDA graph's capture)."""
+    key = (t, torch.device(device))
+    if key not in cache:
+        cache[key] = torch.from_numpy(sinusoidal_rel_pe(t, d_model)).to(device)
+    return cache[key]

@@ -28,6 +28,18 @@ n_mels=n)`` computes and openai's ``mel_filters.npz`` holds
 (:func:`slaney_mel_filters`), ``log10`` clamped at 1e-10, each clip
 floored at its own maximum less 8, then (x + 4) / 4. Batched over clips
 on the caller's device, fp32, TF32 off.
+
+NeMo's log-mel (:func:`parakeet_log_mel`, the front end of Parakeet's
+``AudioToMelSpectrogramPreprocessor`` as ``transformers``'
+``ParakeetFeatureExtractor`` writes it) is the third: pre-emphasis 0.97
+(samples past a clip's length zeroed after it), a centred STFT of 512
+points at hop 160 with a 400-sample symmetric Hann window zero-padded to
+512 and constant (zero) edge padding, the power of every bin, the Slaney
+filters at ``n_fft=512``, ``log(x + 2^-24)``, then each mel normalised
+over the clip's valid frames (``length // 160``; mean, and the standard
+deviation with n - 1, plus 1e-5) and the padded frames set to 0. No
+dither: inference. Batched over clips of one padded length; each clip's
+features depend on its own samples only.
 """
 
 import math
@@ -276,3 +288,48 @@ def whisper_log_mel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     log_spec = torch.clamp(filters @ power, min=1e-10).log10()
     log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+PARAKEET_N_FFT = 512
+PARAKEET_WIN = 400
+PARAKEET_HOP = 160
+PARAKEET_PREEMPH = 0.97
+PARAKEET_LOG_GUARD = 2.0 ** -24
+PARAKEET_STD_EPS = 1e-5
+
+
+@lru_cache(maxsize=None)
+def _parakeet_constants(n_mels: int, device: torch.device):
+    """The symmetric 400-point Hann window and the mel filters on ``device``."""
+    window = torch.hann_window(PARAKEET_WIN, periodic=False, device=device)
+    filters = slaney_mel_filters(n_mels, PARAKEET_N_FFT)
+    return window, torch.from_numpy(filters).to(device)
+
+
+def parakeet_frames(n_samples):
+    """Valid feature frames of a clip of ``n_samples``: NeMo's
+    ``(n + 2 * (n_fft // 2) - n_fft) // hop``. Ints or an int tensor."""
+    return n_samples // PARAKEET_HOP
+
+
+def parakeet_log_mel(audio: torch.Tensor, lengths: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """NeMo's normalised log-mel of (B, n) fp32 clips zero-padded past
+    ``lengths`` (B,) samples -> (B, n // 160 + 1, n_mels) fp32, frame-major,
+    frames at and past a clip's ``length // 160`` set to 0."""
+    window, filters = _parakeet_constants(n_mels, audio.device)
+    n = audio.shape[1]
+    lengths = lengths.to(audio.device)
+    valid = torch.arange(n, device=audio.device) < lengths[:, None]
+    x = torch.cat([audio[:, :1], audio[:, 1:] - PARAKEET_PREEMPH * audio[:, :-1]], dim=1)
+    x = torch.where(valid, x, torch.zeros((), device=audio.device))
+    stft = torch.stft(x, PARAKEET_N_FFT, PARAKEET_HOP, win_length=PARAKEET_WIN, window=window,
+                      center=True, pad_mode="constant", return_complex=True)
+    power = torch.view_as_real(stft).square().sum(-1)
+    mel = torch.log(filters @ power + PARAKEET_LOG_GUARD).transpose(1, 2)  # (B, T, n_mels)
+    frames = parakeet_frames(lengths)
+    mask = (torch.arange(mel.shape[1], device=audio.device) < frames[:, None])[:, :, None]
+    count = frames.to(torch.float32)[:, None, None]
+    mean = (mel * mask).sum(dim=1, keepdim=True) / count.clamp(min=1)
+    var = (((mel - mean) * mask) ** 2).sum(dim=1, keepdim=True) / (count - 1).clamp(min=1)
+    out = (mel - mean) / (var.sqrt() + PARAKEET_STD_EPS)
+    return torch.where(mask, out, torch.zeros((), device=audio.device))

@@ -45,8 +45,8 @@ entry, :meth:`Area.switch`); an area's spans record only while it is on:
 - ``UNTRANS`` (``SVECALIGN_UNTRANS_PROFILE``): stages 4.2 and 6.2;
 - ``TRAIN`` (``SVECALIGN_TRAIN_PROFILE``): the trainer's steps;
 - ``PIPELINE`` (on while any of the six is "1"): the pipeline's stages;
-- ``ASR`` (``SVECALIGN_ASR_PROFILE``): Whisper's transcription, the audit
-  stage's (``analysis/asr.py``).
+- ``ASR`` (``SVECALIGN_ASR_PROFILE``): the audit stage's transcription,
+  Whisper's (``analysis/asr.py``) and Parakeet-TDT's (``analysis/tdt.py``).
 
 While an area is off a span costs one boolean test: no event, no
 allocation, no synchronise.
